@@ -1,0 +1,70 @@
+"""Parameter trees from the JAX package's layout (port counterpart of
+``avatar_tpu/utils/weight_import.py``).
+
+The JAX package stores linear kernels ``[in, out]`` under ``"kernel"`` and
+conv kernels ``[kt, kh, kw, in, out]`` (DHWIO). The port stores
+``"weight"`` as ``[out, in]`` and ``[out, in, kt, kh, kw]``. Everything
+else (biases, norm scales, AdaLN tables, the tree's structure) carries
+over as it is.
+
+The DiT tree must be the **unpermuted** one: the port's pipeline applies
+the split-RoPE permutation itself at construction.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from avatar_tpu_torch.models.dit import DiTConfig
+from avatar_tpu_torch.models.vae import VAEConfig
+
+
+def _convert(node: Any, device, dtype) -> Any:
+    if isinstance(node, dict):
+        if "kernel_q" in node or "kernel_q8" in node:
+            raise NotImplementedError("quantized params are not ported yet")
+        out = {}
+        for key, val in node.items():
+            if key == "kernel":
+                w = np.asarray(val)
+                if w.ndim == 2:
+                    w = w.T
+                elif w.ndim == 5:
+                    w = w.transpose(4, 3, 0, 1, 2)
+                else:
+                    raise ValueError(f"unexpected kernel rank {w.ndim}")
+                out["weight"] = _tensor(w, device, dtype)
+            else:
+                out[key] = _convert(val, device, dtype)
+        return out
+    if isinstance(node, (list, tuple)):
+        return [_convert(v, device, dtype) for v in node]
+    return _tensor(np.asarray(node), device, dtype)
+
+
+def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+    return t.to(device=device, dtype=dtype if t.ndim else torch.float32)
+
+
+def dit_params_from_numpy(tree: dict, cfg: DiTConfig, device="cuda",
+                          dtype: torch.dtype = torch.float32) -> dict:
+    """Unpermuted JAX DiT params (numpy leaves) -> the port's tree."""
+    if not isinstance(tree.get("blocks"), (list, tuple)):
+        raise NotImplementedError("stacked block params are not ported yet")
+    if len(tree["blocks"]) != cfg.num_layers:
+        raise ValueError(
+            f"{len(tree['blocks'])} blocks for a {cfg.num_layers}-layer config")
+    return _convert(tree, device, dtype)
+
+
+def vae_params_from_numpy(tree: dict, cfg: VAEConfig, device="cuda",
+                          dtype: torch.dtype = torch.float32) -> dict:
+    """JAX VAE params (numpy leaves) -> the port's tree. Scalars (the
+    decoder's timestep multiplier) stay f32."""
+    if cfg.normalize_latent_channels and "latent_norm" in tree:
+        raise NotImplementedError("normalize_latent_channels is not ported yet")
+    return _convert(tree, device, dtype)
