@@ -1,9 +1,11 @@
-// Token-major bf16 attention over one (batch, head, 64-row query tile),
-// shared by rope_attention.cu and token_attention.cu.
+// bf16 attention over one (batch, head, 64-row query tile), shared by
+// rope_attention.cu, token_attention.cu and flash_forward.cu.
 //
-// Layout: q/o are [B, Lq, H*64], k/v are [B, Lk, H*64], all bf16 and
-// contiguous; head h owns columns [h*64, (h+1)*64) of v and o. The caller's
-// loader puts the (possibly rotated) q and k head slices into shared memory.
+// Layout: every tile is [64 rows, 64 head dims] bf16 with a row stride the
+// caller gives: H*64 for the token-major tensors [B, L, H*64] (head h owns
+// columns [h*64, (h+1)*64)), 64 for the head-major tensors [B, H, L, 64].
+// The caller's loader puts the (possibly rotated) q and k head slices into
+// shared memory.
 //
 // Design: one block of 4 warps per 64 query rows; each warp owns 16 rows.
 // The kv axis is walked in 64-row tiles. S = Q K^T and O += P V run on the
@@ -15,7 +17,10 @@
 // Softmax, as the TPU kernels compute it:
 // - bounded (qk-normed logits): p = exp(min(s*scale, 80)), no max pass;
 // - otherwise an online max: p = exp(s*scale - m), O and l rescaled by
-//   exp(m_old - m_new) when the running max rises.
+//   exp(m_old - m_new) when the running max rises;
+// - or, for a whole-row softmax in two passes over the keys, a first pass
+//   of row_max_tile and then p = exp(s*scale - m) against that fixed max
+//   with no rescale.
 // Keys are kept (1), masked (0) or past the end (-1). Masked and past-end
 // keys get p = 0; a row with no kept key has l = 0, which is set to 1, so it
 // returns 0 exactly as the TPU kernel does.
@@ -81,6 +86,18 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+// Keep flags of one key tile: 1 kept, 0 masked, -1 past the end. `mask`
+// is this batch row's [Lk] f32 keep-mask (> 0.5 keeps) or null.
+__device__ __forceinline__ void load_keep(float* keep, const float* mask,
+                                          int k0, int rows) {
+  if (threadIdx.x < kTileK) {
+    const int j = threadIdx.x;
+    float flag = -1.0f;
+    if (j < rows) flag = (mask == nullptr || mask[k0 + j] > 0.5f) ? 1.0f : 0.0f;
+    keep[j] = flag;
+  }
+}
+
 // Load rows of a split-half tensor (global columns [h*32, h*32+32) and
 // [C/2 + h*32, ...)), rotate them by cos/sin ([B, L, C/2]) in f32 and store
 // [x1*c - x2*s | x2*c + x1*s] as bf16, one rounding per value.
@@ -114,18 +131,11 @@ __device__ __forceinline__ void load_rope_tile(__nv_bfloat16* dst,
   }
 }
 
-// One kv tile for this warp's 16 query rows: S = Q K^T, softmax update,
-// O += P V. `m` and `l` are the running row max and row sum of the row
-// this lane shares with its neighbour lane (lanes 2r and 2r+1 own row r,
-// 32 columns each).
-template <bool kBounded>
-__device__ __forceinline__ void attend_tile(Smem& sm, int warp, int lane,
-                                            float scale, float& m, float& l) {
+// S = Q K^T of one kv tile for this warp's 16 query rows, unscaled f32,
+// into the warp's rows of sm.s.
+__device__ __forceinline__ void logits_tile(Smem& sm, int warp) {
   const int row0 = warp * 16;
   float* s_w = sm.s + row0 * kLdf;
-  float* o_w = sm.o + row0 * kLdf;
-  __nv_bfloat16* p_w = sm.p + row0 * kLdh;
-
 #pragma unroll
   for (int j = 0; j < kTileK / 16; ++j) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
@@ -141,6 +151,47 @@ __device__ __forceinline__ void attend_tile(Smem& sm, int warp, int lane,
     wmma::store_matrix_sync(s_w + j * 16, acc, kLdf, wmma::mem_row_major);
   }
   __syncwarp();
+}
+
+// Max of this lane's half row of scaled logits. Masked keys sit at -1e30
+// (always above a past-end key's -inf), so a running max is finite after
+// the first tile.
+__device__ __forceinline__ float half_row_max(const float* srow,
+                                              const float* keep, float scale) {
+  float mx = -INFINITY;
+#pragma unroll 8
+  for (int c = 0; c < kTileK / 2; ++c) {
+    const float sv = keep[c] > 0.5f ? srow[c] * scale
+                     : (keep[c] < -0.5f ? -INFINITY : -1e30f);
+    mx = fmaxf(mx, sv);
+  }
+  return fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+}
+
+// First pass of the whole-row softmax: fold one kv tile's row max into `m`.
+__device__ __forceinline__ void row_max_tile(Smem& sm, int warp, int lane,
+                                             float scale, float& m) {
+  logits_tile(sm, warp);
+  const int c0 = (lane & 1) * (kTileK / 2);
+  const float* srow = sm.s + (warp * 16 + (lane >> 1)) * kLdf + c0;
+  m = fmaxf(m, half_row_max(srow, sm.keep + c0, scale));
+  __syncwarp();
+}
+
+// One kv tile for this warp's 16 query rows: S = Q K^T, softmax update,
+// O += P V. `m` and `l` are the running row max and row sum of the row
+// this lane shares with its neighbour lane (lanes 2r and 2r+1 own row r,
+// 32 columns each). kFixedMax: `m` already holds the max over every key
+// (row_max_tile), so nothing is rescaled. kSumRounded: l sums the
+// bf16-rounded p, the values the PV product uses, instead of the f32 p.
+template <bool kBounded, bool kFixedMax = false, bool kSumRounded = false>
+__device__ __forceinline__ void attend_tile(Smem& sm, int warp, int lane,
+                                            float scale, float& m, float& l) {
+  const int row0 = warp * 16;
+  float* s_w = sm.s + row0 * kLdf;
+  float* o_w = sm.o + row0 * kLdf;
+  __nv_bfloat16* p_w = sm.p + row0 * kLdh;
+  logits_tile(sm, warp);
 
   const int r = lane >> 1;
   const int c0 = (lane & 1) * (kTileK / 2);
@@ -149,20 +200,12 @@ __device__ __forceinline__ void attend_tile(Smem& sm, int warp, int lane,
   float alpha = 1.0f;
   float shift = 0.0f;
   if (!kBounded) {
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int c = 0; c < kTileK / 2; ++c) {
-      // masked keys sit at -1e30 (always above a past-end key's -inf), so
-      // the running max is finite after the first tile
-      const float sv = keep[c] > 0.5f ? srow[c] * scale
-                       : (keep[c] < -0.5f ? -INFINITY : -1e30f);
-      mx = fmaxf(mx, sv);
+    if (!kFixedMax) {
+      const float m_new = fmaxf(m, half_row_max(srow, keep, scale));
+      alpha = expf(m - m_new);
+      m = m_new;
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    alpha = expf(m - m_new);
-    m = m_new;
-    shift = m_new;
+    shift = m;
   }
   float psum = 0.0f;
 #pragma unroll 8
@@ -175,12 +218,13 @@ __device__ __forceinline__ void attend_tile(Smem& sm, int warp, int lane,
       p = expf(sv - shift);
     }
     p = keep[c] > 0.5f ? p : 0.0f;
-    psum += p;
-    p_w[r * kLdh + c0 + c] = __float2bfloat16_rn(p);
+    const __nv_bfloat16 pb = __float2bfloat16_rn(p);
+    psum += kSumRounded ? __bfloat162float(pb) : p;
+    p_w[r * kLdh + c0 + c] = pb;
   }
   psum += __shfl_xor_sync(0xffffffffu, psum, 1);
   l = l * alpha + psum;
-  if (!kBounded) {
+  if (!kBounded && !kFixedMax) {
     float* orow = o_w + r * kLdf + c0;
 #pragma unroll 8
     for (int c = 0; c < kHeadDim / 2; ++c) orow[c] *= alpha;

@@ -49,14 +49,7 @@ token_attention_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     load_tile(sm.k, k + ((int64_t)b * Lk + k0) * C + hcol, C, rows);
     load_tile(sm.v, v + ((int64_t)b * Lk + k0) * C + hcol, C, rows);
-    if (threadIdx.x < kTileK) {
-      const int j = threadIdx.x;
-      float keep = -1.0f;
-      if (j < rows) {
-        keep = (mask == nullptr || mask[(int64_t)b * Lk + k0 + j] > 0.5f) ? 1.0f : 0.0f;
-      }
-      sm.keep[j] = keep;
-    }
+    load_keep(sm.keep, mask == nullptr ? nullptr : mask + (int64_t)b * Lk, k0, rows);
     __syncthreads();
     attend_tile<kBounded>(sm, warp, lane, scale, m, l);
   }

@@ -235,18 +235,44 @@ def rf_step(
     model_output: torch.Tensor,
     timestep: torch.Tensor,
     sample: torch.Tensor,
+    stochastic_sampling: bool = False,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Deterministic Euler step z <- z - dt * v, where dt runs from the
-    scalar ``timestep`` down to the largest schedule value strictly below
-    it. Sigmas and timestep are cast to the sample dtype first (in bf16
-    the ``- T_EPS`` then rounds away, as in the JAX package)."""
+    """One Euler step z <- z - dt * v, where dt runs from ``timestep`` down
+    to the largest schedule value strictly below it. ``timestep`` is a
+    scalar or per-token [B, N] (``sample`` is then [B, N, C]); it need not
+    be a member of ``sigmas``. Sigmas and timestep are cast to the sample
+    dtype first (in bf16 the ``- T_EPS`` then rounds away, as in the JAX
+    package).
+
+    ``stochastic_sampling`` re-noises the predicted x0 to the next level
+    instead: (1 - t_next) x0 + t_next eps, with eps = ``noise`` or one draw
+    from ``generator`` (one of the two is required).
+    """
     dtype, device = sample.dtype, sample.device
     sigmas = torch.as_tensor(sigmas, device=device).to(dtype)
     timestep = torch.as_tensor(timestep, device=device).to(dtype)
-    if timestep.ndim != 0:
-        raise NotImplementedError("per-token timesteps are not ported yet")
     padded = torch.cat([sigmas, sigmas.new_zeros(1)])
-    lower = torch.where(padded < (timestep - T_EPS), padded,
-                        padded.new_zeros(())).amax()
-    dt = timestep - lower
-    return sample - dt * model_output
+    if timestep.ndim == 0:
+        lower = torch.where(padded < (timestep - T_EPS), padded,
+                            padded.new_zeros(())).amax()
+        dt = timestep - lower
+        t_full = timestep
+    else:
+        if timestep.ndim != 2:
+            raise ValueError("per-token timestep must be [B, N]")
+        levels = padded[:, None, None]
+        lower = torch.where(levels < (timestep[None] - T_EPS), levels,
+                            levels.new_zeros(())).amax(dim=0)
+        dt = (timestep - lower)[..., None]
+        t_full = timestep[..., None]
+    if not stochastic_sampling:
+        return sample - dt * model_output
+    if noise is None:
+        if generator is None:
+            raise ValueError("stochastic sampling needs a generator or noise")
+        noise = torch.randn(sample.shape, generator=generator, device=device,
+                            dtype=torch.float32)
+    x0 = sample - t_full * model_output
+    return add_noise(x0, noise.to(device, dtype), t_full - dt)

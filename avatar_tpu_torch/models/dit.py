@@ -5,20 +5,26 @@ self-attention with q/k rms-norm, cross-attention over the projected
 caption and a gelu-tanh MLP. Parameters are the JAX package's tree with
 PyTorch layouts (see ``avatar_tpu_torch/__init__.py``).
 
-The port runs the inference path of the main pipeline:
-- :func:`dit_apply` takes params in the split-RoPE layout
-  (:func:`permute_dit_params_for_split_rope`, applied once at load) and
-  split-half (cos, sin) tables; self-attention goes through
-  ``rope_fused_attention`` and cross-attention through
-  ``fused_token_attention``;
-- blocks are a list (no stacked layout), no STG, no LoRA, no sequence
-  parallelism.
+The port runs the inference paths:
+- with ``rope_split`` the params are in the split-RoPE layout
+  (:func:`permute_dit_params_for_split_rope`, applied once at load) and the
+  (cos, sin) tables split-half; otherwise both are in the reference's
+  interleaved layout;
+- :func:`_attention` routes as the JAX package does: self-attention
+  through ``rope_fused_attention`` where that path takes the length, else
+  RoPE in plain code and then ``fused_token_attention`` or, for long or
+  unaligned lengths, head-major ``scaled_dot_product_attention`` (the
+  flash kernels); cross-attention likewise without RoPE;
+- STG through ``skip_layer_mask`` and a :class:`SkipLayerStrategy`;
+- blocks as a list or stacked on a leading layer axis
+  (:func:`stack_block_params`); no LoRA, no sequence parallelism.
 """
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,16 +36,31 @@ from avatar_tpu_torch.models.layers import (
     linear,
     timestep_embedder,
 )
+from avatar_tpu_torch.ops.attention import scaled_dot_product_attention
 from avatar_tpu_torch.ops.flash_attention import (
+    fused_supports,
     fused_token_attention,
     rope_fused_attention,
+    rope_fused_supports,
+    split_to_head_major,
 )
 from avatar_tpu_torch.ops.normalization import layer_norm, rms_norm
 from avatar_tpu_torch.ops.rope import (
+    apply_rotary_emb,
+    apply_rotary_emb_split,
     precompute_freqs_cis,
     rope_channel_permutation,
     split_freqs,
 )
+
+
+class SkipLayerStrategy(enum.Enum):
+    """What an STG-perturbed sample (skip mask 0) gets in a skipped block."""
+
+    AttentionSkip = enum.auto()
+    AttentionValues = enum.auto()
+    Residual = enum.auto()
+    TransformerBlock = enum.auto()
 
 
 @dataclass(frozen=True)
@@ -198,26 +219,82 @@ def _bounded(params: dict, cfg: DiTConfig) -> bool:
             and params.get("k_norm") is not None)
 
 
-def _self_attention(params, x, cfg, freqs_split):
-    heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
-    q = _qk_norm(params.get("q_norm"), linear(params["to_q"], x), cfg)
-    k = _qk_norm(params.get("k_norm"), linear(params["to_k"], x), cfg)
-    v = linear(params["to_v"], x)
-    out = rope_fused_attention(
-        q, k, v, freqs_split[0], freqs_split[1], heads, hd**-0.5,
-        _bounded(params, cfg),
-    )
-    return linear(params["to_out"], out)
+def _stg_mix(out, skipped, skip_layer_mask):
+    """``out`` where the sample's mask is 1, ``skipped`` where it is 0. The
+    mask is cast to the activation dtype (the mix is exact for 0/1), so a
+    bf16 run stays bf16."""
+    m = skip_layer_mask.reshape(-1, 1, 1).to(out.dtype)
+    return out * m + skipped * (1.0 - m)
 
 
-def _cross_attention(params, x, cfg, cross_kv, kv_mask):
+def _attention(
+    params: dict,
+    x: torch.Tensor,
+    cfg: DiTConfig,
+    freqs_cis: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    skip_layer_mask: Optional[torch.Tensor] = None,  # [B]
+    skip_layer_strategy: Optional[SkipLayerStrategy] = None,
+    attention_impl: str = "auto",
+    rope_split: bool = False,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Self-attention over ``x`` (RoPE from ``freqs_cis``) or, with
+    ``cross_kv`` (token-major (k, v) [B, Lk, inner]), cross-attention.
+
+    Routing, as in the JAX package: the RoPE-fused kernel where
+    ``rope_fused_supports`` holds (split layout, no mask); else RoPE in
+    plain code, then the token-major kernel where ``fused_supports`` holds
+    (mask absent or [B, Lk]), else ``scaled_dot_product_attention`` over
+    head-major tensors. ``attention_impl="xla"`` takes neither token-major
+    kernel. The JAX package additionally asks for a TPU backend before it
+    takes a kernel under "auto"; the port takes the same path on any
+    device.
+    """
+    b = x.shape[0]
     heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
+    scale = hd**-0.5
+    bounded = _bounded(params, cfg)
+    kernels = attention_impl in ("auto", "flash")
+    is_cross = cross_kv is not None
+    use_split_rope = rope_split and not is_cross and freqs_cis is not None
+
+    def mixed(out):
+        out = out.to(q.dtype)
+        if skip_layer_mask is not None:
+            if skip_layer_strategy == SkipLayerStrategy.AttentionSkip:
+                out = _stg_mix(out, x, skip_layer_mask)
+            elif skip_layer_strategy == SkipLayerStrategy.AttentionValues:
+                out = _stg_mix(out, v, skip_layer_mask)
+        return linear(params["to_out"], out)
+
     q = _qk_norm(params.get("q_norm"), linear(params["to_q"], x), cfg)
-    k, v = cross_kv
-    out = fused_token_attention(
-        q, k, v, kv_mask, heads, hd**-0.5, _bounded(params, cfg),
-    )
-    return linear(params["to_out"], out)
+    if is_cross:
+        k, v = cross_kv
+    else:
+        k = _qk_norm(params.get("k_norm"), linear(params["to_k"], x), cfg)
+        v = linear(params["to_v"], x)
+        if (use_split_rope and kv_mask is None and kernels
+                and rope_fused_supports(q.shape[1], heads, hd, q.dtype)):
+            return mixed(rope_fused_attention(
+                q, k, v, freqs_cis[0], freqs_cis[1], heads, scale, bounded))
+        if freqs_cis is not None:
+            rope = apply_rotary_emb_split if use_split_rope else apply_rotary_emb
+            q, k = rope(q, freqs_cis), rope(k, freqs_cis)
+    if use_split_rope:
+        q, k = split_to_head_major(q, heads), split_to_head_major(k, heads)
+
+    if (kernels and (kv_mask is None or kv_mask.ndim == 2)
+            and fused_supports(q.shape[1], k.shape[1], heads, hd, q.dtype)):
+        return mixed(fused_token_attention(q, k, v, kv_mask, heads, scale, bounded))
+
+    def split(t):
+        return t.reshape(b, -1, heads, hd).transpose(1, 2)
+
+    out = scaled_dot_product_attention(
+        split(q), split(k), split(v), mask=kv_mask, impl=attention_impl,
+        bounded_logits=bounded)
+    return mixed(out.transpose(1, 2).reshape(b, -1, heads * hd))
 
 
 def _feed_forward(params: dict, x: torch.Tensor, cfg: DiTConfig):
@@ -234,10 +311,14 @@ def _feed_forward(params: dict, x: torch.Tensor, cfg: DiTConfig):
     return linear(params["proj_out"], h)
 
 
-def _block_apply(params, x, cfg, freqs_split, timestep, cross_kv, kv_mask):
+def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
+                 skip_layer_mask=None, skip_layer_strategy=None,
+                 attention_impl="auto", rope_split=False):
     """BasicTransformerBlock with AdaLN-single; ``timestep`` is the
-    [B, 1 or N, n_ada*inner] AdaLN embedding."""
+    [B, 1 or N, n_ada*inner] AdaLN embedding, ``skip_layer_mask`` this
+    block's [B] row of the STG mask."""
     b = x.shape[0]
+    original_x = x
     norm_x = _std_norm(params.get("norm1"), x, cfg)
     if cfg.adaptive_norm not in ("single_scale_shift", "single_scale"):
         raise NotImplementedError(f"adaptive_norm={cfg.adaptive_norm!r}")
@@ -254,13 +335,51 @@ def _block_apply(params, x, cfg, freqs_split, timestep, cross_kv, kv_mask):
     if shift_msa is not None:
         norm_x = norm_x + shift_msa
 
-    x = x + gate_msa * _self_attention(params["attn1"], norm_x, cfg, freqs_split)
-    x = x + _cross_attention(params["attn2"], x, cfg, cross_kv, kv_mask)
+    x = x + gate_msa * _attention(
+        params["attn1"], norm_x, cfg, freqs_cis=freqs_cis,
+        skip_layer_mask=skip_layer_mask, skip_layer_strategy=skip_layer_strategy,
+        attention_impl=attention_impl, rope_split=rope_split)
+    x = x + _attention(params["attn2"], x, cfg, kv_mask=kv_mask,
+                       attention_impl=attention_impl, cross_kv=cross_kv)
 
     norm_x = _std_norm(params.get("norm2"), x, cfg) * (1 + scale_mlp)
     if shift_mlp is not None:
         norm_x = norm_x + shift_mlp
-    return x + gate_mlp * _feed_forward(params["ff"], norm_x, cfg)
+    x = x + gate_mlp * _feed_forward(params["ff"], norm_x, cfg)
+    if (skip_layer_mask is not None
+            and skip_layer_strategy == SkipLayerStrategy.TransformerBlock):
+        x = _stg_mix(x, original_x, skip_layer_mask)
+    return x
+
+
+def stack_block_params(blocks: Sequence[dict]) -> dict:
+    """List of per-block param dicts of one structure -> one tree whose
+    leaves carry a leading layer axis [L, ...]."""
+    first = blocks[0]
+    if isinstance(first, dict):
+        return {k: stack_block_params([blk[k] for blk in blocks]) for k in first}
+    return torch.stack(list(blocks))
+
+
+def _layer_slice(stacked, i: int):
+    if isinstance(stacked, dict):
+        return {k: _layer_slice(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def _num_stacked(stacked) -> int:
+    while isinstance(stacked, dict):
+        stacked = next(iter(stacked.values()))
+    return stacked.shape[0]
+
+
+def unstack_block_params(stacked: dict) -> List[dict]:
+    """Inverse of :func:`stack_block_params` (the slices are views)."""
+    return [_layer_slice(stacked, i) for i in range(_num_stacked(stacked))]
+
+
+def _blocks_list(blocks: Union[dict, Sequence[dict]]) -> Sequence[dict]:
+    return blocks if isinstance(blocks, (list, tuple)) else unstack_block_params(blocks)
 
 
 def _caption_projection(params: dict, cfg: DiTConfig, eh: torch.Tensor):
@@ -276,18 +395,23 @@ def precompute_cross_attention_kv(
     cfg: DiTConfig,
     encoder_hidden_states: torch.Tensor,  # [B, L, caption_channels]
     dtype: Optional[torch.dtype] = None,
-) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], torch.Tensor]:
+):
     """Caption projection and every block's cross-attention (k, v)
-    [B, L, inner], computed once per run. Returns (cross_kv, projected)."""
+    [B, L, inner], computed once per run. Returns (cross_kv, projected):
+    ``cross_kv`` is a list of per-block pairs, or for stacked blocks the
+    stacked pair (k [L, B, Lk, inner], v [L, B, Lk, inner])."""
     eh = encoder_hidden_states
     if dtype is not None:
         eh = eh.to(dtype)
     eh = _caption_projection(params, cfg, eh)
     cross_kv = []
-    for block in params["blocks"]:
+    for block in _blocks_list(params["blocks"]):
         attn2 = block["attn2"]
         k = _qk_norm(attn2.get("k_norm"), linear(attn2["to_k"], eh), cfg)
         cross_kv.append((k.contiguous(), linear(attn2["to_v"], eh).contiguous()))
+    if not isinstance(params["blocks"], (list, tuple)):
+        ks, vs = zip(*cross_kv)
+        return (torch.stack(ks), torch.stack(vs)), eh
     return cross_kv, eh
 
 
@@ -313,16 +437,18 @@ def precompute_timestep_tables(
 
 
 def _dit_prologue(params, cfg, hidden_states, indices_grid, timestep,
-                  freqs_split, timestep_tables):
+                  freqs_cis, timestep_tables, rope_split):
     b = hidden_states.shape[0]
     dtype = hidden_states.dtype
     x = linear(params["patchify_proj"], hidden_states)
-    if freqs_split is None:
-        freqs_split = split_freqs(precompute_freqs_cis(
+    if freqs_cis is None:
+        freqs_cis = precompute_freqs_cis(
             indices_grid, dim=cfg.inner_dim,
             theta=cfg.positional_embedding_theta,
             max_pos=cfg.positional_embedding_max_pos, out_dtype=dtype,
-        ))
+        )
+        if rope_split:
+            freqs_cis = split_freqs(freqs_cis)
     if timestep_tables is not None:
         ada, embedded = (t.to(dtype) for t in timestep_tables)
     else:
@@ -332,7 +458,7 @@ def _dit_prologue(params, cfg, hidden_states, indices_grid, timestep,
         ada = linear(params["adaln_single"]["linear"], F.silu(embedded))
         ada = ada.reshape(b, -1, ada.shape[-1])
         embedded = embedded.reshape(b, -1, cfg.inner_dim)
-    return x, freqs_split, ada, embedded
+    return x, freqs_cis, ada, embedded
 
 
 def _dit_epilogue(params, x, embedded_timestep):
@@ -353,35 +479,70 @@ def dit_apply(
     timestep: Optional[torch.Tensor] = None,  # [B] or [B, N]
     encoder_hidden_states: Optional[torch.Tensor] = None,  # [B, L, caption_ch]
     encoder_attention_mask: Optional[torch.Tensor] = None,  # [B, L] keep mask
+    skip_layer_mask: Optional[torch.Tensor] = None,  # [num_layers, B]
+    skip_layer_strategy: Optional[SkipLayerStrategy] = None,
+    attention_impl: str = "auto",
     freqs_cis: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    cross_kv: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+    rope_split: bool = True,
+    cross_kv=None,
     timestep_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Velocity tokens [B, N, out_channels].
 
-    ``params`` must be in the split-RoPE layout and ``freqs_cis``, if
-    given, the split-half (cos, sin) pair. ``cross_kv`` (from
-    :func:`precompute_cross_attention_kv`) replaces
-    ``encoder_hidden_states``; ``timestep_tables`` (one row of
-    :func:`precompute_timestep_tables`) replaces ``timestep``. A caption
-    key with mask 0 gets no weight; a query whose keys are all masked
-    gets a zero cross-attention output, as in the attention kernels.
+    ``rope_split`` (the default): ``params`` are in the split-RoPE layout
+    and ``freqs_cis``, if given, is the split-half (cos, sin) pair;
+    otherwise both are in the interleaved layout. ``params["blocks"]`` is
+    a list, or one tree stacked on a leading layer axis, walked slice by
+    slice. ``cross_kv`` (from :func:`precompute_cross_attention_kv`, in
+    the blocks' layout) replaces ``encoder_hidden_states``;
+    ``timestep_tables`` (one row of :func:`precompute_timestep_tables`)
+    replaces ``timestep``. ``skip_layer_mask`` rows are 0 for the samples
+    that ``skip_layer_strategy`` perturbs in that block. On the kernel
+    paths a caption key with mask 0 gets no weight and a query whose keys
+    are all masked gets a zero cross-attention output;
+    ``attention_impl="xla"`` gives such a query unmasked attention.
     """
-    x, freqs_split, ada, embedded = _dit_prologue(
+    x, freqs_cis, ada, embedded = _dit_prologue(
         params, cfg, hidden_states, indices_grid, timestep, freqs_cis,
-        timestep_tables,
+        timestep_tables, rope_split,
     )
     if cross_kv is None:
         if encoder_hidden_states is None:
             raise ValueError("need encoder_hidden_states or cross_kv")
         cross_kv, _ = precompute_cross_attention_kv(
             params, cfg, encoder_hidden_states, dtype=x.dtype)
+    if not isinstance(cross_kv, (list, tuple)) or torch.is_tensor(cross_kv[0]):
+        cross_kv = list(zip(*cross_kv))  # stacked pair -> per-block pairs
     kv_mask = None
     if encoder_attention_mask is not None:
         kv_mask = encoder_attention_mask.to(torch.float32).contiguous()
-    for block, kv in zip(params["blocks"], cross_kv, strict=True):
-        x = _block_apply(block, x, cfg, freqs_split, ada, kv, kv_mask)
+    blocks = _blocks_list(params["blocks"])
+    for i, (block, kv) in enumerate(zip(blocks, cross_kv, strict=True)):
+        x = _block_apply(
+            block, x, cfg, freqs_cis, ada, kv, kv_mask,
+            None if skip_layer_mask is None else skip_layer_mask[i],
+            skip_layer_strategy, attention_impl, rope_split)
     return _dit_epilogue(params, x, embedded)
+
+
+def create_skip_layer_mask(
+    num_layers: int,
+    batch_size: int,
+    num_conds: int,
+    ptb_index: int,
+    skip_block_list: Optional[Sequence[int]] = None,
+    device="cuda",
+) -> Optional[torch.Tensor]:
+    """[num_layers, batch_size * num_conds] f32 mask: 0 for the perturbed
+    cond (``ptb_index`` of each group of ``num_conds``) in the listed
+    blocks, 1 elsewhere; None without a list."""
+    if not skip_block_list:
+        return None
+    mask = torch.ones((num_layers, batch_size * num_conds), dtype=torch.float32,
+                      device=device)
+    for block_idx in skip_block_list:
+        mask[block_idx, ptb_index::num_conds] = 0.0
+    return mask
 
 
 def avatar_condition_tokens(

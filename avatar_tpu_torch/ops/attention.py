@@ -1,8 +1,9 @@
-"""Plain attention (port of ``avatar_tpu/ops/attention.py:xla_attention``).
+"""Attention dispatch over head-major [B, H, L, D] tensors (port of
+``avatar_tpu/ops/attention.py``).
 
-Used by the plain versions of the attention kernels and by the tests;
-nothing on the main path calls it on a card. Inputs are head-major
-[B, H, L, D].
+:func:`xla_attention` is the plain einsum path; :func:`flash_attention
+<avatar_tpu_torch.ops.flash_attention.flash_attention>` is the kernel path.
+:func:`scaled_dot_product_attention` chooses between them by ``impl``.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from avatar_tpu_torch.ops.flash_attention import flash_attention, supports
 
 
 def mask_to_bias(mask: torch.Tensor, num_dims: int) -> torch.Tensor:
@@ -41,3 +44,39 @@ def xla_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(q.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def scaled_dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    bounded_logits: bool = False,
+) -> torch.Tensor:
+    """Multi-head attention over [B, H, L, D].
+
+    ``mask``: None, a [B, Lk] keep-mask (1/True = attend) or an additive
+    bias broadcastable to [B, H, Lq, Lk]. ``impl``:
+
+    - "xla": :func:`xla_attention` with a -1e4 bias on masked keys;
+    - "flash": the kernel path (``flash_attention``) at any shape;
+    - "auto": the kernel path where ``supports()`` holds, else "xla".
+
+    The JAX package's "auto" takes the kernels only on a TPU backend. The
+    port has no such test: "auto" means the same path on either device (on
+    a CPU tensor the kernels' plain versions), so results do not depend on
+    where the tensors lie. The two paths differ for a row whose keys are
+    all masked: "xla" returns ordinary unmasked attention (every key gets
+    the same -1e4), the kernels return 0.
+    """
+    if impl not in ("auto", "xla", "flash"):
+        raise ValueError(f"Unknown attention impl: {impl}")
+    bias = None
+    if mask is not None:
+        bias = mask_to_bias(mask, 4) if mask.ndim == 2 else mask
+    if impl == "flash" or (impl == "auto" and supports(q, k, v)):
+        return flash_attention(q, k, v, bias=bias, scale=scale,
+                               bounded_logits=bounded_logits)
+    return xla_attention(q, k, v, bias, scale)

@@ -1,5 +1,7 @@
-"""The DiT's two attention kernels (port of the token-major kernels of
+"""The DiT's attention kernels (port of the forward kernels of
 ``avatar_tpu/ops/flash_attention.py``).
+
+Token-major, [B, L, heads*head_dim]:
 
 - :func:`rope_fused_attention`: self-attention over split-half RoPE-layout
   q/k with the rotation done inside the kernel (``csrc/rope_attention.cu``,
@@ -7,18 +9,31 @@
 - :func:`fused_token_attention`: attention with an optional [B, Lk]
   keep-mask (``csrc/token_attention.cu``, replacing ``_token_major_kernel``).
 
-Both take token-major [B, L, heads*head_dim] tensors. On a CUDA tensor the
-wrapper launches its kernel (bf16, head_dim 64) or raises; on a CPU tensor
-it runs the plain PyTorch version beside it, which computes the same
-function with the kernel's masking: masked keys get p = 0 and a row with
-every key masked returns 0. ``bounded`` (qk-normed logits) drops the
-softmax max pass: p = exp(min(s, 80)).
+Head-major, [B, H, L, head_dim]:
+
+- :func:`flash_attention`: the three kernels of ``_flash_forward``
+  (``csrc/flash_forward.cu``): the max-free ``_fwd_kernel_bounded``, the
+  online-softmax ``_fwd_kernel`` and the whole-row ``_fwd_kernel_single``,
+  each also returning the row log-sum-exp.
+
+On a CUDA tensor a wrapper launches its kernel (bf16, head_dim 64) or
+raises; on a CPU tensor it runs the plain PyTorch version beside it, which
+computes the same function with the kernel's masking: masked keys get
+p = 0 and a row with every key masked returns 0. ``bounded`` (qk-normed
+logits) drops the softmax max pass: p = exp(min(s, 80)).
+
+The predicates :func:`supports`, :func:`rope_fused_supports` and
+:func:`fused_supports` are the JAX package's. Their 6 MiB caps are sizes of
+the TPU's fast memory, not semantics, but they decide which kernel the
+reference runs at which shape; the port keeps them so that each of its
+paths is held against the same path of the reference.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,17 +42,76 @@ from avatar_tpu_torch.ops.rope import apply_rotary_emb_split
 
 BOUNDED_LOGIT_CLAMP = 80.0
 NEG_INF = -1e30
+LSE_MASKED = 1e30  # lse of a row with no kept key
 KERNEL_HEAD_DIM = 64
+# the reference's largest single block: up to this length (after rounding
+# up to 128) for both q and kv, _flash_forward takes the whole-row kernel
+SINGLE_BLOCK_MAX = 1024
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 launch_counts: Dict[str, int] = {
     "rope_fused_attention": 0, "fused_token_attention": 0,
+    "flash_bounded": 0, "flash_online": 0, "flash_single": 0,
 }
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Which shapes each kernel path takes (the reference's predicates)
+# ---------------------------------------------------------------------------
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _sublane(dtype: torch.dtype) -> int:
+    return 16 if dtype == torch.bfloat16 else 8
+
+
+def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether "auto" sends head-major [B, H, L, D] tensors to
+    :func:`flash_attention`."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        return False
+    head_dim = q.shape[-1]
+    if head_dim % 8 != 0 or head_dim > 512:
+        return False
+    return q.shape[2] * k.shape[2] >= 128 * 128
+
+
+def fused_supports(lq: int, lk: int, heads: int, head_dim: int, dtype) -> bool:
+    """Whether the token-major path (:func:`fused_token_attention`) takes
+    these lengths: aligned, and an [Lq, Lk] f32 logits slab within 6 MiB."""
+    sub = _sublane(dtype)
+    max_group = min(heads, max(1, 256 // head_dim))
+    groups = [n for n in range(1, max_group + 1) if heads % n == 0]
+    return (
+        head_dim % 8 == 0
+        and head_dim <= 256
+        and any((n * head_dim) % 128 == 0 or n == heads for n in groups)
+        and lq % sub == 0
+        and lk % sub == 0
+        and lq * lk * 4 <= 6 * 1024 * 1024
+    )
+
+
+def rope_fused_supports(lq: int, heads: int, head_dim: int, dtype) -> bool:
+    """Whether the RoPE-fused path (:func:`rope_fused_attention`) takes this
+    length: aligned, and an [L, L] f32 logits slab within 6 MiB."""
+    sub = _sublane(dtype)
+    groups = [n for n in range(1, heads + 1) if heads % n == 0]
+    return (
+        head_dim % 16 == 0
+        and head_dim <= 256
+        and any((n * head_dim // 2) % 128 == 0 or n == heads for n in groups)
+        and lq % sub == 0
+        and lq * lq * 4 <= 6 * 1024 * 1024
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -70,17 +144,58 @@ def _token_attention_plain(q, k, v, kv_mask, heads, scale, bounded):
     return out.transpose(1, 2).reshape(b, lq, c)
 
 
-def _split_to_head_major(t, heads):
-    # global split-half [x1(C/2) | x2(C/2)] -> per head [x1_h | x2_h]
+def split_to_head_major(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """Global split-half [x1 (C/2) | x2 (C/2)] -> per head [x1_h | x2_h]."""
     b, n, c = t.shape
     t = t.reshape(b, n, 2, heads, c // heads // 2)
     return t.transpose(2, 3).reshape(b, n, c)
 
 
 def _rope_attention_plain(q, k, v, cos_s, sin_s, heads, scale, bounded):
-    qr = _split_to_head_major(apply_rotary_emb_split(q, (cos_s, sin_s)), heads)
-    kr = _split_to_head_major(apply_rotary_emb_split(k, (cos_s, sin_s)), heads)
+    qr = split_to_head_major(apply_rotary_emb_split(q, (cos_s, sin_s)), heads)
+    kr = split_to_head_major(apply_rotary_emb_split(k, (cos_s, sin_s)), heads)
     return _token_attention_plain(qr, kr, v, None, heads, scale, bounded)
+
+
+def _flash_plain(q, k, v, kv_mask, scale, mode):
+    """Plain version of the three ``_flash_forward`` kernels over head-major
+    [B, H, L, D]; returns (out [B, H, Lq, D], lse [B, H, Lq] f32).
+
+    - "bounded" (``_fwd_kernel_bounded``): p = exp(min(s, 80)), lse = log l;
+    - "online" (``_fwd_kernel``): masked logits at -1e30, p = exp(s - m),
+      lse = m + log l. The kernel keeps a running max over key blocks; the
+      final max used here gives the same sums up to the rounding of p;
+    - "single" (``_fwd_kernel_single``): as "online" with the whole-row max.
+
+    The denominator: at head_dim < 128 the reference's bounded and online
+    kernels sum the p *rounded to the value dtype* (their l rides the PV
+    product as a ones-column of v); the single kernel, and both others at
+    head_dim >= 128, sum the f32 p. In f32 the two agree; in bf16 l and lse
+    differ by up to ~2e-3 relative. Each mode follows its kernel.
+    """
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    if scale != 1.0:
+        s = s * scale
+    keep = None if kv_mask is None else (kv_mask > 0.5)[:, None, None, :]
+    if mode == "bounded":
+        m = None
+        p = torch.exp(torch.clamp(s, max=BOUNDED_LOGIT_CLAMP))
+    else:
+        if keep is not None:
+            s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    pb = p.to(v.dtype).float()
+    rounded_sum = mode != "single" and q.shape[-1] < 128
+    l = (pb if rounded_sum else p).sum(dim=-1, keepdim=True)
+    empty = l == 0.0
+    l_safe = torch.where(empty, torch.ones_like(l), l)
+    out = torch.einsum("bhqk,bhkd->bhqd", pb, v.float()) / l_safe
+    lse = torch.log(l_safe) if m is None else m + torch.log(l_safe)
+    lse = torch.where(empty, torch.full_like(lse, LSE_MASKED), lse)
+    return out.to(q.dtype), lse[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -107,13 +222,16 @@ def _check_heads(c: int, heads: int):
         )
 
 
-def _c_entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int):
+def _c_entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int,
+             bounded_flag: bool = True):
     """The C entry ``fn_name(ptr * n_ptrs, int * n_ints, float scale,
-    int bounded, void* stream) -> cudaError_t`` of ``csrc/<lib_name>.cu``."""
+    [int bounded,] void* stream) -> cudaError_t`` of ``csrc/<lib_name>.cu``."""
     fn = getattr(load(lib_name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.c_float] + [ctypes.c_int] * bounded_flag
+            + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -194,3 +312,90 @@ def fused_token_attention(
     _raise_on(err, "token_attention_bf16")
     launch_counts["fused_token_attention"] += 1
     return out
+
+
+def flash_mode(lq: int, lk: int, bounded: bool) -> str:
+    """Which kernel ``_flash_forward`` runs: the whole-row one when both
+    lengths fit one block of the reference (even when ``bounded``), else
+    the max-free one for bounded logits, else the online one."""
+    if (_round_up(lq, 128) <= SINGLE_BLOCK_MAX
+            and _round_up(lk, 128) <= SINGLE_BLOCK_MAX):
+        return "single"
+    return "bounded" if bounded else "online"
+
+
+def _flash_forward(q, k, v, kv_mask, scale: float, bounded: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) through the kernel that :func:`flash_mode` names."""
+    b, heads, lq, d = q.shape
+    lk = k.shape[2]
+    mode = flash_mode(lq, lk, bounded)
+    # A power-of-two scale is folded into q, as the reference does: exact
+    # in bf16 (an exponent shift; head_dim 64 gives 0.125), so the logits
+    # and the saved lse are the same bits either way. Any other scale
+    # multiplies the f32 logits.
+    if scale > 0.0 and math.frexp(scale)[0] == 0.5 and scale != 1.0:
+        q = q * scale
+        scale = 1.0
+    if _wrapper_device(q) == "cpu":
+        return _flash_plain(q, k, v, kv_mask, scale, mode)
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"CUDA attention kernels take head_dim {KERNEL_HEAD_DIM}; got {d}")
+    # the head-major relayout of the caller's transposed views lands here
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_cuda("q", q, (b, heads, lq, d))
+    _check_cuda("k", k, (b, heads, lk, d))
+    _check_cuda("v", v, (b, heads, lk, d))
+    mask_ptr = None
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.float32).contiguous()
+        _check_cuda("kv_mask", kv_mask, (b, lk), dtype=torch.float32)
+        mask_ptr = kv_mask.data_ptr()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, heads, lq), device=q.device, dtype=torch.float32)
+    name = f"flash_{mode}"
+    fn = _c_entry("flash_forward", f"{name}_bf16", 6, 4, bounded_flag=False)
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+        lse.data_ptr(), b, heads, lq, lk, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, f"{name}_bf16")
+    launch_counts[name] += 1
+    return out, lse
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    bounded_logits: bool = False,
+    with_lse: bool = False,
+):
+    """Flash attention over head-major [B, H, L, D].
+
+    Takes a [B, Lk] keep-mask (``kv_mask``) or a per-key additive ``bias``
+    [B, 1, 1, Lk], which becomes a keep-mask (bias >= -1 keeps). A general
+    dense bias is the dense-bias kernel's work (``_fwd_kernel_dense_bias``),
+    which is not ported: it raises. ``bounded_logits``: the caller
+    guarantees logits far below the f32 exp limit (true after qk-norm), so
+    long sequences take the max-free kernel. ``with_lse`` also returns the
+    row log-sum-exp [B, H, Lq] f32 (1e30 for a row with no kept key).
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if bias is not None and kv_mask is None:
+        if bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1:
+            kv_mask = (bias[:, 0, 0, :] >= -1.0).to(torch.float32)
+        else:
+            raise NotImplementedError(
+                "flash_attention with a dense additive bias needs the "
+                "dense-bias kernel (_fwd_kernel_dense_bias), which is not "
+                "ported yet")
+    out, lse = _flash_forward(q, k, v, kv_mask, float(scale),
+                              bool(bounded_logits))
+    return (out, lse) if with_lse else out

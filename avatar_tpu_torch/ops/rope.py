@@ -1,9 +1,10 @@
 """3D rotary positional embeddings (port of ``avatar_tpu/ops/rope.py``).
 
-Frequencies are computed in f32. The DiT uses the split-half layout: q/k
-projection columns are permuted once at load
+Frequencies are computed in f32. By default the DiT uses the split-half
+layout: q/k projection columns are permuted once at load
 (:func:`rope_channel_permutation`), so the rotation is contiguous-slice
-math on ``[x1 | x2]``.
+math on ``[x1 | x2]``. :func:`apply_rotary_emb` is the reference layout
+(interleaved pairs) for unpermuted params.
 """
 
 from __future__ import annotations
@@ -44,6 +45,17 @@ def precompute_freqs_cis(
         cos_f = torch.cat([torch.ones_like(cos_f[:, :, :pad]), cos_f], dim=-1)
         sin_f = torch.cat([torch.zeros_like(sin_f[:, :, :pad]), sin_f], dim=-1)
     return cos_f.to(out_dtype), sin_f.to(out_dtype)
+
+
+def apply_rotary_emb(
+    x: torch.Tensor, freqs_cis: Tuple[torch.Tensor, torch.Tensor]
+) -> torch.Tensor:
+    """Rotate adjacent feature pairs: x*cos + rot(x)*sin, where rot turns
+    each pair (x1, x2) into (-x2, x1). Computed in ``x.dtype``, as the JAX
+    package does. Forward only."""
+    cos_f, sin_f = freqs_cis
+    rot = torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).reshape(x.shape)
+    return x * cos_f + rot * sin_f
 
 
 def split_freqs(

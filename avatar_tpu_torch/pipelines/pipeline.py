@@ -1,24 +1,27 @@
 """Avatar video generation pipeline (port of
 ``avatar_tpu/pipelines/pipeline.py``).
 
-The ported path is bf16 single-condition inference: VAE-encode the
-reference image and pose frames, draw the initial noise, precompute the
-RoPE tables, the caption k/v and the AdaLN tables once, run the Euler walk
-over ``dit_apply`` with the avatar lerp, then decode with decode-time noise
-and timestep conditioning. Settings outside that path (CFG, STG, Heun,
-stochastic sampling, conditioning items, skipped steps) raise
-``NotImplementedError``.
+VAE-encode the reference image and pose frames, draw the initial noise,
+precompute the RoPE tables, the caption k/v and the AdaLN tables once, run
+the denoising walk over ``dit_apply`` with the avatar lerp, then decode
+with decode-time noise and timestep conditioning. The walk takes
+classifier-free guidance (with ``cfg_star_rescale``), STG with the std
+rescale, per-step guidance lists, the Euler or Heun solver, stochastic
+sampling and skipped final steps. Still missing, and raising
+``NotImplementedError``: conditioning items, ``media_items``/``latents``
+inputs, ``skip_initial_inference_steps`` and ``image_cond_noise_scale``.
 
 ``torch`` cannot reproduce ``jax.random``: every random draw comes from the
 caller's ``torch.Generator`` unless it is handed in as a tensor
-(``ref_noise``, ``pose_noise``, ``init_noise``, ``decode_noise``).
+(``ref_noise``, ``pose_noise``, ``init_noise``, ``step_noise``,
+``decode_noise``).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -26,11 +29,14 @@ import torch
 from avatar_tpu_torch.diffusion.rf import RectifiedFlowSchedule, rf_step
 from avatar_tpu_torch.models.dit import (
     DiTConfig,
+    SkipLayerStrategy,
     avatar_condition_tokens,
+    create_skip_layer_mask,
     dit_apply,
     permute_dit_params_for_split_rope,
     precompute_cross_attention_kv,
     precompute_timestep_tables,
+    stack_block_params,
 )
 from avatar_tpu_torch.models.patchifier import patchify, unpatchify
 from avatar_tpu_torch.models.vae import VAEConfig, vae_decode, vae_encode
@@ -60,7 +66,7 @@ class GenerationParams:
     rescaling_scale: Union[float, List[float]] = 0.7
     guidance_timesteps: Optional[List[float]] = None
     cfg_star_rescale: bool = False
-    skip_layer_strategy: Optional[object] = None
+    skip_layer_strategy: Optional[SkipLayerStrategy] = None
     skip_block_list: Optional[Union[List[int], List[List[int]]]] = None
     decode_timestep: Union[float, List[float]] = 0.0
     decode_noise_scale: Optional[Union[float, List[float]]] = None
@@ -69,27 +75,79 @@ class GenerationParams:
     image_cond_noise_scale: float = 0.0
     is_video: bool = True
     vae_per_channel_normalize: bool = True
+    # "euler", or "heun": a predictor-corrector with two velocity
+    # evaluations per step and a plain Euler last step (to sigma 0)
     solver: str = "euler"
 
 
-def _max(value) -> float:
-    return max(value) if isinstance(value, (list, tuple)) else float(value)
-
-
-def _check_ported(p: GenerationParams) -> None:
-    unported = []
-    if _max(p.guidance_scale) > 1.0:
-        unported.append("classifier-free guidance (guidance_scale > 1)")
-    if _max(p.stg_scale) > 0.0:
-        unported.append("STG (stg_scale > 0)")
-    if p.solver != "euler":
-        unported.append(f"solver={p.solver!r}")
-    if p.stochastic_sampling:
-        unported.append("stochastic_sampling")
-    if p.skip_initial_inference_steps or p.skip_final_inference_steps:
-        unported.append("skipped inference steps")
+def _check_ported(p: GenerationParams, **inputs) -> None:
+    unported = [f"{name} input" for name, val in inputs.items() if val is not None]
+    if p.skip_initial_inference_steps:
+        unported.append("skip_initial_inference_steps (needs media_items or latents)")
+    if p.image_cond_noise_scale > 0.0:
+        unported.append("image_cond_noise_scale > 0 (needs conditioning items)")
     if unported:
         raise NotImplementedError("not ported yet: " + ", ".join(unported))
+
+
+def _guidance_mapping(timesteps: np.ndarray,
+                      guidance_timesteps: Sequence[float]) -> List[int]:
+    """Index of the guidance entry that applies at each schedule step: the
+    first entry at or below the step's timestep, else the last."""
+    mapping = []
+    for t in timesteps:
+        indices = [i for i, v in enumerate(guidance_timesteps) if v <= t]
+        mapping.append(indices[0] if indices else len(guidance_timesteps) - 1)
+    return mapping
+
+
+def _as_step_array(value, timesteps: np.ndarray,
+                   guidance_timesteps: Optional[Sequence[float]]) -> np.ndarray:
+    """A scalar broadcast over the schedule, or a per-guidance-timestep
+    list mapped onto it."""
+    if not isinstance(value, (list, tuple)):
+        return np.full(len(timesteps), float(value), dtype=np.float32)
+    if guidance_timesteps is None:
+        raise ValueError("list-valued guidance requires guidance_timesteps")
+    mapping = _guidance_mapping(timesteps, guidance_timesteps)
+    return np.asarray([value[m] for m in mapping], dtype=np.float32)
+
+
+def _tile(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    return x if x is None or n == 1 else torch.cat([x] * n)
+
+
+def _flat_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1).float()
+
+
+def combine_guidance(parts, do_cfg: bool, do_stg: bool, g, sg,
+                     rescale: Optional[float], cfg_star: bool) -> torch.Tensor:
+    """The guided velocity from the conds' predictions ``parts`` =
+    [uncond if CFG | text | perturbed if STG], each [B, N, C]. ``g`` and
+    ``sg`` are this step's CFG and STG scales as 0-d tensors of the latent
+    dtype (so the math does not leave it). ``rescale``, a host float or
+    None for no rescale, pulls the guided prediction's std toward the text
+    prediction's; the stds are taken in f32, unbiased."""
+    parts = list(parts)
+    uncond = parts.pop(0) if do_cfg else None
+    text = parts.pop(0)
+    pred = text
+    if do_cfg:
+        if cfg_star:
+            pos, neg = _flat_f32(text), _flat_f32(uncond)
+            alpha = (pos * neg).sum(1, keepdim=True) / (
+                (neg**2).sum(1, keepdim=True) + 1e-8)
+            uncond = alpha.reshape(-1, 1, 1).to(uncond.dtype) * uncond
+        pred = uncond + g * (text - uncond)
+    if do_stg:
+        pred = pred + sg * (text - parts.pop(0))
+        if rescale is not None:
+            text_std = _flat_f32(text).std(dim=1, keepdim=True, correction=1)
+            pred_std = _flat_f32(pred).std(dim=1, keepdim=True, correction=1)
+            factor = rescale * (text_std / pred_std) + (1 - rescale)
+            pred = pred * factor.reshape(-1, 1, 1).to(pred.dtype)
+    return pred
 
 
 def tone_map_latents(latents: torch.Tensor, compression: float) -> torch.Tensor:
@@ -104,8 +162,14 @@ def tone_map_latents(latents: torch.Tensor, compression: float) -> torch.Tensor:
 
 
 class LTXVideoPipeline:
-    """Schedule prep on the host, VAE encodes, the Euler denoising walk and
-    the decode, all on ``device``."""
+    """Schedule prep on the host, VAE encodes, the denoising walk and the
+    decode, all on ``device``.
+
+    ``attention_impl`` ("auto", "xla", "flash") and ``rope_split`` choose
+    the DiT's attention path (see ``models/dit.py:_attention``);
+    ``scan_blocks`` keeps the transformer blocks stacked on a leading
+    layer axis, the layout the JAX package scans over (here walked by the
+    same Python loop, slice by slice)."""
 
     def __init__(
         self,
@@ -115,15 +179,26 @@ class LTXVideoPipeline:
         vae_params: dict,
         schedule: Optional[RectifiedFlowSchedule] = None,
         patch_size: int = 1,
+        attention_impl: str = "auto",
+        rope_split: bool = True,
+        scan_blocks: bool = False,
         device="cuda",
     ):
         self.device = torch.device(device)
         self.dit_cfg = dit_cfg
+        self.attention_impl = attention_impl
+        self.rope_split = rope_split
+        self.scan_blocks = scan_blocks
         # dit_params is the UNPERMUTED tree; the split-RoPE layout is made
         # here, once. Seeding another pipeline from self.dit_params would
         # permute twice and corrupt attention.
         self.raw_dit_params = dit_params
-        self.dit_params = permute_dit_params_for_split_rope(dit_params, dit_cfg)
+        if rope_split:
+            dit_params = permute_dit_params_for_split_rope(dit_params, dit_cfg)
+        if scan_blocks:
+            dit_params = dict(dit_params,
+                              blocks=stack_block_params(dit_params["blocks"]))
+        self.dit_params = dit_params
         self.vae_cfg = vae_cfg
         self.vae_params = vae_params
         self.schedule = schedule or RectifiedFlowSchedule.create(
@@ -170,32 +245,94 @@ class LTXVideoPipeline:
         return tokens, latent_to_pixel_coords(coords, scale_factors)
 
     def denoise(self, tokens, fractional_coords, prompt_embeds, prompt_mask,
-                sigmas: torch.Tensor, ref_lat, pose_lat) -> torch.Tensor:
-        """The Euler walk over ``sigmas`` (f32, on the device)."""
+                sigmas: torch.Tensor, ref_lat, pose_lat, *,
+                guidance: Optional[np.ndarray] = None,
+                stg: Optional[np.ndarray] = None,
+                rescale: Optional[np.ndarray] = None,
+                cfg_star: bool = False,
+                skip_layer_mask: Optional[torch.Tensor] = None,
+                skip_layer_strategy: Optional[SkipLayerStrategy] = None,
+                solver: str = "euler", stochastic: bool = False,
+                generator: Optional[torch.Generator] = None,
+                step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The denoising walk over ``sigmas`` (f32, on the device).
+
+        ``tokens`` [B, N, C]; ``fractional_coords``, ``prompt_embeds`` and
+        ``prompt_mask`` carry the conds stacked along the batch,
+        [uncond if CFG | text | perturbed if STG], which ``guidance`` and
+        ``stg`` (per-step host arrays; defaults 1 and 0) switch on.
+        ``skip_layer_mask`` is [layers, B*conds] or, per step,
+        [steps, layers, B*conds]. Heun evaluates the model twice per step
+        except at the last, which is plain Euler. Stochastic sampling
+        takes step i's noise from ``step_noise[i]`` or draws it from
+        ``generator``.
+        """
         cfg, params = self.dit_cfg, self.dit_params
         dtype = tokens.dtype
-        freqs = split_freqs(precompute_freqs_cis(
+        steps = sigmas.shape[0]
+        guidance = np.ones(steps, np.float32) if guidance is None else guidance
+        stg = np.zeros(steps, np.float32) if stg is None else stg
+        rescale = np.ones(steps, np.float32) if rescale is None else rescale
+        do_cfg, do_stg = bool((guidance > 1.0).any()), bool((stg > 0).any())
+        num_conds = prompt_embeds.shape[0] // tokens.shape[0]
+        if num_conds != 1 + do_cfg + do_stg:
+            raise ValueError(
+                f"{num_conds} stacked conds for CFG={do_cfg}, STG={do_stg}")
+        # per-step scales in the latent dtype, as the JAX package casts them
+        g_dev = torch.as_tensor(guidance, device=self.device).to(dtype)
+        sg_dev = torch.as_tensor(stg, device=self.device).to(dtype)
+
+        freqs = precompute_freqs_cis(
             fractional_coords, dim=cfg.inner_dim,
             theta=cfg.positional_embedding_theta,
             max_pos=cfg.positional_embedding_max_pos, out_dtype=dtype,
-        ))
+        )
+        if self.rope_split:
+            freqs = split_freqs(freqs)
         cross_kv, _ = precompute_cross_attention_kv(params, cfg, prompt_embeds,
                                                     dtype=dtype)
         sigmas_ext = torch.cat([sigmas, sigmas.new_zeros(1)])
         ada_table, emb_table = precompute_timestep_tables(
-            params, cfg, sigmas_ext, tokens.shape[0], dtype=dtype)
+            params, cfg, sigmas_ext, prompt_embeds.shape[0], dtype=dtype)
         mask = prompt_mask.to(torch.float32).contiguous()
-        latents = tokens
-        for i in range(sigmas.shape[0]):
-            latent_in = latents
-            if ref_lat is not None:
-                latent_in = avatar_condition_tokens(latent_in, ref_lat, pose_lat)
+        ref_b, pose_b = _tile(ref_lat, num_conds), _tile(pose_lat, num_conds)
+
+        def guided_velocity(lat, i, level):
+            """The guided velocity at noise level ``sigmas_ext[level]`` with
+            step i's guidance scales and skip mask."""
+            latent_in = _tile(lat, num_conds)
+            if ref_b is not None:
+                latent_in = avatar_condition_tokens(latent_in, ref_b, pose_b)
+            step_mask = skip_layer_mask
+            if step_mask is not None and step_mask.ndim == 3:
+                step_mask = step_mask[i]
             pred = dit_apply(
                 params, cfg, latent_in, encoder_attention_mask=mask,
-                freqs_cis=freqs, cross_kv=cross_kv,
-                timestep_tables=(ada_table[i], emb_table[i]),
+                skip_layer_mask=step_mask, skip_layer_strategy=skip_layer_strategy,
+                attention_impl=self.attention_impl, freqs_cis=freqs,
+                rope_split=self.rope_split, cross_kv=cross_kv,
+                timestep_tables=(ada_table[level], emb_table[level]),
             ).to(dtype)
-            latents = rf_step(sigmas, pred, sigmas[i], latents)
+            if num_conds == 1:
+                return pred
+            # the rescale applies where this step has STG on and a scale != 1
+            rs = float(rescale[i]) if stg[i] > 0.0 and rescale[i] != 1.0 else None
+            return combine_guidance(pred.chunk(num_conds), do_cfg, do_stg, g_dev[i],
+                                    sg_dev[i], rs, cfg_star)
+
+        latents = tokens
+        for i in range(steps):
+            pred = guided_velocity(latents, i, i)
+            if solver == "heun" and i + 1 < steps:
+                # Euler predictor to the next level, then the trapezoidal
+                # corrector; rf_step is linear in the velocity, so the Heun
+                # update is rf_step on the averaged velocity
+                predicted = rf_step(sigmas, pred, sigmas[i], latents)
+                pred = 0.5 * (pred + guided_velocity(predicted, i, i + 1))
+            latents = rf_step(
+                sigmas, pred, sigmas[i], latents, stochastic_sampling=stochastic,
+                generator=generator,
+                noise=None if step_noise is None else step_noise[i])
         return latents
 
     def decode_latents(self, latents, p: GenerationParams, generator=None,
@@ -240,6 +377,11 @@ class LTXVideoPipeline:
         generator: torch.Generator,
         prompt_embeds: torch.Tensor,  # [B, L, caption_channels]
         prompt_attention_mask: torch.Tensor,  # [B, L]
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        negative_prompt_attention_mask: Optional[torch.Tensor] = None,
+        latents: Optional[torch.Tensor] = None,
+        media_items: Optional[torch.Tensor] = None,
+        conditioning_items: Optional[list] = None,
         ref_image: Optional[torch.Tensor] = None,  # [B, 1, H, W, 3]
         pose_frames: Optional[torch.Tensor] = None,  # [B, F, H, W, 3]
         ref_latents: Optional[torch.Tensor] = None,  # [B, 1, h, w, C]
@@ -249,19 +391,27 @@ class LTXVideoPipeline:
         ref_noise: Optional[torch.Tensor] = None,
         pose_noise: Optional[torch.Tensor] = None,
         init_noise: Optional[torch.Tensor] = None,
+        step_noise: Optional[torch.Tensor] = None,  # [steps, B, N, C]
         decode_noise: Optional[torch.Tensor] = None,
         stage_times: Optional[Dict[str, float]] = None,
     ) -> torch.Tensor:
         """Generate one batch. ``output_type``: "latent" (denoised latents
         [B, F', H', W', C]), "np" (float frames [B, F, H, W, 3] in [0, 1]),
         "uint8" or "yuv420" (I420 planes [B, F, H*3/2, W]); all returned as
-        tensors on the device. ``stage_times``, if given, receives the
-        seconds of the encode, denoise and decode stages (each ends in a
-        device synchronize)."""
+        tensors on the device. Absent negative prompt embeds are zeros with
+        an all-zero mask. ``stage_times``, if given, receives the seconds
+        of the encode, denoise and decode stages (each ends in a device
+        synchronize)."""
         p = params
-        _check_ported(p)
+        _check_ported(p, latents=latents, media_items=media_items,
+                      conditioning_items=conditioning_items or None)
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f"output_type must be one of {OUTPUT_TYPES}")
+        if p.solver not in ("euler", "heun"):
+            raise ValueError(f"unknown solver {p.solver!r}")
+        if p.solver == "heun" and p.stochastic_sampling:
+            raise ValueError("solver='heun' is a deterministic ODE integrator; "
+                             "it does not compose with stochastic_sampling")
         dev = self.device
 
         def mark(stage, t0):
@@ -285,10 +435,34 @@ class LTXVideoPipeline:
             num_inference_steps=p.num_inference_steps,
             samples_shape=(b, self.dit_cfg.in_channels, lat_f, lat_h, lat_w),
         )
-        sigmas = torch.tensor(np.asarray(sched.sigmas), dtype=torch.float32,
-                              device=dev)
+        timesteps = np.asarray(sched.sigmas)
+        if p.skip_final_inference_steps:
+            timesteps = timesteps[:len(timesteps) - p.skip_final_inference_steps]
+        sigmas = torch.tensor(timesteps, dtype=torch.float32, device=dev)
+
+        guidance = _as_step_array(p.guidance_scale, timesteps, p.guidance_timesteps)
+        stg = _as_step_array(p.stg_scale, timesteps, p.guidance_timesteps)
+        rescale = _as_step_array(p.rescaling_scale, timesteps, p.guidance_timesteps)
+        do_cfg, do_stg = bool((guidance > 1.0).any()), bool((stg > 0).any())
+        num_conds = 1 + do_cfg + do_stg
+
+        # the conds stacked along the batch: [negative | text | perturbed]
         prompt_embeds = prompt_embeds.to(dev, dtype)
         prompt_mask = prompt_attention_mask.to(dev)
+        embed_parts, mask_parts = [prompt_embeds], [prompt_mask]
+        if do_cfg:
+            neg = (torch.zeros_like(prompt_embeds) if negative_prompt_embeds is None
+                   else negative_prompt_embeds.to(dev, dtype))
+            neg_mask = (torch.zeros_like(prompt_mask)
+                        if negative_prompt_attention_mask is None
+                        else negative_prompt_attention_mask.to(dev))
+            embed_parts.insert(0, neg)
+            mask_parts.insert(0, neg_mask.to(prompt_mask.dtype))
+        if do_stg:
+            embed_parts.append(prompt_embeds)
+            mask_parts.append(prompt_mask)
+        prompt_embeds_b = torch.cat(embed_parts)
+        prompt_mask_b = torch.cat(mask_parts)
 
         ref_lat = None if ref_latents is None else ref_latents.to(dev, dtype)
         pose_lat = None if pose_latents is None else pose_latents.to(dev, dtype)
@@ -306,8 +480,38 @@ class LTXVideoPipeline:
         tokens, pixel_coords = self.prepare_conditioning(init)
         fractional = pixel_coords.float()
         fractional[:, 0] *= 1.0 / p.frame_rate
-        final_tokens = self.denoise(tokens, fractional, prompt_embeds,
-                                    prompt_mask, sigmas, ref_lat, pose_lat)
+
+        skip_layer_mask = None
+        if do_stg and p.skip_block_list:
+            def skip_mask(block_list):
+                return create_skip_layer_mask(
+                    self.dit_cfg.num_layers, b, num_conds, num_conds - 1,
+                    block_list, device=dev)
+
+            sbl = p.skip_block_list
+            if isinstance(sbl[0], (list, tuple)):
+                # per-timestep block lists, mapped like the guidance scales
+                if not p.guidance_timesteps:
+                    raise ValueError(
+                        "per-timestep skip_block_list requires guidance_timesteps")
+                ident = torch.ones((self.dit_cfg.num_layers, b * num_conds),
+                                   dtype=torch.float32, device=dev)
+                masks = [skip_mask(sbl[m])
+                         for m in _guidance_mapping(timesteps, p.guidance_timesteps)]
+                skip_layer_mask = torch.stack(
+                    [ident if m is None else m for m in masks])
+            else:
+                skip_layer_mask = skip_mask(sbl)
+
+        if step_noise is not None:
+            step_noise = step_noise.to(dev, dtype)
+        final_tokens = self.denoise(
+            tokens, _tile(fractional, num_conds), prompt_embeds_b, prompt_mask_b,
+            sigmas, ref_lat, pose_lat, guidance=guidance, stg=stg, rescale=rescale,
+            cfg_star=p.cfg_star_rescale, skip_layer_mask=skip_layer_mask,
+            skip_layer_strategy=p.skip_layer_strategy, solver=p.solver,
+            stochastic=p.stochastic_sampling, generator=generator,
+            step_noise=step_noise)
         latents = unpatchify(final_tokens, lat_f, lat_h, lat_w, self.patch_size)
         t0 = mark("denoise_s", t0)
         if output_type == "latent":

@@ -8,7 +8,9 @@ else (biases, norm scales, AdaLN tables, the tree's structure) carries
 over as it is.
 
 The DiT tree must be the **unpermuted** one: the port's pipeline applies
-the split-RoPE permutation itself at construction.
+the split-RoPE permutation itself at construction. Its blocks may be a
+list or one tree stacked on a leading layer axis (``[L, in, out]`` kernels
+become ``[L, out, in]``); the layout carries over.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from avatar_tpu_torch.models.dit import DiTConfig
 from avatar_tpu_torch.models.vae import VAEConfig
 
 
-def _convert(node: Any, device, dtype) -> Any:
+def _convert(node: Any, device, dtype, stacked: bool = False) -> Any:
     if isinstance(node, dict):
         if "kernel_q" in node or "kernel_q8" in node:
             raise NotImplementedError("quantized params are not ported yet")
@@ -30,18 +32,18 @@ def _convert(node: Any, device, dtype) -> Any:
         for key, val in node.items():
             if key == "kernel":
                 w = np.asarray(val)
-                if w.ndim == 2:
-                    w = w.T
-                elif w.ndim == 5:
+                if w.ndim == 2 or (stacked and w.ndim == 3):
+                    w = np.swapaxes(w, -1, -2)
+                elif w.ndim == 5 and not stacked:
                     w = w.transpose(4, 3, 0, 1, 2)
                 else:
                     raise ValueError(f"unexpected kernel rank {w.ndim}")
                 out["weight"] = _tensor(w, device, dtype)
             else:
-                out[key] = _convert(val, device, dtype)
+                out[key] = _convert(val, device, dtype, stacked)
         return out
     if isinstance(node, (list, tuple)):
-        return [_convert(v, device, dtype) for v in node]
+        return [_convert(v, device, dtype, stacked) for v in node]
     return _tensor(np.asarray(node), device, dtype)
 
 
@@ -53,12 +55,17 @@ def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
 def dit_params_from_numpy(tree: dict, cfg: DiTConfig, device="cuda",
                           dtype: torch.dtype = torch.float32) -> dict:
     """Unpermuted JAX DiT params (numpy leaves) -> the port's tree."""
-    if not isinstance(tree.get("blocks"), (list, tuple)):
-        raise NotImplementedError("stacked block params are not ported yet")
-    if len(tree["blocks"]) != cfg.num_layers:
-        raise ValueError(
-            f"{len(tree['blocks'])} blocks for a {cfg.num_layers}-layer config")
-    return _convert(tree, device, dtype)
+    blocks = tree["blocks"]
+    if isinstance(blocks, (list, tuple)):
+        n_blocks = len(blocks)
+        blocks = _convert(blocks, device, dtype)
+    else:
+        n_blocks = np.asarray(blocks["scale_shift_table"]).shape[0]
+        blocks = _convert(blocks, device, dtype, stacked=True)
+    if n_blocks != cfg.num_layers:
+        raise ValueError(f"{n_blocks} blocks for a {cfg.num_layers}-layer config")
+    rest = {k: v for k, v in tree.items() if k != "blocks"}
+    return dict(_convert(rest, device, dtype), blocks=blocks)
 
 
 def vae_params_from_numpy(tree: dict, cfg: VAEConfig, device="cuda",

@@ -12,8 +12,9 @@ from avatar_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 HEADS, HD = 4, 64
-# bf16 outputs of O(1); see chip_smoke.py's KERNEL_TOL
+# bf16 outputs of O(1); see chip_smoke.py's KERNEL_TOL and LSE_TOL
 TOL = 1e-2
+LSE_TOL = 1e-2
 
 
 @pytest.fixture
@@ -57,6 +58,48 @@ def test_token_kernel_matches_plain_with_masked_row(gen, bounded):
     assert bool((out[2] == 0).all())
 
 
+@pytest.mark.parametrize("lq,lk,bounded,counter", [
+    (1100, 1100, True, "flash_bounded"), (1100, 333, False, "flash_online"),
+    (637, 637, False, "flash_single"), (1024, 77, True, "flash_single"),
+])
+def test_flash_kernels_match_plain_with_masked_row(gen, lq, lk, bounded, counter):
+    """O and lse of each head-major kernel, ragged lengths, a partly masked
+    and a fully masked batch row (O = 0, lse = 1e30)."""
+    q, k = _rows(gen, 3, HEADS, lq, HD), _rows(gen, 3, HEADS, lk, HD)
+    v = torch.randn(3, HEADS, lk, HD, generator=gen, device="cuda").bfloat16()
+    mask = torch.ones(3, lk, device="cuda")
+    mask[1, lk // 2:] = 0.0
+    mask[2] = 0.0
+    mode = fa.flash_mode(lq, lk, bounded)
+    assert f"flash_{mode}" == counter
+    before = fa.launch_counts[counter]
+    out, lse = fa.flash_attention(q, k, v, kv_mask=mask, bounded_logits=bounded,
+                                  with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[counter] == before + 1
+    ref, ref_lse = fa._flash_plain(q * HD**-0.5, k, v, mask, 1.0, mode)
+    assert (out.float() - ref.float()).abs().max().item() < TOL
+    assert (lse[:2] - ref_lse[:2]).abs().max().item() < LSE_TOL
+    assert bool((out[2] == 0).all()) and bool((lse[2] == fa.LSE_MASKED).all())
+
+
+def test_flash_attention_takes_transposed_views_and_a_bias(gen):
+    """The DiT hands in [B, L, H, D] tensors transposed to head-major, and a
+    [B, 1, 1, Lk] bias for its keep-mask."""
+    q = _rows(gen, 1, 1200, HEADS, HD).transpose(1, 2)
+    k = _rows(gen, 1, 1200, HEADS, HD).transpose(1, 2)
+    v = torch.randn(1, 1200, HEADS, HD, generator=gen, device="cuda"
+                    ).bfloat16().transpose(1, 2)
+    bias = torch.zeros(1, 1, 1, 1200, device="cuda")
+    bias[..., 1000:] = -1e4
+    out = fa.flash_attention(q, k, v, bias=bias, bounded_logits=True)
+    ref, _ = fa._flash_plain(q * HD**-0.5, k, v, (bias[:, 0, 0] >= -1.0).float(),
+                             1.0, "bounded")
+    assert (out.float() - ref.float()).abs().max().item() < TOL
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q, k, v, bias=torch.zeros(1, 1, 1200, 1200, device="cuda"))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     q = _rows(gen, 1, 64, HEADS * HD)
     with pytest.raises(ValueError):
@@ -69,3 +112,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # the mask must be f32 on the card
         fa.fused_token_attention(q, q, q, torch.ones(1, 64, device="cuda",
                                                      dtype=torch.bool), HEADS, 0.1)
+    qh = q.reshape(1, 64, HEADS, HD).transpose(1, 2)
+    with pytest.raises(ValueError):  # f32 head-major
+        fa.flash_attention(qh.float(), qh.float(), qh.float())
+    with pytest.raises(ValueError):  # head_dim 32
+        q32 = q.reshape(1, 64, 2 * HEADS, HD // 2).transpose(1, 2)
+        fa.flash_attention(q32, q32, q32)

@@ -1,6 +1,7 @@
 """The PyTorch port's pipeline against the JAX pipeline, end to end on the
 CPU: a tiny DiT and VAE (as in tests/test_pipeline.py), reference image and
-pose frames, 3 Euler steps, guidance 1, STG 0. The JAX side runs its Pallas
+pose frames, 3 Euler steps, guidance 1, STG 0 (the guided walk is held to
+the JAX package in tests/test_torch_guidance.py). The JAX side runs its Pallas
 attention kernels in interpret mode; the port receives JAX's own random
 draws (``jax.random.split(key, 6)`` as the JAX pipeline splits it) as
 explicit noise tensors. Compared in f32."""
@@ -131,12 +132,19 @@ def test_yuv420_output_shape(pipelines, inputs, jax_run):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(guidance_scale=3.0), dict(stg_scale=1.0), dict(solver="heun"),
-    dict(stochastic_sampling=True),
-])
+    dict(skip_initial_inference_steps=1), dict(image_cond_noise_scale=0.1),
+    dict(latents=True), dict(media_items=True), dict(conditioning_items=True),
+], ids=lambda s: next(iter(s)))
 def test_unported_settings_raise(pipelines, inputs, setting):
+    """What the port still lacks raises and names it; guidance, STG, Heun
+    and stochastic sampling run (tests/test_torch_guidance.py)."""
     _, tp = pipelines
     embeds, mask, _, _ = inputs
-    with pytest.raises(NotImplementedError):
+    name = next(iter(setting))
+    call_kw = {}
+    if setting[name] is True:  # an unported input, not a GenerationParams field
+        call_kw[name] = [object()] if name == "conditioning_items" else _t(embeds)
+        setting = {}
+    with pytest.raises(NotImplementedError, match=name):
         tp(tpipe.GenerationParams(**_params(**setting)), torch.Generator(),
-           _t(embeds), _t(mask), dtype=torch.float32)
+           _t(embeds), _t(mask), dtype=torch.float32, **call_kw)
