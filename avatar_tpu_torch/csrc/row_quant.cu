@@ -1,0 +1,266 @@
+// Per-row dynamic int8 quantization and the two fused producers that end
+// in it. Three kernels, one per TPU kernel of avatar_tpu/ops/int8_matmul.py:
+//
+// - quantize_rows (replaces `_quant_rows_kernel`, :231, launched by
+//   `quantize_rows_pallas`): y = x in f32;
+// - rms_mod_quant (replaces `_rms_mod_quant_kernel`, :305, launched by
+//   `fused_rms_mod_quant`): y = (x * (1 / sqrt(mean(x^2) + eps))) * cvec
+//   (+ shift), in f32, cvec and shift per batch row;
+// - act_quant (replaces `_act_quant_kernel`, :392, launched by
+//   `fused_act_quant`): y = gelu-tanh(h), gelu-erf(h) or, for geglu,
+//   h[:, :W] * gelu-erf(h[:, W:]) with W = C2 / 2, in f32;
+//
+// each followed by the same epilogue:
+//   s = max(max|y|, 1e-30) / 127,  q = clip(round(y * (1 / s)), -127, 127)
+// with round half to even (rintf), the reciprocal by IEEE division, and no
+// fused multiply-add anywhere (every product and sum is rounded on its own,
+// as the TPU kernels' f32 expressions are), so a rounding tie lands where
+// the plain version puts it. Build without --use_fast_math. The kernels'
+// transcendentals (sqrtf, erff, tanhf) may differ from the host's by an ulp,
+// which can move an element across a rounding boundary: one int8 level.
+//
+// Bound on an H100 SXM (3.35 TB/s): all three are bound by bytes. At the
+// DiT's shapes quantize_rows and rms_mod_quant read a [5376, 2048] bf16
+// input (22 MB) and write its int8 (11 MB): about 10 us; act_quant reads
+// [5376, 8192] bf16 (88 MB) and writes 44 MB of int8: about 39 us.
+//
+// Design: one block of 256 threads per row. The row is read once from
+// device memory into shared memory as f32 (y), with the row's sum of
+// squares or its activation computed on the way; block reductions (warp
+// shuffles, then one value per warp) give the mean square and max|y|; the
+// quantized row and its scale are written once. Width up to 16,384 f32 in
+// shared memory (64 KB).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace avatar_quant {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxWidth = 16384;
+
+enum Act { kGeluTanh = 0, kGeluErf = 1, kGeglu = 2 };
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// Every thread gets the block's max (op 0) or sum (op 1) of v.
+template <int kOp>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kOp == 0 ? fmaxf(v, o) : __fadd_rn(v, o);
+  }
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();  // red may still be read by an earlier reduction
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) v = kOp == 0 ? fmaxf(v, red[w]) : __fadd_rn(v, red[w]);
+  return v;
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  // 0.5 * x * (1 + erf(x * 2^-0.5))
+  return __fmul_rn(__fmul_rn(0.5f, x),
+                   __fadd_rn(1.0f, erff(__fmul_rn(x, 0.70710678118654752f))));
+}
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  // 0.5 * x * (1 + tanh(c * (x + 0.044715 * x * x * x))), c = sqrt(2 / pi)
+  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
+  const float inner = __fmul_rn(0.79788456080286536f, __fadd_rn(x, cube));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
+}
+
+// The shared epilogue over the f32 row y [width] in shared memory.
+__device__ __forceinline__ void quantize_row(const float* y, int width,
+                                             int8_t* __restrict__ q,
+                                             float* __restrict__ s_out, float* red) {
+  float amax = 0.0f;
+  for (int i = threadIdx.x; i < width; i += kThreads) amax = fmaxf(amax, fabsf(y[i]));
+  amax = block_reduce<0>(amax, red);
+  const float s = __fdiv_rn(fmaxf(amax, 1e-30f), 127.0f);
+  const float inv = __fdiv_rn(1.0f, s);
+  for (int i = threadIdx.x; i < width; i += kThreads) {
+    const float r = fminf(fmaxf(rintf(__fmul_rn(y[i], inv)), -127.0f), 127.0f);
+    q[i] = static_cast<int8_t>(__float2int_rn(r));
+  }
+  if (threadIdx.x == 0) *s_out = s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ s, int width) {
+  extern __shared__ float y[];
+  __shared__ float red[kWarps];
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * width;
+  for (int i = threadIdx.x; i < width; i += kThreads) y[i] = to_f32(xr[i]);
+  __syncthreads();
+  quantize_row(y, width, q + row * width, s + row, red);
+}
+
+template <typename T, bool kShift>
+__global__ void __launch_bounds__(kThreads)
+rms_mod_quant_kernel(const T* __restrict__ x, const float* __restrict__ cvec,
+                     const float* __restrict__ shift, int8_t* __restrict__ q,
+                     float* __restrict__ s, int rows_per_batch, int width, float eps) {
+  extern __shared__ float y[];
+  __shared__ float red[kWarps];
+  const int64_t row = blockIdx.x;
+  const int64_t b = row / rows_per_batch;
+  const T* xr = x + row * width;
+  float ss = 0.0f;
+  for (int i = threadIdx.x; i < width; i += kThreads) {
+    const float v = to_f32(xr[i]);
+    y[i] = v;
+    ss = __fadd_rn(ss, __fmul_rn(v, v));
+  }
+  ss = block_reduce<1>(ss, red);
+  const float ms = __fdiv_rn(ss, static_cast<float>(width));
+  const float r = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(ms, eps)));
+  const float* cv = cvec + b * width;
+  const float* sh = kShift ? shift + b * width : nullptr;
+  for (int i = threadIdx.x; i < width; i += kThreads) {
+    float v = __fmul_rn(__fmul_rn(y[i], r), cv[i]);
+    if (kShift) v = __fadd_rn(v, sh[i]);
+    y[i] = v;
+  }
+  __syncthreads();
+  quantize_row(y, width, q + row * width, s + row, red);
+}
+
+template <typename T, int kAct>
+__global__ void __launch_bounds__(kThreads)
+act_quant_kernel(const T* __restrict__ h, int8_t* __restrict__ q,
+                 float* __restrict__ s, int in_width, int width) {
+  extern __shared__ float y[];
+  __shared__ float red[kWarps];
+  const int64_t row = blockIdx.x;
+  const T* hr = h + row * in_width;
+  for (int i = threadIdx.x; i < width; i += kThreads) {
+    const float v = to_f32(hr[i]);
+    if (kAct == kGeglu)
+      y[i] = __fmul_rn(v, gelu_erf(to_f32(hr[width + i])));
+    else if (kAct == kGeluErf)
+      y[i] = gelu_erf(v);
+    else
+      y[i] = gelu_tanh(v);
+  }
+  __syncthreads();
+  quantize_row(y, width, q + row * width, s + row, red);
+}
+
+template <typename Kernel>
+static cudaError_t prepare(Kernel kernel, int width, size_t* smem) {
+  if (width <= 0 || width > kMaxWidth) return cudaErrorInvalidValue;
+  *smem = static_cast<size_t>(width) * sizeof(float);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+template <typename T>
+static cudaError_t launch_quantize_rows(const void* x, void* q, void* s, int rows,
+                                        int width, cudaStream_t stream) {
+  auto kernel = quantize_rows_kernel<T>;
+  size_t smem;
+  cudaError_t err = prepare(kernel, width, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<rows, kThreads, smem, stream>>>(static_cast<const T*>(x),
+                                           static_cast<int8_t*>(q),
+                                           static_cast<float*>(s), width);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kShift>
+static cudaError_t launch_rms_mod_quant(const void* x, const void* cvec,
+                                        const void* shift, void* q, void* s, int batch,
+                                        int rows_per_batch, int width, float eps,
+                                        cudaStream_t stream) {
+  auto kernel = rms_mod_quant_kernel<T, kShift>;
+  size_t smem;
+  cudaError_t err = prepare(kernel, width, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<batch * rows_per_batch, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(cvec),
+      static_cast<const float*>(shift), static_cast<int8_t*>(q), static_cast<float*>(s),
+      rows_per_batch, width, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t dispatch_rms_mod_quant(const void* x, const void* cvec,
+                                          const void* shift, void* q, void* s, int batch,
+                                          int rows_per_batch, int width, float eps,
+                                          cudaStream_t stream) {
+  return shift ? launch_rms_mod_quant<T, true>(x, cvec, shift, q, s, batch,
+                                               rows_per_batch, width, eps, stream)
+               : launch_rms_mod_quant<T, false>(x, cvec, shift, q, s, batch,
+                                                rows_per_batch, width, eps, stream);
+}
+
+template <typename T, int kAct>
+static cudaError_t launch_act_quant(const void* h, void* q, void* s, int rows,
+                                    int in_width, cudaStream_t stream) {
+  auto kernel = act_quant_kernel<T, kAct>;
+  const int width = kAct == kGeglu ? in_width / 2 : in_width;
+  size_t smem;
+  cudaError_t err = prepare(kernel, width, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<rows, kThreads, smem, stream>>>(static_cast<const T*>(h),
+                                           static_cast<int8_t*>(q),
+                                           static_cast<float*>(s), in_width, width);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t dispatch_act_quant(const void* h, void* q, void* s, int rows,
+                                      int in_width, int act, cudaStream_t stream) {
+  if (act == kGeglu) return launch_act_quant<T, kGeglu>(h, q, s, rows, in_width, stream);
+  if (act == kGeluErf)
+    return launch_act_quant<T, kGeluErf>(h, q, s, rows, in_width, stream);
+  if (act == kGeluTanh)
+    return launch_act_quant<T, kGeluTanh>(h, q, s, rows, in_width, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace avatar_quant
+
+// C entries for ctypes. x/h are row-major [rows, width] bf16 (in_f32 = 0)
+// or f32; q [rows, out width] int8; s [rows] f32; cvec and shift [batch,
+// width] f32 (shift may be null). Each returns the cudaError_t of its launch
+// (0 = success).
+extern "C" int quantize_rows(const void* x, void* q, void* s, int rows, int width,
+                             int in_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      in_f32 ? avatar_quant::launch_quantize_rows<float>(x, q, s, rows, width, st)
+             : avatar_quant::launch_quantize_rows<__nv_bfloat16>(x, q, s, rows, width, st));
+}
+
+extern "C" int rms_mod_quant(const void* x, const void* cvec, const void* shift, void* q,
+                             void* s, int batch, int rows_per_batch, int width,
+                             float eps, int in_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      in_f32 ? avatar_quant::dispatch_rms_mod_quant<float>(
+                   x, cvec, shift, q, s, batch, rows_per_batch, width, eps, st)
+             : avatar_quant::dispatch_rms_mod_quant<__nv_bfloat16>(
+                   x, cvec, shift, q, s, batch, rows_per_batch, width, eps, st));
+}
+
+// act: 0 gelu-approximate (tanh), 1 gelu (erf), 2 geglu (output width
+// in_width / 2).
+extern "C" int act_quant(const void* h, void* q, void* s, int rows, int in_width, int act,
+                         int in_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      in_f32 ? avatar_quant::dispatch_act_quant<float>(h, q, s, rows, in_width, act, st)
+             : avatar_quant::dispatch_act_quant<__nv_bfloat16>(h, q, s, rows, in_width,
+                                                               act, st));
+}

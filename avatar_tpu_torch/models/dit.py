@@ -17,7 +17,12 @@ The port runs the inference paths:
   flash kernels); cross-attention likewise without RoPE;
 - STG through ``skip_layer_mask`` and a :class:`SkipLayerStrategy`;
 - blocks as a list or stacked on a leading layer axis
-  (:func:`stack_block_params`); no LoRA, no sequence parallelism.
+  (:func:`stack_block_params`); no LoRA, no sequence parallelism;
+- int8 linears (``utils/quantize.py``): weight-only ``kernel_q`` anywhere,
+  and W8A8 ``kernel_q8`` in the eight per-token block linears, which at a
+  per-sample sequence of at least ``W8A8_PALLAS_MIN_TOKENS`` run through
+  the int8 kernels of ``ops/int8_matmul.py`` (:func:`_block_apply`,
+  :func:`_feed_forward`, ``models/layers.py:linear``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from avatar_tpu_torch.models.layers import (
     linear,
     timestep_embedder,
 )
+from avatar_tpu_torch.ops import int8_matmul
 from avatar_tpu_torch.ops.attention import scaled_dot_product_attention
 from avatar_tpu_torch.ops.flash_attention import (
     fused_supports,
@@ -229,7 +235,7 @@ def _stg_mix(out, skipped, skip_layer_mask):
 
 def _attention(
     params: dict,
-    x: torch.Tensor,
+    x,
     cfg: DiTConfig,
     freqs_cis: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     kv_mask: Optional[torch.Tensor] = None,
@@ -241,6 +247,8 @@ def _attention(
 ) -> torch.Tensor:
     """Self-attention over ``x`` (RoPE from ``freqs_cis``) or, with
     ``cross_kv`` (token-major (k, v) [B, Lk, inner]), cross-attention.
+    ``x`` is [B, N, C] or, on the fused W8A8 route, its
+    :class:`PrequantRows`, which the q/k/v products take as they are.
 
     Routing, as in the JAX package: the RoPE-fused kernel where
     ``rope_fused_supports`` holds (split layout, no mask); else RoPE in
@@ -297,8 +305,17 @@ def _attention(
     return mixed(out.transpose(1, 2).reshape(b, -1, heads * hd))
 
 
-def _feed_forward(params: dict, x: torch.Tensor, cfg: DiTConfig):
+def _feed_forward(params: dict, x, cfg: DiTConfig):
+    """``x`` is [B, N, C] or, on the fused W8A8 route, its
+    :class:`PrequantRows`. With a W8A8 ``proj_out`` and a per-sample
+    sequence of at least ``W8A8_PALLAS_MIN_TOKENS`` the activation and the
+    row quantization run as one kernel (``fused_act_quant``)."""
     h = linear(params["proj_in"], x)
+    if (cfg.activation_fn in int8_matmul.ACTIVATIONS
+            and "kernel_q8" in params["proj_out"] and h.ndim == 3
+            and h.shape[1] >= int8_matmul.W8A8_PALLAS_MIN_TOKENS):
+        return linear(params["proj_out"],
+                      int8_matmul.fused_act_quant(h, cfg.activation_fn))
     if cfg.activation_fn == "gelu-approximate":
         h = F.gelu(h, approximate="tanh")
     elif cfg.activation_fn == "gelu":
@@ -311,17 +328,43 @@ def _feed_forward(params: dict, x: torch.Tensor, cfg: DiTConfig):
     return linear(params["proj_out"], h)
 
 
+def _norm_modulate(norm_params, x, scale, shift, cfg, fused_quant):
+    """``norm(x) * (1 + scale) (+ shift)``; with ``fused_quant`` one kernel
+    that also quantizes the rows, fed ``cvec`` = (1 + scale) * norm scale
+    formed in x's dtype, as in the JAX package."""
+    if not fused_quant:
+        out = _std_norm(norm_params, x, cfg) * (1 + scale)
+        return out if shift is None else out + shift
+    cvec = 1 + scale
+    norm_scale = None if not norm_params else norm_params.get("scale")
+    if norm_scale is not None:
+        cvec = cvec * norm_scale.to(x.dtype)
+    return int8_matmul.fused_rms_mod_quant(x, cvec, shift, eps=cfg.norm_eps)
+
+
 def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
                  skip_layer_mask=None, skip_layer_strategy=None,
                  attention_impl="auto", rope_split=False):
     """BasicTransformerBlock with AdaLN-single; ``timestep`` is the
     [B, 1 or N, n_ada*inner] AdaLN embedding, ``skip_layer_mask`` this
-    block's [B] row of the STG mask."""
+    block's [B] row of the STG mask.
+
+    The fused W8A8 route, under the JAX package's conditions (rms-norm,
+    one AdaLN row per sample, a per-sample sequence of at least
+    ``W8A8_PALLAS_MIN_TOKENS``, W8A8 ``attn1.to_q``, no skip mask): the
+    norm, the modulation and the row quantization before self-attention
+    and before the FF run as one kernel (``fused_rms_mod_quant``), whose
+    int8 rows feed the q/k/v and FF-in products directly."""
     b = x.shape[0]
     original_x = x
-    norm_x = _std_norm(params.get("norm1"), x, cfg)
     if cfg.adaptive_norm not in ("single_scale_shift", "single_scale"):
         raise NotImplementedError(f"adaptive_norm={cfg.adaptive_norm!r}")
+    fused_quant_norm = (
+        cfg.standardization_norm == "rms_norm"
+        and timestep.shape[1] == 1
+        and x.ndim == 3 and x.shape[1] >= int8_matmul.W8A8_PALLAS_MIN_TOKENS
+        and "kernel_q8" in params["attn1"]["to_q"]
+        and skip_layer_mask is None)
     n_ada = params["scale_shift_table"].shape[0]
     ada = params["scale_shift_table"].to(x.dtype)[None, None] + timestep.reshape(
         b, timestep.shape[1], n_ada, -1).to(x.dtype)
@@ -331,9 +374,8 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
     else:
         scale_msa, gate_msa, scale_mlp, gate_mlp = (ada[:, :, i] for i in range(4))
         shift_msa = shift_mlp = None
-    norm_x = norm_x * (1 + scale_msa)
-    if shift_msa is not None:
-        norm_x = norm_x + shift_msa
+    norm_x = _norm_modulate(params.get("norm1"), x, scale_msa, shift_msa, cfg,
+                            fused_quant_norm)
 
     x = x + gate_msa * _attention(
         params["attn1"], norm_x, cfg, freqs_cis=freqs_cis,
@@ -342,9 +384,8 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
     x = x + _attention(params["attn2"], x, cfg, kv_mask=kv_mask,
                        attention_impl=attention_impl, cross_kv=cross_kv)
 
-    norm_x = _std_norm(params.get("norm2"), x, cfg) * (1 + scale_mlp)
-    if shift_mlp is not None:
-        norm_x = norm_x + shift_mlp
+    norm_x = _norm_modulate(params.get("norm2"), x, scale_mlp, shift_mlp, cfg,
+                            fused_quant_norm and "kernel_q8" in params["ff"]["proj_in"])
     x = x + gate_mlp * _feed_forward(params["ff"], norm_x, cfg)
     if (skip_layer_mask is not None
             and skip_layer_strategy == SkipLayerStrategy.TransformerBlock):
@@ -562,9 +603,10 @@ def avatar_condition_tokens(
 
 
 def permute_dit_params_for_split_rope(params: dict, cfg: DiTConfig) -> dict:
-    """A new tree whose attn1 q/k output rows (weight, bias, qk-norm
-    params) are in the split-RoPE layout; every other leaf is shared with
-    ``params``. Apply exactly once: permuting twice corrupts attention."""
+    """A new tree whose attn1 q/k output rows (weight or int8 kernel and
+    its scale, bias, qk-norm params) are in the split-RoPE layout; every
+    other leaf is shared with ``params``. Apply exactly once: permuting
+    twice corrupts attention."""
     perm = torch.from_numpy(rope_channel_permutation(cfg.inner_dim))
 
     def rows(t):

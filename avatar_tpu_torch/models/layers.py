@@ -1,6 +1,8 @@
 """Shared layer primitives (port of ``avatar_tpu/models/layers.py``).
 
-Linear params are ``{"weight": [out, in], "bias": [out]?}``; conv params
+Linear params are ``{"weight": [out, in], "bias": [out]?}``, or quantized
+``{"kernel_q" | "kernel_q8": int8 [out, in], "scale": [out], "bias"?}``
+(``utils/quantize.py``); conv params
 ``{"weight": [out, in, kt, kh, kw], "bias"?}``. Initializers draw at the JAX
 package's scales (uniform +-sqrt(3)/sqrt(fan_in) weights, uniform
 +-1/sqrt(fan_in) biases) from an explicit ``torch.Generator``.
@@ -13,6 +15,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from avatar_tpu_torch.ops import int8_matmul
 
 
 def _uniform(shape, bound, gen, device, dtype):
@@ -48,14 +52,66 @@ def init_normal(shape, std, gen, device="cuda", dtype=torch.float32):
     return t.to(dtype)
 
 
-def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Full-precision linear over the last axis, in ``x``'s dtype."""
-    if "weight" not in params:
-        raise NotImplementedError("quantized linear params are not ported yet")
+def _int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int32 ``a @ b^T`` of int8 a [M, K] and b [N, K] through the library
+    int8 product. On the card ``torch._int_mm`` wants more than 16 rows, K
+    and N multiples of 8, and takes the second operand column-major (``b``
+    transposed): zero padding (exact) brings a short or narrow product
+    there."""
+    m, k = a.shape
+    n = b.shape[0]
+    if a.device.type != "cuda":
+        return torch._int_mm(a, b.t())
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp, np_) != (m, k, n):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+        b = F.pad(b, (0, kp - k, 0, np_ - n))
+    return torch._int_mm(a.contiguous(), b.contiguous().t())[:m, :n]
+
+
+def linear(params: dict, x) -> torch.Tensor:
+    """Linear over the last axis, in ``x``'s dtype, following the JAX
+    package branch by branch:
+
+    - ``x`` a :class:`PrequantRows` (rows quantized by a fused producer):
+      straight to the W8A8 kernel :func:`w8a8_matmul`;
+    - ``kernel_q8`` (W8A8) with a per-sample sequence ``x.shape[-2]`` of at
+      least ``W8A8_PALLAS_MIN_TOKENS``: the row-quant kernel, then
+      :func:`w8a8_matmul` (bias added in f32 before the cast);
+    - ``kernel_q8`` below it (the reference's XLA branch): row scale from
+      ``max|x|`` in x's dtype, quantize by the reciprocal, library int8
+      product, dequant, cast, then the bias in x's dtype;
+    - ``kernel_q`` (weight-only): dequantize in x's dtype, then a plain
+      product;
+    - ``weight``: a plain product.
+    """
+    if isinstance(x, int8_matmul.PrequantRows):
+        if "kernel_q8" not in params:
+            raise ValueError("prequantized rows need w8a8 params")
+        out2d = int8_matmul.w8a8_matmul(x.q, x.s, params["kernel_q8"], params["scale"],
+                                        bias=params.get("bias"), out_dtype=x.dtype)
+        return out2d.reshape(*x.shape[:-1], out2d.shape[-1])
     bias = params.get("bias")
-    return F.linear(
-        x, params["weight"].to(x.dtype), None if bias is None else bias.to(x.dtype)
-    )
+    if "kernel_q8" in params:
+        w_q, k = params["kernel_q8"], x.shape[-1]
+        m = x.numel() // k
+        seq = x.shape[-2] if x.ndim >= 2 else m
+        if seq >= int8_matmul.W8A8_PALLAS_MIN_TOKENS:
+            x_q, x_s = int8_matmul.quantize_rows_pallas(x.reshape(m, k).contiguous())
+            out2d = int8_matmul.w8a8_matmul(x_q, x_s, w_q, params["scale"], bias=bias,
+                                            out_dtype=x.dtype)
+            return out2d.reshape(*x.shape[:-1], out2d.shape[-1])
+        x_s = torch.clamp_min(
+            int8_matmul.div127(x.abs().amax(dim=-1, keepdim=True).float()), 1e-30)
+        x_q = torch.clamp(torch.round(x.float() * (1.0 / x_s)), -127, 127).to(torch.int8)
+        acc = _int8_mm(x_q.reshape(m, k), w_q).reshape(*x.shape[:-1], w_q.shape[0])
+        out = (acc.float() * x_s * params["scale"].float()).to(x.dtype)
+        return out if bias is None else out + bias.to(out.dtype)
+    if "kernel_q" in params:
+        weight = params["kernel_q"].to(x.dtype) * params["scale"].to(x.dtype)[:, None]
+    else:
+        weight = params["weight"].to(x.dtype)
+    return F.linear(x, weight, None if bias is None else bias.to(x.dtype))
 
 
 def sinusoidal_timestep_embedding(

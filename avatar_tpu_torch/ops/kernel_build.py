@@ -21,7 +21,9 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNEL_SOURCES = ("rope_attention", "token_attention", "flash_forward")
+KERNEL_SOURCES = (
+    "rope_attention", "token_attention", "flash_forward", "int8_matmul", "row_quant",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

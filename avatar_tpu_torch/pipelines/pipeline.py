@@ -46,6 +46,7 @@ from avatar_tpu_torch.ops.rope import (
     precompute_freqs_cis,
     split_freqs,
 )
+from avatar_tpu_torch.utils.quantize import quantize_dit_params
 
 OUTPUT_TYPES = ("latent", "np", "uint8", "yuv420")
 
@@ -167,6 +168,11 @@ class LTXVideoPipeline:
 
     ``attention_impl`` ("auto", "xla", "flash") and ``rope_split`` choose
     the DiT's attention path (see ``models/dit.py:_attention``);
+    ``quantize_weights`` (True or "w8": weight-only int8; "w8a8": int8
+    activations and weights in the per-token block linears, see
+    ``utils/quantize.py``) quantizes the DiT before the split-RoPE
+    permutation and the stacking; ``quantize_vae`` (the int8 conv3d) is
+    not ported and raises;
     ``scan_blocks`` keeps the transformer blocks stacked on a leading
     layer axis, the layout the JAX package scans over (here walked by the
     same Python loop, slice by slice)."""
@@ -180,6 +186,8 @@ class LTXVideoPipeline:
         schedule: Optional[RectifiedFlowSchedule] = None,
         patch_size: int = 1,
         attention_impl: str = "auto",
+        quantize_weights: Union[bool, str] = False,
+        quantize_vae: Union[bool, str] = False,
         rope_split: bool = True,
         scan_blocks: bool = False,
         device="cuda",
@@ -189,9 +197,17 @@ class LTXVideoPipeline:
         self.attention_impl = attention_impl
         self.rope_split = rope_split
         self.scan_blocks = scan_blocks
-        # dit_params is the UNPERMUTED tree; the split-RoPE layout is made
-        # here, once. Seeding another pipeline from self.dit_params would
-        # permute twice and corrupt attention.
+        if quantize_vae:
+            raise NotImplementedError(
+                "quantize_vae needs an int8 conv3d (W8A8 convolutions), which "
+                "is not ported yet")
+        if quantize_weights:
+            mode = "w8" if quantize_weights is True else quantize_weights
+            dit_params = quantize_dit_params(dit_params, mode=mode)
+        # dit_params is the UNPERMUTED tree (quantized first, as in the JAX
+        # package); the split-RoPE layout is made here, once. Seeding
+        # another pipeline from self.dit_params would permute twice and
+        # corrupt attention.
         self.raw_dit_params = dit_params
         if rope_split:
             dit_params = permute_dit_params_for_split_rope(dit_params, dit_cfg)

@@ -7,6 +7,12 @@ conv kernels ``[kt, kh, kw, in, out]`` (DHWIO). The port stores
 else (biases, norm scales, AdaLN tables, the tree's structure) carries
 over as it is.
 
+A quantized linear (``avatar_tpu/utils/quantize.py``) carries over with
+its int8 kernel, ``kernel_q`` (weight-only) or ``kernel_q8`` (W8A8), as
+int8 ``[out, in]``, the port's layout (``avatar_tpu_torch/utils/quantize.py``
+makes the same tree), and its ``scale`` in its own dtype: bf16 for w8, f32
+for w8a8.
+
 The DiT tree must be the **unpermuted** one: the port's pipeline applies
 the split-RoPE permutation itself at construction. Its blocks may be a
 list or one tree stacked on a leading layer axis (``[L, in, out]`` kernels
@@ -24,21 +30,37 @@ from avatar_tpu_torch.models.dit import DiTConfig
 from avatar_tpu_torch.models.vae import VAEConfig
 
 
+def _swap_last(w: np.ndarray, stacked: bool) -> np.ndarray:
+    if not (w.ndim == 2 or (stacked and w.ndim == 3)):
+        raise ValueError(f"unexpected linear kernel rank {w.ndim}")
+    return np.swapaxes(w, -1, -2)
+
+
 def _convert(node: Any, device, dtype, stacked: bool = False) -> Any:
     if isinstance(node, dict):
-        if "kernel_q" in node or "kernel_q8" in node:
-            raise NotImplementedError("quantized params are not ported yet")
+        quantized = "kernel_q" in node or "kernel_q8" in node
         out = {}
         for key, val in node.items():
             if key == "kernel":
                 w = np.asarray(val)
-                if w.ndim == 2 or (stacked and w.ndim == 3):
-                    w = np.swapaxes(w, -1, -2)
-                elif w.ndim == 5 and not stacked:
+                if w.ndim == 5 and not stacked:
                     w = w.transpose(4, 3, 0, 1, 2)
                 else:
-                    raise ValueError(f"unexpected kernel rank {w.ndim}")
+                    w = _swap_last(w, stacked)
                 out["weight"] = _tensor(w, device, dtype)
+            elif key in ("kernel_q", "kernel_q8"):
+                w = np.asarray(val)
+                if w.ndim == 5:
+                    raise NotImplementedError(
+                        "int8 conv3d (quantized VAE params) is not ported")
+                w = _swap_last(w, stacked)
+                out[key] = torch.from_numpy(
+                    np.ascontiguousarray(w, dtype=np.int8)).to(device)
+            elif quantized and key == "scale":
+                # the w8 scale is bf16, the w8a8 scale f32: kept as they are
+                a = np.asarray(val)
+                keep = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+                out[key] = _tensor(a, device, keep)
             else:
                 out[key] = _convert(val, device, dtype, stacked)
         return out

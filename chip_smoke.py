@@ -12,9 +12,12 @@ Phases, each printing one JSON line as soon as it has its numbers:
    its plain PyTorch version (bf16) at every shape a driven path gives it
    (832 and 5376 tokens, 256 caption keys, batch 1 and 3): bounded and
    unbounded, masked, a fully masked row, ragged lengths, and for the
-   head-major kernels the row log-sum-exp; then its time, the plain
-   version's, one PyTorch library call's (a yardstick the port never
-   calls) and the card's lower bound for the same work;
+   head-major kernels the row log-sum-exp; the int8 product (exact int32
+   sums; the dequant at the DiT's three W8A8 shapes, 832 and a ragged 5000
+   rows) and the three row-quant kernels (at most one int8 level apart on a
+   stated fraction, scales at rtol 1e-6); then each one's time, the plain
+   version's, one PyTorch library call's where there is one (a yardstick
+   the port never calls) and the card's lower bound for the same work;
 4. reference: a tiny pipeline at guidance 1 in bf16 on the card against the
    same pipeline in f32 on the CPU (plain kernel versions), once as it is
    and once with the timestep rounded as a bf16 run rounds it, and in bf16
@@ -22,18 +25,26 @@ Phases, each printing one JSON line as soon as it has its numbers:
 5. reference_guided: the same with CFG 3 + STG 1 + rescale 0.7 + Heun, on
    the default path and with ``attention_impl="flash", rope_split=False``
    at shapes that reach each head-major kernel inside a pipeline;
-6. pipeline: the full-width 2B DiT (28 layers, 32 x 64) and the 2B VAE
+6. reference_w8a8: tiny quantized pipelines in bf16 on the card against
+   f32 on the CPU, same int8 weights and noise: W8A8 at 4352 tokens (the
+   int8 kernels), W8A8 at 16 tokens (the library int8 product) and
+   weight-only w8;
+7. pipeline: the full-width 2B DiT (28 layers, 32 x 64) and the 2B VAE
    with timestep conditioning, random weights from a seed, 97 frames at
    256 px, 40 Euler steps, guidance 1, STG 0, I420 output; checks shapes,
    finite latents, and that each kernel of the path launched exactly
    28 x 40 times; then a profile (device time by kernel over 5 steps,
    torch.profiler) and the device's idle share of an unprofiled step;
-7. pipeline_long: the same models at 161 frames and 512 px (5376 tokens),
+8. pipeline_long: the same models at 161 frames and 512 px (5376 tokens),
    where self-attention goes through the head-major max-free kernel and
    cross-attention through the token-major one; profile of 3 steps;
-8. pipeline_guided: 97 frames at 256 px with the shipped guided settings
+9. pipeline_guided: 97 frames at 256 px with the shipped guided settings
    (CFG 3, STG 1 on block 19 with AttentionValues, rescale 0.7): three
-   conds per step in one batch.
+   conds per step in one batch;
+10. pipeline_long_w8a8: the long path with the DiT quantized W8A8 (from
+   the same bf16 weights): every block linear through the int8 kernels,
+   launches checked per kernel, profile of 3 steps, and the latents'
+   relative RMS against the bf16 long path's (printed, not held).
 
 The launch counts are set to 0 just before each driven path and read just
 after it. Then the kernel summary line, the ``nvidia-smi`` line, and as
@@ -85,8 +96,19 @@ EXACT_T_TOL = {"short": 0.04, "long": 0.14}
 # bf16 on the card: the kernels round p and o at other places (0.005 to
 # 0.011 measured, CFG 3 + STG 1 + Heun included).
 KERNEL_PATH_TOL = 0.02
-# dense bf16 tensor-core peak and memory rate, NVIDIA data sheets (SXM)
-PEAKS = {"H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
+# dense bf16 tensor-core peak, memory rate, dense int8 tensor-core peak and
+# f32 peak outside the tensor cores, NVIDIA data sheets (SXM)
+PEAKS = {"H200": (989e12, 4.8e12, 1979e12, 67e12),
+         "H100": (989e12, 3.35e12, 1979e12, 67e12)}
+# The int8 kernels. w8a8_matmul and its plain version round each f32 step
+# of the dequant alike, so they agree exactly; the limit is one bf16 ulp of
+# the case's largest output all the same. The row-quant kernels: the scales
+# within rtol 1e-6 and the int8 at most one level apart on at most
+# LEVEL_FRACTION of the elements (a sum of squares taken in another order,
+# or a transcendental an ulp apart, moves an element across a rounding
+# boundary).
+SCALE_RTOL = 1e-6
+LEVEL_FRACTION = 1e-3
 
 
 def emit(obj) -> None:
@@ -125,8 +147,34 @@ def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def bound(flops: float, nbytes: float, peaks):
-    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+def device_ms(fn, match=None, reps: int = 20) -> float:
+    """Mean device time per call of the kernels ``fn`` launches whose name
+    holds ``match`` (every kernel when None), from torch.profiler: unlike
+    :func:`time_ms`, no host time between launches, which a wrapper's few
+    tens of microseconds of Python can exceed for a kernel that short."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and (match is None or match in e.key))
+    if total_us <= 0:
+        fail(f"the profiler saw no device time for {match or 'the call'}")
+    return total_us / reps / 1e3
+
+
+def bound(flops: float, nbytes: float, peaks, op_rate=None):
+    """The least time in ms for ``flops`` operations at ``op_rate`` (default
+    the bf16 tensor-core peak) and ``nbytes`` at the memory rate."""
+    t_ops, t_bytes = flops / (op_rate or peaks[0]), nbytes / peaks[1]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -152,6 +200,22 @@ class KernelErrors:
             fail(f"{self.kernel} disagrees with its plain version (error, limit): {bad}")
         worst = max(self.errs, key=self.errs.get)
         return self.errs[worst], self.tols[worst]
+
+
+def reset_counts() -> None:
+    from avatar_tpu_torch.ops import flash_attention as fa
+    from avatar_tpu_torch.ops import int8_matmul as i8
+
+    fa.reset_launch_counts()
+    i8.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Launches of every kernel since :func:`reset_counts`."""
+    from avatar_tpu_torch.ops import flash_attention as fa
+    from avatar_tpu_torch.ops import int8_matmul as i8
+
+    return {**fa.launch_counts, **i8.launch_counts}
 
 
 def rms_rows(x):
@@ -423,6 +487,182 @@ def check_flash_kernel(mode, peaks):
     return row
 
 
+# The DiT's W8A8 products per block at the long operating point: (K, N) of
+# attn1 q/k/v/out and attn2 q/out (six), FF in and FF out
+W8A8_SHAPES = {"2048x2048": (WIDTH, WIDTH), "2048x8192": (WIDTH, 4 * WIDTH),
+               "8192x2048": (4 * WIDTH, WIDTH)}
+
+
+def check_w8a8_kernel(peaks):
+    """Kernel H against its plain version: with unit scales and an f32
+    output, exactly the int32 sums; with real scales, with and without
+    bias, bf16 output, within one bf16 ulp of the case's largest output
+    (equal in fact). M = 5376 at the three DiT shapes, 832 and a ragged
+    5000. Then the device times (profiler) beside the library int8 product
+    (which lacks the epilogue), the time per call with the wrapper's host
+    work (CUDA events), and the bound at the int8 peak."""
+    import torch
+
+    from avatar_tpu_torch.ops import int8_matmul as i8
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def operands(m, k, n):
+        x_q = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                            dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                            dtype=torch.int8)
+        x_s = torch.rand(m, 1, generator=g, device="cuda") * 1e-2 + 1e-3
+        w_s = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-4
+        bias = torch.randn(n, generator=g, device="cuda").bfloat16()
+        return x_q, x_s, w_q, w_s, bias
+
+    cases = {f"{LONG_TOKENS}x{kn}": (LONG_TOKENS, *shape)
+             for kn, shape in W8A8_SHAPES.items()}
+    cases.update({f"{TOKENS}x2048x2048": (TOKENS, WIDTH, WIDTH),
+                  "5000x2048x2048 ragged": (5000, WIDTH, WIDTH)})
+    errors, exact, ops = KernelErrors("w8a8_matmul"), {}, {}
+    ms, events_ms, lib_ms, bounds = {}, {}, {}, {}
+    for label, (m, k, n) in cases.items():
+        x_q, x_s, w_q, w_s, bias = ops[label] = operands(m, k, n)
+        ones_m, ones_n = torch.ones_like(x_s), torch.ones_like(w_s)
+        acc = i8.w8a8_matmul(x_q, ones_m, w_q, ones_n, out_dtype=torch.float32)
+        ref = i8._w8a8_matmul_plain(x_q, ones_m, w_q, ones_n, None, torch.float32)
+        exact[label] = bool(torch.equal(acc, ref))
+        if not exact[label]:
+            fail(f"w8a8_matmul {label}: the int32 sums differ from the plain version's")
+        for b in (bias, None):
+            out = i8.w8a8_matmul(x_q, x_s, w_q, w_s, b)
+            errors.add(f"{label}, bias={b is not None}", out,
+                       i8._w8a8_matmul_plain(x_q, x_s, w_q, w_s, b, torch.bfloat16))
+    torch.cuda.synchronize()
+    # one bf16 ulp (2^-8 of the largest output): the limit, not the expectation
+    errors.tols = {k: v / 2 / KERNEL_ULPS for k, v in errors.tols.items()}
+    err, tol = errors.check()
+    for label, (m, k, n) in cases.items():
+        x_q, x_s, w_q, w_s, bias = ops[label]
+        if "ragged" not in label:
+            ms[label] = device_ms(lambda: i8.w8a8_matmul(x_q, x_s, w_q, w_s, bias),
+                                  "w8a8_matmul_kernel")
+            events_ms[label] = time_ms(lambda: i8.w8a8_matmul(x_q, x_s, w_q, w_s, bias))
+            lib_ms[label] = device_ms(lambda: torch._int_mm(x_q, w_q.t()))
+            nbytes = m * k + n * k + 2 * m * n + 4 * m + 4 * n + 2 * n
+            bounds[label] = bound(2.0 * m * n * k, nbytes, peaks, peaks[2])
+    main = f"{LONG_TOKENS}x2048x2048"
+    x_q, x_s, w_q, w_s, bias = ops[main]
+    plain_ms = time_ms(lambda: i8._w8a8_matmul_plain(x_q, x_s, w_q, w_s, bias,
+                                                     torch.bfloat16), reps=3, batches=3)
+    row = {"name": "w8a8_matmul", "route": "cuda",
+           "source": "avatar_tpu_torch/csrc/int8_matmul.cu",
+           "replaces": "avatar_tpu/ops/int8_matmul.py:47",
+           "max_abs_err": err, "tol": tol, "ms": ms[main], "plain_ms": plain_ms,
+           "bound_ms": bounds[main][0], "bound_by": bounds[main][1],
+           "library_ms": lib_ms[main], "shape": f"M x K x N = {main}"}
+    emit({"phase": "kernel_w8a8_matmul", "int32_exact": exact, "errors": errors.errs,
+          "limits": errors.tols, "ms": ms, "events_ms_per_call": events_ms,
+          "plain_ms": plain_ms, "library_int_mm_ms": lib_ms,
+          "bound_us": {k: v[0] * 1e3 for k, v in bounds.items()},
+          "bound_by": {k: v[1] for k, v in bounds.items()},
+          "tera_ops_per_s": {k: 2.0 * cases[k][0] * cases[k][1] * cases[k][2]
+                             / (v * 1e-3) / 1e12 for k, v in ms.items()}})
+    return row
+
+
+ROW_QUANT_KERNELS = {
+    # counter: (TPU kernel it replaces, f32 operations per output element)
+    "quantize_rows": ("avatar_tpu/ops/int8_matmul.py:231", 3),
+    "rms_mod_quant": ("avatar_tpu/ops/int8_matmul.py:305", 8),
+    "act_quant": ("avatar_tpu/ops/int8_matmul.py:392", 12),
+}
+
+
+def check_row_quant_kernels(peaks):
+    """Kernels I, J and K against their plain versions at the DiT's long
+    shapes (I [5376, 2048]; J [1, 5376, 2048] with and without shift; K
+    [1, 5376, 8192] for each activation), and at a ragged batch of 2 x 1001
+    rows with a zero row. The scales within SCALE_RTOL, the int8 at most one
+    level apart on at most LEVEL_FRACTION of the elements. Then the times
+    and the bound (bytes: the input read once, the int8 and scales written
+    once). No single library call computes any of them."""
+    import torch
+
+    from avatar_tpu_torch.ops import int8_matmul as i8
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                + offset).bfloat16()
+
+    x = randn(1, LONG_TOKENS, WIDTH)
+    x_r = randn(2, 1001, WIDTH)
+    x_r[1, 7] = 0.0  # zero row: s = 1e-30 / 127 and q = 0 (I), the shift (J)
+    cvec, shift = randn(1, 1, WIDTH, scale=0.3, offset=1.0), randn(1, 1, WIDTH, scale=0.2)
+    cvec_r, shift_r = randn(2, 1, WIDTH, scale=0.3, offset=1.0), randn(2, 1, WIDTH, scale=0.2)
+    h = randn(1, LONG_TOKENS, 4 * WIDTH, scale=2.0)
+    h_r = randn(2, 1001, 4 * WIDTH, scale=2.0)
+    h_r[0, 3] = 0.0
+    cases = {"quantize_rows": {}, "rms_mod_quant": {}, "act_quant": {}}
+    for label, xx in ((f"{LONG_TOKENS}x{WIDTH}", x), ("ragged 2x1001, zero row", x_r)):
+        flat = xx.reshape(-1, WIDTH)
+        cases["quantize_rows"][label] = (
+            lambda flat=flat: i8.quantize_rows_pallas(flat),
+            lambda flat=flat: i8._row_quant_plain(flat.float()))
+    for label, args in {"shift": (x, cvec, shift), "no shift": (x, cvec, None),
+                        "ragged 2x1001, zero row, shift": (x_r, cvec_r, shift_r)}.items():
+        cases["rms_mod_quant"][label] = (
+            lambda a=args: i8.fused_rms_mod_quant(*a, eps=1e-6),
+            lambda a=args: i8._row_quant_plain(i8._rms_mod_plain(*a, 1e-6)))
+    for act in i8.ACTIVATIONS:
+        for label, hh in ((act, h), (f"{act}, ragged 2x1001, zero row", h_r)):
+            cases["act_quant"][label] = (
+                lambda hh=hh, act=act: i8.fused_act_quant(hh, act),
+                lambda hh=hh, act=act: i8._row_quant_plain(i8._act_plain(hh, act)))
+    rows = []
+    for name, named in cases.items():
+        levels, fractions, scale_errs = {}, {}, {}
+        for label, (kernel, plain) in named.items():
+            out = kernel()
+            q, s = (out.q, out.s) if isinstance(out, i8.PrequantRows) else out
+            ref_q, ref_s = plain()
+            diff = (q.int() - ref_q.int()).abs()
+            levels[label] = diff.max().item()
+            fractions[label] = (diff > 0).float().mean().item()
+            scale_errs[label] = ((s - ref_s).abs() / ref_s.abs()).max().item()
+            if not (levels[label] <= 1 and fractions[label] <= LEVEL_FRACTION
+                    and scale_errs[label] <= SCALE_RTOL):
+                fail(f"{name} {label}: {levels[label]} levels on "
+                     f"{fractions[label]} of the elements, scales {scale_errs[label]}")
+        kernel, plain = next(iter(named.values()))
+        inp = h if name == "act_quant" else x
+        rows_n, width = inp.shape[1], inp.shape[2]
+        out_width = width
+        nbytes = rows_n * width * 2 + rows_n * out_width + rows_n * 4
+        if name == "rms_mod_quant":
+            nbytes += 2 * width * 4
+        replaces, per_elem = ROW_QUANT_KERNELS[name]
+        bound_ms, bound_by = bound(per_elem * rows_n * out_width, nbytes, peaks, peaks[3])
+        extra = {"events_ms_per_call": time_ms(kernel)}
+        if name == "act_quant":
+            extra.update({f"ms_{act}": device_ms(
+                lambda act=act: i8.fused_act_quant(h, act), "act_quant_kernel")
+                for act in i8.ACTIVATIONS})
+        ms = device_ms(kernel, f"{name}_kernel")
+        plain_ms = time_ms(plain, reps=5, batches=3)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "avatar_tpu_torch/csrc/row_quant.cu",
+                     "replaces": replaces, "max_abs_err": max(levels.values()),
+                     "err_unit": "int8 levels",
+                     "tol": f"1 level on <= {LEVEL_FRACTION} of elements",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+        emit({"phase": f"kernel_{name}", "levels": levels, "level_fractions": fractions,
+              "scale_rel_errs": scale_errs, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": None, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+              "bytes": nbytes, "shape": list(inp.shape), **extra})
+    return rows
+
+
 def _tree_to(tree, device, dtype):
     import torch
 
@@ -433,14 +673,14 @@ def _tree_to(tree, device, dtype):
     return tree.to(device, dtype if tree.ndim else torch.float32)
 
 
-def _tiny_models(qk_norm="rms_norm"):
+def _tiny_models(qk_norm="rms_norm", heads=2):
     import dataclasses
 
     from avatar_tpu_torch.models.dit import DiTConfig, init_dit
     from avatar_tpu_torch.models.vae import demo_config, init_vae
 
-    dcfg = DiTConfig(num_attention_heads=2, attention_head_dim=64, in_channels=16,
-                     out_channels=16, num_layers=2, cross_attention_dim=128,
+    dcfg = DiTConfig(num_attention_heads=heads, attention_head_dim=64, in_channels=16,
+                     out_channels=16, num_layers=2, cross_attention_dim=heads * 64,
                      caption_channels=64, qk_norm=qk_norm)
     vcfg = dataclasses.replace(demo_config(latent_channels=16), base_channels=32,
                                decoder_base_channels=32)
@@ -464,23 +704,14 @@ def _rounded_t_tables(params, cfg, timesteps, batch, dtype):
     return precompute_timestep_tables(params, cfg, t / mult, batch, dtype=dtype)
 
 
-def _reference_run(label, models, size, frames, caption, settings, ctor,
-                   expect_kernels, encode=True):
-    """One tiny pipeline, same weights and noise, four ways: f32 on the CPU
-    (the kernels' plain versions) as it is and with t rounded as a bf16 run
-    rounds it, bf16 on the card through the CUDA kernels, and bf16 on the
-    card with ``attention_impl="xla"`` (no kernel). The negative prompt
-    keeps some keys, so all compute one function. Returns the kernel run's
-    errors against the others and its launches."""
-    from unittest import mock
-
+def _tiny_inputs(dcfg, size, frames, caption, settings, encode):
+    """Seeded CPU inputs of a 3-step tiny pipeline and its
+    ``GenerationParams``. The negative prompt keeps some keys, so the
+    kernel and plain attention paths compute one function."""
     import torch
 
-    from avatar_tpu_torch.ops import flash_attention as fa
-    from avatar_tpu_torch.pipelines import pipeline as pipeline_mod
-    from avatar_tpu_torch.pipelines.pipeline import GenerationParams, LTXVideoPipeline
+    from avatar_tpu_torch.pipelines.pipeline import GenerationParams
 
-    dcfg, dit, vcfg, vae = models
     g = torch.Generator().manual_seed(4)
     lat_f, lat_hw, ch = (frames - 1) // 8 + 1, size // 32, dcfg.in_channels
     steps = 3
@@ -505,7 +736,27 @@ def _reference_run(label, models, size, frames, caption, settings, ctor,
     params = GenerationParams(height=size, width=size, num_frames=frames - 1,
                               num_inference_steps=steps, decode_timestep=0.05,
                               **settings)
+    return inputs, params
 
+
+def _reference_run(label, models, size, frames, caption, settings, ctor,
+                   expect_kernels, encode=True):
+    """One tiny pipeline, same weights and noise, four ways: f32 on the CPU
+    (the kernels' plain versions) as it is and with t rounded as a bf16 run
+    rounds it, bf16 on the card through the CUDA kernels, and bf16 on the
+    card with ``attention_impl="xla"`` (no kernel). Returns the kernel run's
+    errors against the others and its launches."""
+    from unittest import mock
+
+    import torch
+
+    from avatar_tpu_torch.pipelines import pipeline as pipeline_mod
+    from avatar_tpu_torch.pipelines.pipeline import LTXVideoPipeline
+
+    dcfg, dit, vcfg, vae = models
+    inputs, params = _tiny_inputs(dcfg, size, frames, caption, settings, encode)
+    steps, ch = params.num_inference_steps, dcfg.in_channels
+    lat_f, lat_hw = (frames - 1) // 8 + 1, size // 32
     schedules = []
 
     def run(device, dtype, **ctor_kw):
@@ -513,10 +764,10 @@ def _reference_run(label, models, size, frames, caption, settings, ctor,
                                 _tree_to(vae, device, dtype), device=device,
                                 **ctor_kw)
         schedules.append(pipe.schedule)
-        fa.reset_launch_counts()
+        reset_counts()
         out = pipe(params, torch.Generator(device=device), **inputs,
                    output_type="latent", dtype=dtype).float().cpu()
-        return out, {k: n for k, n in fa.launch_counts.items() if n}
+        return out, {k: n for k, n in read_counts().items() if n}
 
     cpu_exact_t, _ = run("cpu", torch.float32, **ctor)
     with mock.patch.object(pipeline_mod, "precompute_timestep_tables",
@@ -601,6 +852,91 @@ def check_reference_guided():
     return total
 
 
+def _int8_leaves(tree, path=""):
+    """{path: tensor} of every int8 kernel and its scale in a params tree."""
+    if isinstance(tree, list):
+        tree = dict(enumerate(tree))
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, (dict, list)):
+            out.update(_int8_leaves(val, f"{path}/{key}"))
+        elif key in ("kernel_q", "kernel_q8") or (
+                key == "scale" and ("kernel_q" in tree or "kernel_q8" in tree)):
+            out[f"{path}/{key}"] = val
+    return out
+
+
+def check_reference_w8a8():
+    """Tiny quantized pipelines (2 layers, random weights, guidance 1, 3
+    steps) in bf16 on the card against f32 on the CPU fed the bf16-rounded
+    timestep. The weights are rounded to bf16 first, so both devices
+    quantize the same values; their int8 kernels and scales must be equal.
+    Runs: "kernel_route", W8A8 at 4352 tokens (129 frames at 512 px, above
+    W8A8_PALLAS_MIN_TOKENS: kernels H, I, J and K, with no patch);
+    "short_route", W8A8 at 16 tokens (the library int8 product); "w8",
+    weight-only, on a DiT of 8 heads x 64 whose linears reach the w8
+    threshold of 2^18 elements."""
+    from unittest import mock
+
+    import torch
+
+    from avatar_tpu_torch.pipelines import pipeline as pipeline_mod
+    from avatar_tpu_torch.pipelines.pipeline import LTXVideoPipeline
+
+    per_video = 2 * 3  # layers x steps
+    token_major = {"rope_fused_attention": per_video, "fused_token_attention": per_video}
+    runs = {
+        "kernel_route": (_tiny_models(), 512, 129, "w8a8", False, {
+            "w8a8_matmul": 8 * per_video, "quantize_rows": 3 * per_video,
+            "rms_mod_quant": 2 * per_video, "act_quant": per_video,
+            "flash_bounded": per_video, "fused_token_attention": per_video}),
+        "short_route": (_tiny_models(), 64, 25, "w8a8", True, token_major),
+        "w8": (_tiny_models(heads=8), 64, 25, "w8", True, token_major),
+    }
+    plain = dict(guidance_scale=1.0, stg_scale=0.0, rescaling_scale=1.0)
+    results, total = {}, {}
+    for label, (models, size, frames, mode, encode, expect) in runs.items():
+        dcfg, dit, vcfg, vae = models
+        dit = _tree_to(dit, "cpu", torch.bfloat16)
+        inputs, params = _tiny_inputs(dcfg, size, frames, 48, plain, encode)
+
+        def run(device, dtype):
+            pipe = LTXVideoPipeline(dcfg, _tree_to(dit, device, dtype), vcfg,
+                                    _tree_to(vae, device, dtype), device=device,
+                                    quantize_weights=mode)
+            reset_counts()
+            out = pipe(params, torch.Generator(device=device), **inputs,
+                       output_type="latent", dtype=dtype).float().cpu()
+            return out, {k: n for k, n in read_counts().items() if n}, pipe
+
+        with mock.patch.object(pipeline_mod, "precompute_timestep_tables",
+                               _rounded_t_tables):
+            cpu, _, cpu_pipe = run("cpu", torch.float32)
+        card, launches, card_pipe = run("cuda", torch.bfloat16)
+        cpu_q, card_q = (_int8_leaves(p.raw_dit_params) for p in (cpu_pipe, card_pipe))
+        if not cpu_q or set(cpu_q) != set(card_q) or not all(
+                torch.equal(cpu_q[k], card_q[k].cpu()) for k in cpu_q):
+            fail(f"reference_w8a8/{label}: the card's int8 params differ from the CPU's")
+        # REFERENCE_TOL as for the unquantized pipelines: where bf16 moves an
+        # activation across an int8 rounding boundary it flips one level of
+        # max|row| / 127, which the same run on the CPU in bf16 puts within
+        # bf16's own distance (0.006 to 0.007 against 0.005 for w8)
+        tol = REFERENCE_TOL
+        res = {"mode": mode, "tokens": card.shape[1] * card.shape[2] * card.shape[3],
+               "int8_leaves": len(cpu_q), "max_abs_err": (card - cpu).abs().max().item(),
+               "rel_rms_err": _rel_rms(card, cpu), "rel_rms_tol": tol,
+               "launches": launches}
+        if not (math.isfinite(res["rel_rms_err"]) and res["rel_rms_err"] <= tol):
+            fail(f"reference_w8a8/{label}: the card disagrees with the CPU: {res}")
+        if launches != expect:
+            fail(f"reference_w8a8/{label}: launched {launches}, expected {expect}")
+        results[label] = res
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    emit({"phase": "reference_w8a8", "runs": results})
+    return total
+
+
 def card_state() -> str:
     """SM clock, power draw and temperature as ``nvidia-smi`` reads them now:
     a card that throttles under a long load shows it here."""
@@ -635,7 +971,8 @@ def run_pipeline(pipe, phase, size, frames, settings, expect, profile_steps,
     output: checks the output's shape and type, finite latents, and that
     each kernel launched exactly ``expect[name]`` times (0 for the rest);
     prints stage seconds, peak memory and a profile of the first steps.
-    Returns the launches and the seconds of the timed video."""
+    Returns the launches, the seconds of the timed video and the latents of
+    a second video from the same seed."""
     import torch
 
     from avatar_tpu_torch.ops import flash_attention as fa
@@ -669,13 +1006,13 @@ def run_pipeline(pipe, phase, size, frames, settings, expect, profile_steps,
 
     torch.cuda.reset_peak_memory_stats()
     stages = {}
-    fa.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = run(STEPS, "yuv420", stages)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     state = card_state()
-    launches = dict(fa.launch_counts)
+    launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     shape = (1, frames, size * 3 // 2, size)
@@ -702,7 +1039,7 @@ def run_pipeline(pipe, phase, size, frames, settings, expect, profile_steps,
         emit({"phase": f"profile_{phase}", **profile_denoise(
             pipe, params(STEPS), embeds, mask, ref, pose,
             stages["denoise_s"] / STEPS, profile_steps)})
-    return launches, total_s
+    return launches, total_s, latents
 
 
 def profile_denoise(pipe, p, embeds, mask, ref, pose, step_s, steps):
@@ -760,6 +1097,7 @@ def main() -> int:
         return 1
     from avatar_tpu_torch.models.dit import SkipLayerStrategy
     from avatar_tpu_torch.ops import kernel_build
+    from avatar_tpu_torch.pipelines.pipeline import LTXVideoPipeline
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -782,11 +1120,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     rows = [check_rope_kernel(peaks), check_token_kernel(peaks)] + [
-        check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS]
+        check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS] + [
+        check_w8a8_kernel(peaks)] + check_row_quant_kernels(peaks)
     # launches of each kernel on each driven path: the counts are set to 0
     # just before a path and read just after it
     by_path = {"reference": check_reference(),
-               "reference_guided": check_reference_guided()}
+               "reference_guided": check_reference_guided(),
+               "reference_w8a8": check_reference_w8a8()}
     pipe, init_s = make_full_pipeline()
     emit({"phase": "init", "seconds": init_s})
     every = LAYERS * STEPS
@@ -794,16 +1134,32 @@ def main() -> int:
     shipped = dict(guidance_scale=3.0, stg_scale=1.0, rescaling_scale=0.7,
                    skip_block_list=[19],
                    skip_layer_strategy=SkipLayerStrategy.AttentionValues)
-    by_path["pipeline"], plain_s = run_pipeline(
+    by_path["pipeline"], plain_s, _ = run_pipeline(
         pipe, "pipeline", 256, 97, plain,
         {"rope_fused_attention": every, "fused_token_attention": every}, 5)
-    by_path["pipeline_long"], _ = run_pipeline(
+    by_path["pipeline_long"], long_s, long_latents = run_pipeline(
         pipe, "pipeline_long", 512, 161, plain,
         {"flash_bounded": every, "fused_token_attention": every}, 3)
-    by_path["pipeline_guided"], _ = run_pipeline(
+    by_path["pipeline_guided"], _, _ = run_pipeline(
         pipe, "pipeline_guided", 256, 97, shipped,
         {"rope_fused_attention": every, "fused_token_attention": every}, 0,
         extra={"num_conds": 3, "guidance_1_total_s": plain_s})
+    # W8A8 from the same raw (unpermuted, bf16) tree: only the int8 copies
+    # of the block linears and the permuted q/k are new
+    t0 = time.perf_counter()
+    pipe_w8a8 = LTXVideoPipeline(pipe.dit_cfg, pipe.raw_dit_params, pipe.vae_cfg,
+                                 pipe.vae_params, quantize_weights="w8a8", device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "init_w8a8", "seconds": time.perf_counter() - t0})
+    by_path["pipeline_long_w8a8"], _, w8a8_latents = run_pipeline(
+        pipe_w8a8, "pipeline_long_w8a8", 512, 161, plain,
+        {"w8a8_matmul": 8 * every, "quantize_rows": 3 * every,
+         "rms_mod_quant": 2 * every, "act_quant": every,
+         "flash_bounded": every, "fused_token_attention": every}, 3,
+        extra={"bf16_total_s": long_s})
+    # a finding, not a gate: how far int8 moves the 2B latents from bf16's
+    emit({"phase": "pipeline_long_w8a8_vs_bf16",
+          "rel_rms": _rel_rms(w8a8_latents.float(), long_latents.float())})
     for row in rows:
         row["launches_by_path"] = {
             path: counts[row["name"]] for path, counts in by_path.items()

@@ -1,5 +1,5 @@
-"""The port's CUDA attention kernels against their plain PyTorch versions,
-on the card. Marked ``cuda``; they skip where there is no CUDA device. Run
+"""The port's CUDA kernels (attention and int8) against their plain
+PyTorch versions, on the card. Marked ``cuda``; they skip where there is no CUDA device. Run
 them on a card with
 ``python -m pytest tests/test_torch_cuda_kernels.py --noconftest`` (the
 shared conftest imports JAX, which the card's machine need not have)."""
@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from avatar_tpu_torch.ops import flash_attention as fa
+from avatar_tpu_torch.ops import int8_matmul as i8
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +119,100 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # head_dim 32
         q32 = q.reshape(1, 64, 2 * HEADS, HD // 2).transpose(1, 2)
         fa.flash_attention(q32, q32, q32)
+
+
+# ---------------------------------------------------------------------------
+# The int8 kernels (H, I, J, K)
+# ---------------------------------------------------------------------------
+
+# One int8 level on at most this fraction of the elements: the kernels and
+# the plain versions round every f32 step alike, but sum the row's squares
+# in another order (rms_mod_quant), which can move an element across a
+# rounding boundary.
+LEVEL_FRACTION = 1e-3
+
+
+def _int8(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def _assert_rows_match(pq, ref_q, ref_s):
+    q, s = (pq.q, pq.s) if isinstance(pq, i8.PrequantRows) else pq
+    assert q.dtype == torch.int8 and q.shape == ref_q.shape and s.shape == ref_s.shape
+    torch.testing.assert_close(s, ref_s, rtol=1e-6, atol=0)
+    diff = (q.int() - ref_q.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= LEVEL_FRACTION
+
+
+@pytest.mark.parametrize("m,k,n", [(832, 256, 512), (5000, 2048, 128), (100, 512, 256)])
+def test_w8a8_matmul_kernel_is_exact_in_int32(gen, m, k, n):
+    """Unit scales, f32 output: the kernel returns the int32 sums."""
+    x_q, w_q = _int8(gen, m, k), _int8(gen, n, k)
+    ones_m = torch.ones(m, 1, device="cuda")
+    ones_n = torch.ones(n, device="cuda")
+    before = i8.launch_counts["w8a8_matmul"]
+    out = i8.w8a8_matmul(x_q, ones_m, w_q, ones_n, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert i8.launch_counts["w8a8_matmul"] == before + 1
+    acc = (x_q.double() @ w_q.double().t()).float()
+    assert torch.equal(out, acc)
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_matmul_kernel_matches_plain(gen, use_bias, out_dtype):
+    m, k, n = 300, 1024, 384
+    x_q, w_q = _int8(gen, m, k), _int8(gen, n, k)
+    x_s = torch.rand(m, 1, generator=gen, device="cuda") * 0.02
+    w_s = torch.rand(n, generator=gen, device="cuda") * 0.02
+    bias = torch.randn(n, generator=gen, device="cuda") if use_bias else None
+    out = i8.w8a8_matmul(x_q, x_s, w_q, w_s, bias, out_dtype)
+    ref = i8._w8a8_matmul_plain(x_q, x_s, w_q, w_s, bias, out_dtype)
+    # each f32 step rounds alike on both sides: the same values
+    assert torch.equal(out, ref)
+
+
+def test_quantize_rows_kernel_matches_plain(gen):
+    x = torch.randn(301, 512, generator=gen, device="cuda").bfloat16()
+    x[7] = 0.0  # zero row: s = 1e-30 / 127, q = 0
+    ref_q, ref_s = i8._row_quant_plain(x.float())
+    _assert_rows_match(i8.quantize_rows_pallas(x), ref_q, ref_s)
+    assert bool((ref_q[7] == 0).all())
+
+
+@pytest.mark.parametrize("with_shift", [True, False])
+def test_rms_mod_quant_kernel_matches_plain(gen, with_shift):
+    b, n, c = 2, 301, 256
+    x = torch.randn(b, n, c, generator=gen, device="cuda").bfloat16()
+    x[0, 7] = 0.0  # zero row: quantizes the shift vector
+    cvec = (1.0 + 0.3 * torch.randn(b, 1, c, generator=gen, device="cuda")).bfloat16()
+    shift = (0.2 * torch.randn(b, 1, c, generator=gen, device="cuda")).bfloat16()
+    shift = shift if with_shift else None
+    pq = i8.fused_rms_mod_quant(x, cvec, shift, eps=1e-6)
+    assert pq.shape == (b, n, c) and pq.dtype == torch.bfloat16
+    ref_q, ref_s = i8._row_quant_plain(i8._rms_mod_plain(x, cvec, shift, 1e-6))
+    _assert_rows_match(pq, ref_q, ref_s)
+
+
+@pytest.mark.parametrize("act", ["gelu-approximate", "gelu", "geglu"])
+def test_act_quant_kernel_matches_plain(gen, act):
+    h = torch.randn(1, 203, 1024, generator=gen, device="cuda").bfloat16()
+    pq = i8.fused_act_quant(h, act)
+    width = 512 if act == "geglu" else 1024
+    assert pq.shape == (1, 203, width) and pq.q.shape == (203, width)
+    _assert_rows_match(pq, *i8._row_quant_plain(i8._act_plain(h, act)))
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x_q, w_q = _int8(gen, 64, 40), _int8(gen, 32, 40)  # K not a multiple of 16
+    ones = torch.ones(64, 1, device="cuda")
+    with pytest.raises(ValueError):
+        i8.w8a8_matmul(x_q, ones, w_q, torch.ones(32, device="cuda"))
+    with pytest.raises(ValueError):  # activations in int8 are not rows to quantize
+        i8.quantize_rows_pallas(x_q)
+    with pytest.raises(ValueError):  # not contiguous
+        i8.quantize_rows_pallas(torch.randn(64, 64, device="cuda").t())
+    with pytest.raises(ValueError):
+        i8.fused_act_quant(torch.randn(1, 4, 64, device="cuda"), "relu")

@@ -1,9 +1,22 @@
 """Helpers shared by the ``test_torch_*`` parity tests (not a test module)."""
 
-import jax
-import numpy as np
+import dataclasses
 
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from avatar_tpu.models import dit as jdit
 from avatar_tpu.models import vae as jvae
+from avatar_tpu.pipelines import pipeline as jpipe
+from avatar_tpu_torch.models import dit as tdit
+from avatar_tpu_torch.models import vae as tvae
+from avatar_tpu_torch.pipelines import pipeline as tpipe
+from avatar_tpu_torch.utils.weight_import import (
+    dit_params_from_numpy,
+    vae_params_from_numpy,
+)
 
 
 def vae_numpy_params(cfg, seed: int = 7) -> dict:
@@ -25,3 +38,114 @@ def vae_numpy_params(cfg, seed: int = 7) -> dict:
 
     shapes = jax.eval_shape(lambda k: jvae.init_vae(k, cfg), jax.random.PRNGKey(0))
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def dit_numpy_params(cfg, seed: int = 5) -> dict:
+    """JAX-layout DiT params with ``init_dit``'s tree, filled from a numpy
+    seed at its scales (uniform +-sqrt(3 / fan_in) kernels, small biases,
+    AdaLN tables of std inner^-0.5, unit norm scales); cheaper than the
+    eager JAX init."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name, shape = jax.tree_util.keystr(path), leaf.shape
+        if "kernel" in name:
+            bound = np.sqrt(3.0 / shape[0])
+            return rng.uniform(-bound, bound, shape).astype(np.float32)
+        if "scale_shift_table" in name:
+            return (cfg.inner_dim**-0.5 * rng.standard_normal(shape)).astype(np.float32)
+        if "norm" in name and "scale" in name:
+            return np.ones(shape, np.float32)
+        return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    shapes = jax.eval_shape(lambda k: jdit.init_dit(k, cfg), jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _f32(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The guided denoising walk of both packages (tests/test_torch_guidance*.py)
+# ---------------------------------------------------------------------------
+
+H = W = 64
+PIPE_DIT_KW = dict(num_attention_heads=4, attention_head_dim=8, in_channels=8,
+                   out_channels=8, num_layers=2, cross_attention_dim=32,
+                   caption_channels=32)
+STEPS = 3
+# f32 through 3 guided steps (5 model evaluations with Heun) of two blocks:
+# the summation-order differences of a DiT call (a few 1e-6 at these
+# widths) scaled by the guidance (3 to 4.5), the std ratio of the rescale
+# and, for cfg_star, the projection coefficient; observed up to 1e-5
+PIPE_ATOL = 1e-4
+
+
+def guided_pipelines(**ctor):
+    """Both pipelines with ``attention_impl="flash"`` unless ``ctor`` says
+    otherwise: at these token counts "auto" keeps away from the head-major
+    kernels on both sides (``supports`` wants Lq * Lk >= 128 * 128)."""
+    ctor = {"attention_impl": "flash", **ctor}
+    jvcfg = dataclasses.replace(jvae.demo_config(latent_channels=8),
+                                base_channels=32, decoder_base_channels=32)
+    tvcfg = dataclasses.replace(tvae.demo_config(latent_channels=8),
+                                base_channels=32, decoder_base_channels=32)
+    jdcfg, tdcfg = jdit.DiTConfig(**PIPE_DIT_KW), tdit.DiTConfig(**PIPE_DIT_KW)
+    vtree = vae_numpy_params(jvcfg)
+    jdparams = jdit.init_dit(jax.random.PRNGKey(1), jdcfg)
+    dtree = jax.tree.map(np.asarray, jdparams)
+    jp = jpipe.LTXVideoPipeline(jdcfg, jdparams, jvcfg,
+                                jax.tree.map(jnp.asarray, vtree), **ctor)
+    tp = tpipe.LTXVideoPipeline(
+        tdcfg, dit_params_from_numpy(dtree, tdcfg, device="cpu"), tvcfg,
+        vae_params_from_numpy(vtree, tvcfg, device="cpu"), device="cpu", **ctor)
+    return jp, tp
+
+
+def run_guided_walk(pipes, frames, settings, negative=False):
+    """Latents of the JAX pipeline and of the port for the same settings,
+    the port fed JAX's initial latents and per-step noise."""
+    jp, tp = pipes
+    rng = np.random.default_rng(0)
+    lat_f, lat_hw = (frames - 1) // 8 + 1, H // 32
+    embeds = rng.standard_normal((1, 8, 32)).astype(np.float32)
+    mask = np.ones((1, 8), np.float32)
+    mask[0, 6:] = 0.0
+    cond = dict(
+        ref_latents=rng.standard_normal((1, 1, lat_hw, lat_hw, 8)).astype(np.float32),
+        pose_latents=rng.standard_normal(
+            (1, lat_f, lat_hw, lat_hw, 8)).astype(np.float32),
+    )
+    if negative:
+        cond["negative_prompt_embeds"] = rng.standard_normal(
+            (1, 8, 32)).astype(np.float32)
+        cond["negative_prompt_attention_mask"] = np.ones((1, 8), np.float32)
+    base = dict(height=H, width=W, num_frames=frames - 1, frame_rate=25.0,
+                num_inference_steps=STEPS)
+    jset = dict(settings)
+    tset = dict(settings)
+    if settings.get("skip_layer_strategy"):
+        jset["skip_layer_strategy"] = jdit.SkipLayerStrategy[
+            settings["skip_layer_strategy"]]
+        tset["skip_layer_strategy"] = tdit.SkipLayerStrategy[
+            settings["skip_layer_strategy"]]
+    key = jax.random.PRNGKey(3)
+    ref = jp(jpipe.GenerationParams(**base, **jset), key, embeds, mask, **cond,
+             output_type="latent", dtype=jnp.float32)
+    _, _, k_lat, _, k_loop, _ = jax.random.split(key, 6)
+    n_tokens = lat_f * lat_hw * lat_hw
+    init = jax.random.normal(jax.random.split(k_lat, 1)[0],
+                             (lat_f, lat_hw, lat_hw, 8))[None]
+    steps = STEPS - settings.get("skip_final_inference_steps", 0)
+    step_noise = np.stack([
+        np.asarray(jax.random.normal(jax.random.fold_in(k_loop, 2 * i + 1),
+                                     (1, n_tokens, 8))) for i in range(steps)])
+    out = tp(tpipe.GenerationParams(**base, **tset), torch.Generator(), _f32(embeds),
+             _f32(mask), **{k: _f32(v) for k, v in cond.items()}, init_noise=_f32(init),
+             step_noise=_f32(step_noise), output_type="latent", dtype=torch.float32)
+    return out.numpy(), np.asarray(ref)
+
+
+SHIPPED = dict(guidance_scale=3.0, stg_scale=1.0, rescaling_scale=0.7,
+               skip_block_list=[1], skip_layer_strategy="AttentionValues")
