@@ -230,6 +230,15 @@ def add_noise(
     return (1.0 - t) * original_samples + t * noise
 
 
+def velocity_target(
+    tokens: torch.Tensor,
+    noise: torch.Tensor,
+    t: torch.Tensor,  # noqa: ARG001 - the RF velocity does not depend on t
+) -> torch.Tensor:
+    """The training target v = d x_t / dt = -x0 + eps."""
+    return -tokens + noise
+
+
 def rf_step(
     sigmas: torch.Tensor,
     model_output: torch.Tensor,

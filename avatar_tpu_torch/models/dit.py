@@ -17,7 +17,12 @@ The port runs the inference paths:
   flash kernels); cross-attention likewise without RoPE;
 - STG through ``skip_layer_mask`` and a :class:`SkipLayerStrategy`;
 - blocks as a list or stacked on a leading layer axis
-  (:func:`stack_block_params`); no LoRA, no sequence parallelism;
+  (:func:`stack_block_params`); no sequence parallelism;
+- training: LoRA deltas on the attention projections (``lora``,
+  ``lora_scale``; the cross-attention k/v ones inside
+  :func:`precompute_cross_attention_kv`) and ``remat="full"``, each block
+  under ``torch.utils.checkpoint``; the attention kernels' gradients are
+  their autograd Functions (``ops/flash_attention.py``);
 - int8 linears (``utils/quantize.py``): weight-only ``kernel_q`` anywhere,
   and W8A8 ``kernel_q8`` in the eight per-token block linears, which at a
   per-sample sequence of at least ``W8A8_PALLAS_MIN_TOKENS`` run through
@@ -29,10 +34,12 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from functools import partial
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from avatar_tpu_torch.models.layers import (
     init_linear,
@@ -121,6 +128,31 @@ class DiTConfig:
             ),
             timestep_scale_multiplier=config.get("timestep_scale_multiplier") or 1.0,
         )
+
+    def to_dict(self) -> dict:
+        """The reference ``config.json`` schema (the inverse of
+        :meth:`from_dict`)."""
+        return {
+            "_class_name": "Transformer3DModel",
+            "num_attention_heads": self.num_attention_heads,
+            "attention_head_dim": self.attention_head_dim,
+            "in_channels": self.in_channels,
+            "out_channels": self.out_channels,
+            "num_layers": self.num_layers,
+            "cross_attention_dim": self.cross_attention_dim,
+            "caption_channels": self.caption_channels,
+            "attention_bias": self.attention_bias,
+            "activation_fn": self.activation_fn,
+            "norm_elementwise_affine": self.norm_elementwise_affine,
+            "norm_eps": self.norm_eps,
+            "qk_norm": self.qk_norm,
+            "standardization_norm": self.standardization_norm,
+            "adaptive_norm": self.adaptive_norm,
+            "positional_embedding_type": "rope",
+            "positional_embedding_theta": self.positional_embedding_theta,
+            "positional_embedding_max_pos": list(self.positional_embedding_max_pos),
+            "timestep_scale_multiplier": self.timestep_scale_multiplier,
+        }
 
 
 def _n_ada(cfg: DiTConfig) -> int:
@@ -233,6 +265,21 @@ def _stg_mix(out, skipped, skip_layer_mask):
     return out * m + skipped * (1.0 - m)
 
 
+def _lora_linear(params: dict, x, lora: Optional[dict], name: str,
+                 lora_scale: float, perm: Optional[torch.Tensor] = None):
+    """``linear(params, x)`` plus, where ``lora`` holds ``name``, the
+    low-rank delta ``lora_scale * (x a) b`` in x's dtype (a [in, r],
+    b [r, out]); ``perm`` reorders b's output columns, as the split-RoPE
+    layout reorders the base weight's rows."""
+    out = linear(params, x)
+    if lora is None or name not in lora:
+        return out
+    a, b = lora[name]["a"], lora[name]["b"]
+    if perm is not None:
+        b = b[:, perm.to(b.device)]
+    return out + lora_scale * ((x @ a.to(x.dtype)) @ b.to(x.dtype))
+
+
 def _attention(
     params: dict,
     x,
@@ -244,6 +291,8 @@ def _attention(
     attention_impl: str = "auto",
     rope_split: bool = False,
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    lora: Optional[dict] = None,
+    lora_scale: float = 1.0,
 ) -> torch.Tensor:
     """Self-attention over ``x`` (RoPE from ``freqs_cis``) or, with
     ``cross_kv`` (token-major (k, v) [B, Lk, inner]), cross-attention.
@@ -257,7 +306,8 @@ def _attention(
     head-major tensors. ``attention_impl="xla"`` takes neither token-major
     kernel. The JAX package additionally asks for a TPU backend before it
     takes a kernel under "auto"; the port takes the same path on any
-    device.
+    device. ``lora`` holds this attention's deltas ({"to_q": {"a", "b"},
+    ...}); with ``cross_kv`` its to_k/to_v ones are already in k and v.
     """
     b = x.shape[0]
     heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
@@ -266,6 +316,10 @@ def _attention(
     kernels = attention_impl in ("auto", "flash")
     is_cross = cross_kv is not None
     use_split_rope = rope_split and not is_cross and freqs_cis is not None
+    qk_perm = None
+    if lora is not None and use_split_rope:
+        qk_perm = torch.from_numpy(rope_channel_permutation(cfg.inner_dim))
+    proj = partial(_lora_linear, lora=lora, lora_scale=lora_scale)
 
     def mixed(out):
         out = out.to(q.dtype)
@@ -274,14 +328,16 @@ def _attention(
                 out = _stg_mix(out, x, skip_layer_mask)
             elif skip_layer_strategy == SkipLayerStrategy.AttentionValues:
                 out = _stg_mix(out, v, skip_layer_mask)
-        return linear(params["to_out"], out)
+        return proj(params["to_out"], out, name="to_out")
 
-    q = _qk_norm(params.get("q_norm"), linear(params["to_q"], x), cfg)
+    q = _qk_norm(params.get("q_norm"), proj(params["to_q"], x, name="to_q", perm=qk_perm),
+                 cfg)
     if is_cross:
         k, v = cross_kv
     else:
-        k = _qk_norm(params.get("k_norm"), linear(params["to_k"], x), cfg)
-        v = linear(params["to_v"], x)
+        k = _qk_norm(params.get("k_norm"),
+                     proj(params["to_k"], x, name="to_k", perm=qk_perm), cfg)
+        v = proj(params["to_v"], x, name="to_v")
         if (use_split_rope and kv_mask is None and kernels
                 and rope_fused_supports(q.shape[1], heads, hd, q.dtype)):
             return mixed(rope_fused_attention(
@@ -344,7 +400,8 @@ def _norm_modulate(norm_params, x, scale, shift, cfg, fused_quant):
 
 def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
                  skip_layer_mask=None, skip_layer_strategy=None,
-                 attention_impl="auto", rope_split=False):
+                 attention_impl="auto", rope_split=False, lora=None,
+                 lora_scale=1.0):
     """BasicTransformerBlock with AdaLN-single; ``timestep`` is the
     [B, 1 or N, n_ada*inner] AdaLN embedding, ``skip_layer_mask`` this
     block's [B] row of the STG mask.
@@ -354,8 +411,10 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
     ``W8A8_PALLAS_MIN_TOKENS``, W8A8 ``attn1.to_q``, no skip mask): the
     norm, the modulation and the row quantization before self-attention
     and before the FF run as one kernel (``fused_rms_mod_quant``), whose
-    int8 rows feed the q/k/v and FF-in products directly."""
+    int8 rows feed the q/k/v and FF-in products directly. ``lora`` is this
+    block's {"attn1"?, "attn2"?} deltas."""
     b = x.shape[0]
+    lora = lora or {}
     original_x = x
     if cfg.adaptive_norm not in ("single_scale_shift", "single_scale"):
         raise NotImplementedError(f"adaptive_norm={cfg.adaptive_norm!r}")
@@ -380,9 +439,11 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
     x = x + gate_msa * _attention(
         params["attn1"], norm_x, cfg, freqs_cis=freqs_cis,
         skip_layer_mask=skip_layer_mask, skip_layer_strategy=skip_layer_strategy,
-        attention_impl=attention_impl, rope_split=rope_split)
+        attention_impl=attention_impl, rope_split=rope_split,
+        lora=lora.get("attn1"), lora_scale=lora_scale)
     x = x + _attention(params["attn2"], x, cfg, kv_mask=kv_mask,
-                       attention_impl=attention_impl, cross_kv=cross_kv)
+                       attention_impl=attention_impl, cross_kv=cross_kv,
+                       lora=lora.get("attn2"), lora_scale=lora_scale)
 
     norm_x = _norm_modulate(params.get("norm2"), x, scale_mlp, shift_mlp, cfg,
                             fused_quant_norm and "kernel_q8" in params["ff"]["proj_in"])
@@ -436,20 +497,28 @@ def precompute_cross_attention_kv(
     cfg: DiTConfig,
     encoder_hidden_states: torch.Tensor,  # [B, L, caption_channels]
     dtype: Optional[torch.dtype] = None,
+    lora: Optional[dict] = None,
+    lora_scale: float = 1.0,
 ):
     """Caption projection and every block's cross-attention (k, v)
-    [B, L, inner], computed once per run. Returns (cross_kv, projected):
+    [B, L, inner], computed once per run, with the attn2 to_k/to_v LoRA
+    deltas of ``lora`` where it holds them. Returns (cross_kv, projected):
     ``cross_kv`` is a list of per-block pairs, or for stacked blocks the
     stacked pair (k [L, B, Lk, inner], v [L, B, Lk, inner])."""
     eh = encoder_hidden_states
     if dtype is not None:
         eh = eh.to(dtype)
     eh = _caption_projection(params, cfg, eh)
+    blocks = _blocks_list(params["blocks"])
+    lora_blocks = ([None] * len(blocks) if lora is None
+                   else _blocks_list(lora["blocks"]))
     cross_kv = []
-    for block in _blocks_list(params["blocks"]):
+    for block, block_lora in zip(blocks, lora_blocks, strict=True):
         attn2 = block["attn2"]
-        k = _qk_norm(attn2.get("k_norm"), linear(attn2["to_k"], eh), cfg)
-        cross_kv.append((k.contiguous(), linear(attn2["to_v"], eh).contiguous()))
+        a2_lora = None if block_lora is None else block_lora.get("attn2")
+        proj = partial(_lora_linear, x=eh, lora=a2_lora, lora_scale=lora_scale)
+        k = _qk_norm(attn2.get("k_norm"), proj(attn2["to_k"], name="to_k"), cfg)
+        cross_kv.append((k.contiguous(), proj(attn2["to_v"], name="to_v").contiguous()))
     if not isinstance(params["blocks"], (list, tuple)):
         ks, vs = zip(*cross_kv)
         return (torch.stack(ks), torch.stack(vs)), eh
@@ -527,6 +596,9 @@ def dit_apply(
     rope_split: bool = True,
     cross_kv=None,
     timestep_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    lora: Optional[dict] = None,
+    lora_scale: float = 1.0,
+    remat=False,
 ) -> torch.Tensor:
     """Velocity tokens [B, N, out_channels].
 
@@ -542,7 +614,17 @@ def dit_apply(
     paths a caption key with mask 0 gets no weight and a query whose keys
     are all masked gets a zero cross-attention output;
     ``attention_impl="xla"`` gives such a query unmasked attention.
+
+    Training: ``lora`` ({"blocks": [{"attn2": {"to_q": {"a", "b"}, ...}}]})
+    adds ``lora_scale`` times its low-rank deltas to the attention
+    projections (with ``cross_kv`` given, its to_k/to_v deltas must already
+    be in it). ``remat`` False, True or "full" (each block under
+    ``torch.utils.checkpoint``: only block inputs are kept, the backward
+    recomputes the block); "dots" (keep the weight products' outputs) is
+    not ported.
     """
+    if remat not in (False, True, "full"):
+        raise NotImplementedError(f"remat={remat!r} is not ported (False, True or 'full')")
     x, freqs_cis, ada, embedded = _dit_prologue(
         params, cfg, hidden_states, indices_grid, timestep, freqs_cis,
         timestep_tables, rope_split,
@@ -551,18 +633,26 @@ def dit_apply(
         if encoder_hidden_states is None:
             raise ValueError("need encoder_hidden_states or cross_kv")
         cross_kv, _ = precompute_cross_attention_kv(
-            params, cfg, encoder_hidden_states, dtype=x.dtype)
+            params, cfg, encoder_hidden_states, dtype=x.dtype, lora=lora,
+            lora_scale=lora_scale)
     if not isinstance(cross_kv, (list, tuple)) or torch.is_tensor(cross_kv[0]):
         cross_kv = list(zip(*cross_kv))  # stacked pair -> per-block pairs
     kv_mask = None
     if encoder_attention_mask is not None:
         kv_mask = encoder_attention_mask.to(torch.float32).contiguous()
     blocks = _blocks_list(params["blocks"])
+    lora_blocks = [None] * len(blocks) if lora is None else _blocks_list(lora["blocks"])
     for i, (block, kv) in enumerate(zip(blocks, cross_kv, strict=True)):
-        x = _block_apply(
-            block, x, cfg, freqs_cis, ada, kv, kv_mask,
-            None if skip_layer_mask is None else skip_layer_mask[i],
-            skip_layer_strategy, attention_impl, rope_split)
+        run = partial(
+            _block_apply, block, cfg=cfg, freqs_cis=freqs_cis, timestep=ada,
+            cross_kv=kv, kv_mask=kv_mask,
+            skip_layer_mask=None if skip_layer_mask is None else skip_layer_mask[i],
+            skip_layer_strategy=skip_layer_strategy, attention_impl=attention_impl,
+            rope_split=rope_split, lora=lora_blocks[i], lora_scale=lora_scale)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+        else:
+            x = run(x)
     return _dit_epilogue(params, x, embedded)
 
 

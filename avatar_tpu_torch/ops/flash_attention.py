@@ -1,5 +1,5 @@
-"""The DiT's attention kernels (port of the forward kernels of
-``avatar_tpu/ops/flash_attention.py``).
+"""The DiT's attention kernels (port of the keep-mask kernels of
+``avatar_tpu/ops/flash_attention.py``, forward and backward).
 
 Token-major, [B, L, heads*head_dim]:
 
@@ -14,13 +14,24 @@ Head-major, [B, H, L, head_dim]:
 - :func:`flash_attention`: the three kernels of ``_flash_forward``
   (``csrc/flash_forward.cu``): the max-free ``_fwd_kernel_bounded``, the
   online-softmax ``_fwd_kernel`` and the whole-row ``_fwd_kernel_single``,
-  each also returning the row log-sum-exp.
+  each also returning the row log-sum-exp; its gradient runs the two
+  kernels of ``_flash_backward`` (``csrc/flash_backward.cu``):
+  ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``.
 
 On a CUDA tensor a wrapper launches its kernel (bf16, head_dim 64) or
 raises; on a CPU tensor it runs the plain PyTorch version beside it, which
 computes the same function with the kernel's masking: masked keys get
 p = 0 and a row with every key masked returns 0. ``bounded`` (qk-normed
 logits) drops the softmax max pass: p = exp(min(s, 80)).
+
+Gradients follow the JAX package's custom VJPs. Where an input requires a
+gradient, each of the three attention entries runs as a
+``torch.autograd.Function``, on either device: :func:`flash_attention`
+saves q, k, v, the mask, O and lse and its backward is the flash backward;
+the token-major entries save their inputs and their backward recomputes
+the attention under autograd (:func:`_fused_recompute_fn`), RoPE first for
+:func:`rope_fused_attention`. Without a gradient the wrappers run their
+forward alone and save nothing.
 
 The predicates :func:`supports`, :func:`rope_fused_supports` and
 :func:`fused_supports` are the JAX package's. Their 6 MiB caps are sizes of
@@ -52,6 +63,7 @@ SINGLE_BLOCK_MAX = 1024
 launch_counts: Dict[str, int] = {
     "rope_fused_attention": 0, "fused_token_attention": 0,
     "flash_bounded": 0, "flash_online": 0, "flash_single": 0,
+    "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
 }
 
 
@@ -198,6 +210,26 @@ def _flash_plain(q, k, v, kv_mask, scale, mode):
     return out.to(q.dtype), lse[..., 0]
 
 
+def _flash_backward_plain(q, k, v, kv_mask, out, lse, g, scale):
+    """Plain version of ``_flash_backward``'s two kernels over head-major
+    [B, H, L, D]: (dq, dk, dv) from the forward's O and lse [B, H, Lq] and
+    the output gradient ``g``. f32 logits and sums; masked keys at -1e30
+    before the exp; p rounded to g's dtype for dV and dS to q's (k's) dtype
+    for dK (dQ), as ``_bwd_dkv_kernel`` / ``_bwd_dq_kernel`` round them."""
+    delta = (g.float() * out.float()).sum(-1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if kv_mask is not None:
+        keep = (kv_mask > 0.5)[:, None, None, :]
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).float(), g.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -247,18 +279,12 @@ def _wrapper_device(q: torch.Tensor) -> str:
     return q.device.type
 
 
-def rope_fused_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    cos_s: torch.Tensor,
-    sin_s: torch.Tensor,
-    heads: int,
-    scale: float,
-    bounded: bool = False,
-) -> torch.Tensor:
-    """Self-attention; q/k [B, L, C] in global split-half channel order,
-    v [B, L, C] token-major, cos_s/sin_s [B, L, C/2]. Returns [B, L, C]."""
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _rope_forward(q, k, v, cos_s, sin_s, heads, scale, bounded):
     if _wrapper_device(q) == "cpu":
         return _rope_attention_plain(q, k, v, cos_s, sin_s, heads, scale, bounded)
     b, l, c = q.shape
@@ -279,17 +305,7 @@ def rope_fused_attention(
     return out
 
 
-def fused_token_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    kv_mask: Optional[torch.Tensor],
-    heads: int,
-    scale: float,
-    bounded: bool = False,
-) -> torch.Tensor:
-    """Attention over token-major q [B, Lq, C] and k/v [B, Lk, C] with an
-    optional [B, Lk] keep-mask (> 0.5 keeps). Returns [B, Lq, C]."""
+def _token_forward(q, k, v, kv_mask, heads, scale, bounded):
     if _wrapper_device(q) == "cpu":
         return _token_attention_plain(q, k, v, kv_mask, heads, scale, bounded)
     b, lq, c = q.shape
@@ -312,6 +328,127 @@ def fused_token_attention(
     _raise_on(err, "token_attention_bf16")
     launch_counts["fused_token_attention"] += 1
     return out
+
+
+def _fused_recompute_fn(q_shape, heads, kv_mask, scale, k_len=None):
+    """The function of (q, k, v) token-major that the token-major entries'
+    backward differentiates (``_fused_recompute_fn`` of the JAX package):
+    head-major :func:`flash_attention`, unbounded, whose own gradient is the
+    flash backward, where ``head_dim % 8 == 0``, ``head_dim <= 512`` and
+    ``lq * lk >= 128 * 128``; else plain attention with a -1e30 bias on
+    masked keys. The JAX package also asks for a TPU backend before it takes
+    the flash route; the port takes the same route on either device."""
+    b, lq, c = q_shape
+    hd = c // heads
+    lk = lq if k_len is None else k_len
+
+    def split(t):
+        return t.reshape(b, -1, heads, hd).transpose(1, 2)
+
+    def merge(out):
+        return out.transpose(1, 2).reshape(b, lq, c)
+
+    if hd % 8 == 0 and hd <= 512 and lq * lk >= 128 * 128:
+        return lambda q_, k_, v_: merge(flash_attention(
+            split(q_), split(k_), split(v_), kv_mask=kv_mask, scale=scale))
+
+    from avatar_tpu_torch.ops.attention import xla_attention
+
+    bias = None
+    if kv_mask is not None:
+        bias = torch.where(kv_mask > 0.5, 0.0, NEG_INF).float()[:, None, None, :]
+    return lambda q_, k_, v_: merge(xla_attention(
+        split(q_), split(k_), split(v_), bias, scale))
+
+
+def _recompute_grads(fn, tensors, g):
+    """Gradients of ``fn(*tensors)`` against ``g``, recomputed under
+    autograd from detached copies of ``tensors``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in tensors]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+class _RopeFusedFn(torch.autograd.Function):
+    """Kernel A with the gradient of ``_rope_fused_bwd``: saves q, k, v and
+    the (cos, sin) tables; the backward rotates q and k, relays them out
+    head-major and recomputes the attention, all under autograd, so the
+    RoPE's VJP chains onto the recompute's. cos and sin get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos_s, sin_s, heads, scale, bounded):
+        ctx.save_for_backward(q, k, v, cos_s, sin_s)
+        ctx.heads, ctx.scale = heads, scale
+        return _rope_forward(q, k, v, cos_s, sin_s, heads, scale, bounded)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, cos_s, sin_s = ctx.saved_tensors
+        heads = ctx.heads
+        recompute = _fused_recompute_fn(q.shape, heads, None, ctx.scale)
+
+        def ref(q_, k_, v_):
+            qr = split_to_head_major(apply_rotary_emb_split(q_, (cos_s, sin_s)), heads)
+            kr = split_to_head_major(apply_rotary_emb_split(k_, (cos_s, sin_s)), heads)
+            return recompute(qr, kr, v_)
+
+        dq, dk, dv = _recompute_grads(ref, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None, None
+
+
+class _FusedTokenFn(torch.autograd.Function):
+    """Kernel B with the gradient of ``_fused_bwd``: saves q, k, v and the
+    mask; the backward recomputes the attention under autograd. The mask
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, heads, scale, bounded):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.heads, ctx.scale = heads, scale
+        return _token_forward(q, k, v, kv_mask, heads, scale, bounded)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        recompute = _fused_recompute_fn(q.shape, ctx.heads, kv_mask, ctx.scale,
+                                        k_len=k.shape[1])
+        dq, dk, dv = _recompute_grads(recompute, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None
+
+
+def rope_fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cos_s: torch.Tensor,
+    sin_s: torch.Tensor,
+    heads: int,
+    scale: float,
+    bounded: bool = False,
+) -> torch.Tensor:
+    """Self-attention; q/k [B, L, C] in global split-half channel order,
+    v [B, L, C] token-major, cos_s/sin_s [B, L, C/2]. Returns [B, L, C].
+    Differentiable in q, k and v (:class:`_RopeFusedFn`)."""
+    if _needs_grad(q, k, v):
+        return _RopeFusedFn.apply(q, k, v, cos_s, sin_s, heads, scale, bounded)
+    return _rope_forward(q, k, v, cos_s, sin_s, heads, scale, bounded)
+
+
+def fused_token_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    heads: int,
+    scale: float,
+    bounded: bool = False,
+) -> torch.Tensor:
+    """Attention over token-major q [B, Lq, C] and k/v [B, Lk, C] with an
+    optional [B, Lk] keep-mask (> 0.5 keeps). Returns [B, Lq, C].
+    Differentiable in q, k and v (:class:`_FusedTokenFn`)."""
+    if _needs_grad(q, k, v):
+        return _FusedTokenFn.apply(q, k, v, kv_mask, heads, scale, bounded)
+    return _token_forward(q, k, v, kv_mask, heads, scale, bounded)
 
 
 def flash_mode(lq: int, lk: int, bounded: bool) -> str:
@@ -366,6 +503,87 @@ def _flash_forward(q, k, v, kv_mask, scale: float, bounded: bool
     return out, lse
 
 
+def _check_backward_inputs(q, k, v, g, lse, delta, kv_mask):
+    b, heads, lq, d = q.shape
+    lk = k.shape[2]
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"CUDA attention kernels take head_dim {KERNEL_HEAD_DIM}; got {d}")
+    for name, t, n in (("q", q, lq), ("k", k, lk), ("v", v, lk), ("g", g, lq)):
+        _check_cuda(name, t, (b, heads, n, d))
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check_cuda(name, t, (b, heads, lq), dtype=torch.float32)
+    if kv_mask is not None:
+        _check_cuda("kv_mask", kv_mask, (b, lk), dtype=torch.float32)
+    return b, heads, lq, lk
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask, scale: float):
+    """Kernel ``flash_bwd_dkv_bf16`` (``_bwd_dkv_kernel``): (dk, dv) of
+    head-major bf16 attention from contiguous q, k, v, the output gradient
+    g, lse and delta = rowsum(g * O) [B, H, Lq] f32, with the caller's
+    scale. CUDA tensors only."""
+    b, heads, lq, lk = _check_backward_inputs(q, k, v, g, lse, delta, kv_mask)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _c_entry("flash_backward", "flash_bwd_dkv_bf16", 9, 4, bounded_flag=False)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, heads, lq, lk, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_bwd_dkv_bf16")
+    launch_counts["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask, scale: float):
+    """Kernel ``flash_bwd_dq_bf16`` (``_bwd_dq_kernel``): dq, with the
+    arguments of :func:`flash_bwd_dkv`. CUDA tensors only."""
+    b, heads, lq, lk = _check_backward_inputs(q, k, v, g, lse, delta, kv_mask)
+    dq = torch.empty_like(q)
+    fn = _c_entry("flash_backward", "flash_bwd_dq_bf16", 8, 4, bounded_flag=False)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
+             dq.data_ptr(), b, heads, lq, lk, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_bwd_dq_bf16")
+    launch_counts["flash_bwd_dq"] += 1
+    return dq
+
+
+def _flash_backward(q, k, v, kv_mask, out, lse, g, scale: float):
+    """(dq, dk, dv) of :func:`flash_attention` at the caller's q and scale:
+    the two backward kernels on the card, their plain version on the CPU.
+    delta = rowsum(g * O) in f32 is one PyTorch reduction on either."""
+    if _wrapper_device(q) == "cpu":
+        return _flash_backward_plain(q, k, v, kv_mask, out, lse, g, scale)
+    g = g.contiguous()
+    delta = (g.float() * out.float()).sum(-1)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask, scale)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, kv_mask, scale)
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    """Kernels C/D/E with the gradient of ``_flash``'s custom VJP: the
+    forward saves q (the caller's, before any scale folding), k, v, the
+    mask, O and lse; the backward runs the flash backward. lse is returned
+    without a gradient; the mask gets none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale, bounded):
+        out, lse = _flash_forward(q, k, v, kv_mask, scale, bounded)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, kv_mask, out, lse, g, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -385,6 +603,7 @@ def flash_attention(
     guarantees logits far below the f32 exp limit (true after qk-norm), so
     long sequences take the max-free kernel. ``with_lse`` also returns the
     row log-sum-exp [B, H, Lq] f32 (1e30 for a row with no kept key).
+    Differentiable in q, k and v (:class:`_FlashFn`).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -396,6 +615,14 @@ def flash_attention(
                 "flash_attention with a dense additive bias needs the "
                 "dense-bias kernel (_fwd_kernel_dense_bias), which is not "
                 "ported yet")
-    out, lse = _flash_forward(q, k, v, kv_mask, float(scale),
-                              bool(bounded_logits))
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.float32).contiguous()
+    args = (float(scale), bool(bounded_logits))
+    if _needs_grad(q, k, v):
+        # contiguous before the Function, so that it saves what the
+        # kernels read and the backward copies nothing again
+        out, lse = _FlashFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  kv_mask, *args)
+    else:
+        out, lse = _flash_forward(q, k, v, kv_mask, *args)
     return (out, lse) if with_lse else out

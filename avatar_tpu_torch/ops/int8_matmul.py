@@ -140,9 +140,15 @@ def _w8a8_matmul_plain(x_q, x_s, w_q, w_s, bias, out_dtype):
 # ---------------------------------------------------------------------------
 
 
-def _device(t: torch.Tensor) -> str:
+def _device(t: torch.Tensor, *inputs: Optional[torch.Tensor]) -> str:
+    """``t``'s device type. Raises where ``t`` or one of ``inputs`` requires
+    a gradient: the int8 kernels have no VJP (nor do the JAX package's), and
+    a tensor cut off from the graph would silently drop one."""
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (t, *inputs)):
+        raise RuntimeError("the int8 kernels have no gradient: an input requires grad")
     return t.device.type
 
 
@@ -200,7 +206,7 @@ def w8a8_matmul(
     n = w_q.shape[0]
     if w_q.shape[1] != k:
         raise ValueError(f"w8a8_matmul: x_q {tuple(x_q.shape)} and w_q {tuple(w_q.shape)}")
-    if _device(x_q) == "cpu":
+    if _device(x_q, x_s, w_s, bias) == "cpu":
         return _w8a8_matmul_plain(x_q, x_s, w_q, w_s, bias, out_dtype)
     if k % 16 or n % 2:
         raise ValueError(f"w8a8_matmul takes K % 16 == 0 and even N; got K={k}, N={n}")
@@ -249,7 +255,7 @@ def fused_rms_mod_quant(
     """rms-norm -> AdaLN modulate -> per-row int8, all in f32 from ``x``:
     ``(x * (1 / sqrt(mean(x^2) + eps))) * cvec (+ shift)``."""
     b, n, c = x.shape
-    if _device(x) == "cpu":
+    if _device(x, cvec, shift) == "cpu":
         q, s = _row_quant_plain(_rms_mod_plain(x, cvec, shift, eps))
         return PrequantRows(q, s, tuple(x.shape), x.dtype)
     _check_width(c)

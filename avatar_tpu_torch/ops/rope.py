@@ -52,7 +52,7 @@ def apply_rotary_emb(
 ) -> torch.Tensor:
     """Rotate adjacent feature pairs: x*cos + rot(x)*sin, where rot turns
     each pair (x1, x2) into (-x2, x1). Computed in ``x.dtype``, as the JAX
-    package does. Forward only."""
+    package does."""
     cos_f, sin_f = freqs_cis
     rot = torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).reshape(x.shape)
     return x * cos_f + rot * sin_f

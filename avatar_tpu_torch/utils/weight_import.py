@@ -17,17 +17,29 @@ The DiT tree must be the **unpermuted** one: the port's pipeline applies
 the split-RoPE permutation itself at construction. Its blocks may be a
 list or one tree stacked on a leading layer axis (``[L, in, out]`` kernels
 become ``[L, out, in]``); the layout carries over.
+
+Single-file checkpoints (the avatar flow's format, and what training
+exports): a safetensors file whose ``config`` metadata holds the
+transformer, VAE and scheduler configs, with the transformer's state under
+``model.diffusion_model.`` and the VAE's under ``vae.``, in the reference's
+parameter names and torch layouts (:func:`import_transformer_state`,
+:func:`export_transformer_state`, :func:`load_single_file_checkpoint`,
+:func:`save_single_file_checkpoint`). The VAE's state passes through as
+it is read.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import json
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from avatar_tpu_torch.models.dit import DiTConfig
 from avatar_tpu_torch.models.vae import VAEConfig
+from avatar_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
 
 
 def _swap_last(w: np.ndarray, stacked: bool) -> np.ndarray:
@@ -97,3 +109,198 @@ def vae_params_from_numpy(tree: dict, cfg: VAEConfig, device="cuda",
     if cfg.normalize_latent_channels and "latent_norm" in tree:
         raise NotImplementedError("normalize_latent_channels is not ported yet")
     return _convert(tree, device, dtype)
+
+
+def lora_from_numpy(tree: dict, device="cuda",
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """A JAX LoRA tree (numpy leaves, ``{"blocks": [{"attn2": {"to_q":
+    {"a": [in, r], "b": [r, out]}}}]}``) -> the port's, which keeps the
+    same layout."""
+    if isinstance(tree, dict):
+        return {k: lora_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lora_from_numpy(v, device, dtype) for v in tree]
+    return _tensor(np.asarray(tree), device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Single-file checkpoints (reference parameter names, torch layouts)
+# ---------------------------------------------------------------------------
+
+TRANSFORMER_PREFIX = "model.diffusion_model."
+VAE_PREFIX = "vae."
+PER_CHANNEL_STATISTICS_PREFIX = "per_channel_statistics."
+
+
+class _TrackedState(dict):
+    """A dict that records which keys were read."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.consumed = set()
+
+    def __getitem__(self, key):
+        self.consumed.add(key)
+        return super().__getitem__(key)
+
+    def unused(self):
+        return set(self.keys()) - self.consumed
+
+
+def _linear_from_state(s, key: str) -> dict:
+    p = {"weight": s[f"{key}.weight"]}
+    if f"{key}.bias" in s:
+        p["bias"] = s[f"{key}.bias"]
+    return p
+
+
+def _attn_from_state(s, prefix: str) -> dict:
+    p = {name: _linear_from_state(s, f"{prefix}.{name}")
+         for name in ("to_q", "to_k", "to_v")}
+    p["to_out"] = _linear_from_state(s, f"{prefix}.to_out.0")
+    for norm in ("q_norm", "k_norm"):
+        if f"{prefix}.{norm}.weight" in s:
+            p[norm] = {"scale": s[f"{prefix}.{norm}.weight"]}
+            if f"{prefix}.{norm}.bias" in s:
+                p[norm]["bias"] = s[f"{prefix}.{norm}.bias"]
+    return p
+
+
+def import_transformer_state(state: Dict[str, torch.Tensor], cfg: DiTConfig,
+                             strict: bool = True, device="cuda",
+                             dtype: Optional[torch.dtype] = None) -> dict:
+    """A reference-named transformer state dict -> the port's DiT tree
+    (unpermuted), each tensor moved to ``device`` and, if given, ``dtype``.
+    ``strict``: raise on a key the tree does not take."""
+    s = _TrackedState({k: v.to(device=device, dtype=dtype if dtype is not None and v.ndim
+                                else None) for k, v in state.items()})
+    emb = "adaln_single.emb.timestep_embedder"
+    params: Dict[str, Any] = {
+        "patchify_proj": _linear_from_state(s, "patchify_proj"),
+        "adaln_single": {
+            "emb": {"linear_1": _linear_from_state(s, f"{emb}.linear_1"),
+                    "linear_2": _linear_from_state(s, f"{emb}.linear_2")},
+            "linear": _linear_from_state(s, "adaln_single.linear"),
+        },
+        "scale_shift_table": s["scale_shift_table"],
+        "proj_out": _linear_from_state(s, "proj_out"),
+    }
+    if "caption_projection.linear_1.weight" in s:
+        params["caption_projection"] = {
+            "linear_1": _linear_from_state(s, "caption_projection.linear_1"),
+            "linear_2": _linear_from_state(s, "caption_projection.linear_2"),
+        }
+    blocks = []
+    for i in range(cfg.num_layers):
+        pre = f"transformer_blocks.{i}"
+        block: Dict[str, Any] = {
+            "attn1": _attn_from_state(s, f"{pre}.attn1"),
+            "attn2": _attn_from_state(s, f"{pre}.attn2"),
+            "ff": {"proj_in": _linear_from_state(s, f"{pre}.ff.net.0.proj"),
+                   "proj_out": _linear_from_state(s, f"{pre}.ff.net.2")},
+            "scale_shift_table": s[f"{pre}.scale_shift_table"],
+        }
+        for norm in ("norm1", "norm2"):
+            if f"{pre}.{norm}.weight" in s:
+                block[norm] = {"scale": s[f"{pre}.{norm}.weight"]}
+        blocks.append(block)
+    params["blocks"] = blocks
+    if strict and s.unused():
+        raise ValueError(
+            f"Unconsumed transformer checkpoint keys: {sorted(s.unused())[:10]} ...")
+    return params
+
+
+def export_transformer_state(params: dict, cfg: DiTConfig) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`import_transformer_state`: reference names,
+    CPU tensors in their dtypes. ``params`` must be unpermuted and hold
+    plain (unquantized) linears."""
+    s: Dict[str, torch.Tensor] = {}
+
+    def put_linear(key, p):
+        if "weight" not in p:
+            raise ValueError(f"{key}: export needs an unquantized linear")
+        s[f"{key}.weight"] = p["weight"]
+        if "bias" in p:
+            s[f"{key}.bias"] = p["bias"]
+
+    emb = "adaln_single.emb.timestep_embedder"
+    put_linear("patchify_proj", params["patchify_proj"])
+    put_linear(f"{emb}.linear_1", params["adaln_single"]["emb"]["linear_1"])
+    put_linear(f"{emb}.linear_2", params["adaln_single"]["emb"]["linear_2"])
+    put_linear("adaln_single.linear", params["adaln_single"]["linear"])
+    if "caption_projection" in params:
+        put_linear("caption_projection.linear_1", params["caption_projection"]["linear_1"])
+        put_linear("caption_projection.linear_2", params["caption_projection"]["linear_2"])
+    s["scale_shift_table"] = params["scale_shift_table"]
+    put_linear("proj_out", params["proj_out"])
+    blocks = params["blocks"]
+    if not isinstance(blocks, (list, tuple)):
+        from avatar_tpu_torch.models.dit import unstack_block_params
+
+        blocks = unstack_block_params(blocks)
+    for i, block in enumerate(blocks):
+        pre = f"transformer_blocks.{i}"
+        for attn_name in ("attn1", "attn2"):
+            a = block[attn_name]
+            for proj in ("to_q", "to_k", "to_v"):
+                put_linear(f"{pre}.{attn_name}.{proj}", a[proj])
+            put_linear(f"{pre}.{attn_name}.to_out.0", a["to_out"])
+            for norm in ("q_norm", "k_norm"):
+                if norm in a:
+                    s[f"{pre}.{attn_name}.{norm}.weight"] = a[norm]["scale"]
+                    if "bias" in a[norm]:
+                        s[f"{pre}.{attn_name}.{norm}.bias"] = a[norm]["bias"]
+        put_linear(f"{pre}.ff.net.0.proj", block["ff"]["proj_in"])
+        put_linear(f"{pre}.ff.net.2", block["ff"]["proj_out"])
+        s[f"{pre}.scale_shift_table"] = block["scale_shift_table"]
+        for norm in ("norm1", "norm2"):
+            if norm in block:
+                s[f"{pre}.{norm}.weight"] = block[norm]["scale"]
+    return {k: v.detach().cpu().contiguous() for k, v in s.items()}
+
+
+def load_single_file_checkpoint(
+    path: Union[str, Path],
+) -> Tuple[dict, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(configs, transformer_state, vae_state) of a single-file checkpoint,
+    prefixes stripped; a key with neither prefix belongs to the
+    transformer, except the VAE's bare per-channel statistics."""
+    tensors, metadata = load_safetensors(path)
+    configs = json.loads(metadata["config"]) if "config" in metadata else {}
+    transformer_state, vae_state = {}, {}
+    for k, v in tensors.items():
+        if k.startswith(TRANSFORMER_PREFIX):
+            transformer_state[k[len(TRANSFORMER_PREFIX):]] = v
+        elif k.startswith(VAE_PREFIX):
+            vae_state[k[len(VAE_PREFIX):]] = v
+        elif k.startswith(PER_CHANNEL_STATISTICS_PREFIX):
+            vae_state[k] = v
+        else:
+            transformer_state[k] = v
+    return configs, transformer_state, vae_state
+
+
+def save_single_file_checkpoint(
+    path: Union[str, Path],
+    dit_params: dict,
+    dit_cfg: DiTConfig,
+    vae_state: Optional[Dict[str, torch.Tensor]] = None,
+    vae_config: Optional[dict] = None,
+    scheduler_config: Optional[dict] = None,
+) -> None:
+    """Write a single-file checkpoint: the transformer's state under
+    ``model.diffusion_model.``, ``vae_state`` (as read by
+    :func:`load_single_file_checkpoint`) under ``vae.``, and the configs as
+    JSON in the ``config`` metadata."""
+    t_state = export_transformer_state(dit_params, dit_cfg)
+    tensors = {f"{TRANSFORMER_PREFIX}{k}": v for k, v in t_state.items()}
+    configs: Dict[str, Any] = {"transformer": dit_cfg.to_dict()}
+    if vae_state is not None:
+        # every VAE key, per-channel statistics included, carries the
+        # prefix: a reference loader keeps only "vae." keys once any exist
+        tensors.update({f"{VAE_PREFIX}{k}": v for k, v in vae_state.items()})
+        configs["vae"] = vae_config
+    if scheduler_config is not None:
+        configs["scheduler"] = scheduler_config
+    save_safetensors(tensors, path, metadata={"config": json.dumps(configs)})

@@ -15,9 +15,15 @@ Phases, each printing one JSON line as soon as it has its numbers:
    head-major kernels the row log-sum-exp; the int8 product (exact int32
    sums; the dequant at the DiT's three W8A8 shapes, 832 and a ragged 5000
    rows) and the three row-quant kernels (at most one int8 level apart on a
-   stated fraction, scales at rtol 1e-6); then each one's time, the plain
-   version's, one PyTorch library call's where there is one (a yardstick
-   the port never calls) and the card's lower bound for the same work;
+   stated fraction, scales at rtol 1e-6); the flash backward's two kernels
+   (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) at the training
+   shapes, at 5376 tokens with lse from kernel C and from D, and ragged
+   with a fully masked sample;
+   then each one's time, the plain version's, one PyTorch library call's
+   where there is one (a yardstick the port never calls) and the card's
+   lower bound for the same work; then autograd through the three
+   attention entries on the card against their plain versions in f32
+   (``attention_gradients``);
 4. reference: a tiny pipeline at guidance 1 in bf16 on the card against the
    same pipeline in f32 on the CPU (plain kernel versions), once as it is
    and once with the timestep rounded as a bf16 run rounds it, and in bf16
@@ -44,7 +50,17 @@ Phases, each printing one JSON line as soon as it has its numbers:
 10. pipeline_long_w8a8: the long path with the DiT quantized W8A8 (from
    the same bf16 weights): every block linear through the int8 kernels,
    launches checked per kernel, profile of 3 steps, and the latents'
-   relative RMS against the bf16 long path's (printed, not held).
+   relative RMS against the bf16 long path's (printed, not held);
+11. reference_train (run after phase 6): a tiny DiT (heads of 64, 128
+   tokens) trained 2 steps with accumulation 2, "lora_audio" and "full",
+   bf16 on the card against f32 on the CPU and against the card without
+   the kernels, same weights, t and noise; train_cli: the port's
+   ``train_loop`` writing, exporting and resuming in a temporary
+   directory;
+12. train: the full-width 2B DiT trained in "lora_audio" mode at the
+   training point (batch 8, 480 tokens, caption 256, accumulation 2, 3
+   optimizer steps): losses, launches per micro-step, seconds per step,
+   peak memory and a profile of one micro-step.
 
 The launch counts are set to 0 just before each driven path and read just
 after it. Then the kernel summary line, the ``nvidia-smi`` line, and as
@@ -183,13 +199,13 @@ class KernelErrors:
     by case, each held to ``KERNEL_ULPS`` bf16 ulps of the case's largest
     reference output."""
 
-    def __init__(self, kernel):
-        self.kernel, self.errs, self.tols = kernel, {}, {}
+    def __init__(self, kernel, ulps=KERNEL_ULPS):
+        self.kernel, self.ulps, self.errs, self.tols = kernel, ulps, {}, {}
 
     def add(self, label, out, ref):
         ref = ref.float()
         self.errs[label] = (out.float() - ref).abs().max().item()
-        self.tols[label] = KERNEL_ULPS * 2.0**-7 * ref.abs().max().item()
+        self.tols[label] = self.ulps * 2.0**-7 * ref.abs().max().item()
 
     def check(self):
         """Fails on a case above its limit; else the largest error and that
@@ -937,6 +953,558 @@ def check_reference_w8a8():
     return total
 
 
+# The flash backward (F) against its plain version, per case: both round p
+# and dS to bf16 before their products and sum in f32, but in another order
+# over up to 5376 queries or keys, and an element of p or dS may land on the
+# neighbouring bf16 value; so each gradient is held to BWD_ULPS bf16 ulps of
+# the case's largest reference gradient.
+BWD_ULPS = 4
+# Autograd through A, B and flash_attention in bf16 on the card against
+# autograd through their plain versions in f32 on the card, same (bf16)
+# inputs: the relative RMS of each gradient (bf16 operands and outputs)
+GRAD_TOL = 2e-2
+# The training operating point (configs/train-avatars.yaml,
+# tools/profile_train.py): batch 8 of 57-frame 320 x 192 clips, latents
+# [8, 8, 6, 10, 128] = 480 tokens, 256 caption tokens of which 200 kept
+TRAIN_BATCH, TRAIN_GRID, TRAIN_TOKENS = 8, (8, 6, 10), 480
+TRAIN_ACCUM, TRAIN_STEPS = 2, 3
+
+
+def _bwd_case(g, b, lq, lk, kept=None, empty_row=False, bounded=False):
+    """bf16 head-major q, k, v, the output gradient, an optional keep-mask
+    (``kept`` keys of each sample; the last sample fully masked with
+    ``empty_row``) and the forward's O and lse from the kernel path."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    q, k = rms_rows(randn(b, HEADS, lq, HEAD_DIM)), rms_rows(randn(b, HEADS, lk, HEAD_DIM))
+    v, gout = randn(b, HEADS, lk, HEAD_DIM), randn(b, HEADS, lq, HEAD_DIM)
+    mask = None
+    if kept is not None:
+        mask = torch.ones(b, lk, device="cuda")
+        mask[:, kept:] = 0.0
+        if empty_row:
+            mask[-1] = 0.0
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, kv_mask=mask, bounded_logits=bounded,
+                                      with_lse=True)
+    return q, k, v, gout, mask, out, lse
+
+
+def _bwd_work(q, k, mask):
+    """(dkv operations, dq operations, dkv bytes, dq bytes) of the flash
+    backward: 4 (dkv) or 3 (dq) products of 2 * Lq * D per kept key and
+    head; each input read once and each gradient written once."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    kept = b * lk if mask is None else float((mask > 0.5).sum())
+    product = 2.0 * h * lq * d * kept
+    reads = (2 * b * h * lq * d + 2 * b * h * lk * d) * 2 + 2 * b * h * lq * 4 + (
+        0 if mask is None else b * lk * 4)
+    return 4 * product, 3 * product, reads + 2 * b * h * lk * d * 2, reads + b * h * lq * d * 2
+
+
+def check_flash_backward(peaks):
+    """Kernels flash_bwd_dkv and flash_bwd_dq against the plain version, bf16:
+    at the training shapes (self-attention [8, 32, 480, 64] with lse from
+    the whole-row kernel E; cross-attention 480 x 256 with 200 keys kept and
+    one sample fully masked), at 5376 tokens with lse from the max-free
+    kernel C and from the online kernel D, and ragged 477 x 250 with a
+    mask. Then times at the three main shapes: each kernel (CUDA events),
+    the whole plain backward, the backward of the library attention
+    (``scaled_dot_product_attention`` through ``torch.autograd.grad``,
+    minus its forward), and each kernel's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    scale = HEAD_DIM**-0.5
+    b = TRAIN_BATCH
+    cases = {
+        f"self {b}x{TRAIN_TOKENS}": _bwd_case(g, b, TRAIN_TOKENS, TRAIN_TOKENS),
+        f"cross {b}x{TRAIN_TOKENS}x{CAPTION}, masked row": _bwd_case(
+            g, b, TRAIN_TOKENS, CAPTION, kept=200, empty_row=True),
+        f"{LONG_TOKENS}, lse of C": _bwd_case(g, 1, LONG_TOKENS, LONG_TOKENS, bounded=True),
+        f"{LONG_TOKENS}, lse of D": _bwd_case(g, 1, LONG_TOKENS, LONG_TOKENS),
+        "ragged 2x477x250, masked": _bwd_case(g, 2, 477, 250, kept=190),
+    }
+    dkv_err = KernelErrors("flash_bwd_dkv", BWD_ULPS)
+    dq_err = KernelErrors("flash_bwd_dq", BWD_ULPS)
+    for label, (q, k, v, gout, mask, out, lse) in cases.items():
+        before = dict(fa.launch_counts)
+        dq, dk, dv = fa._flash_backward(q, k, v, mask, out, lse, gout, scale)
+        torch.cuda.synchronize()
+        if (fa.launch_counts["flash_bwd_dkv"] != before["flash_bwd_dkv"] + 1
+                or fa.launch_counts["flash_bwd_dq"] != before["flash_bwd_dq"] + 1):
+            fail(f"flash backward {label}: the kernels were not launched")
+        ref_dq, ref_dk, ref_dv = fa._flash_backward_plain(q, k, v, mask, out, lse, gout, scale)
+        dkv_err.add(f"{label}: dk", dk, ref_dk)
+        dkv_err.add(f"{label}: dv", dv, ref_dv)
+        dq_err.add(f"{label}: dq", dq, ref_dq)
+        if mask is not None and bool((mask[-1] == 0).all()) and not all(
+                bool((x[-1] == 0).all()) for x in (dq, dk, dv)):
+            fail(f"flash backward {label}: a fully masked sample has nonzero gradients")
+        del ref_dq, ref_dk, ref_dv
+    (dkv_e, dkv_tol), (dq_e, dq_tol) = dkv_err.check(), dq_err.check()
+
+    timed = {}
+    for label in (f"self {b}x{TRAIN_TOKENS}", f"cross {b}x{TRAIN_TOKENS}x{CAPTION}, "
+                  "masked row", f"{LONG_TOKENS}, lse of C"):
+        q, k, v, gout, mask, out, lse = cases[label]
+        delta = (gout.float() * out.float()).sum(-1)
+        dkv_ops, dq_ops, dkv_bytes, dq_bytes = _bwd_work(q, k, mask)
+        keep = None if mask is None else (mask > 0.5)[:, None, None, :]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+
+        fwd_ms = time_ms(lib_fwd)
+        timed[label] = {
+            "dkv_ms": time_ms(lambda: fa.flash_bwd_dkv(q, k, v, gout, lse, delta, mask,
+                                                       scale)),
+            "dq_ms": time_ms(lambda: fa.flash_bwd_dq(q, k, v, gout, lse, delta, mask,
+                                                     scale)),
+            "plain_ms": time_ms(lambda: fa._flash_backward_plain(
+                q, k, v, mask, out, lse, gout, scale), reps=2, batches=3),
+            "library_backward_ms": time_ms(lambda: torch.autograd.grad(
+                lib_fwd(), leaves, gout)) - fwd_ms,
+            "dkv_bound": bound(dkv_ops, dkv_bytes, peaks),
+            "dq_bound": bound(dq_ops, dq_bytes, peaks),
+            "dkv_flops": dkv_ops, "dq_flops": dq_ops,
+        }
+    main = timed[f"self {b}x{TRAIN_TOKENS}"]
+    rows = []
+    for name, err, tol, line in (("flash_bwd_dkv", dkv_e, dkv_tol, 996),
+                                 ("flash_bwd_dq", dq_e, dq_tol, 1058)):
+        short = name.split("_")[-1]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "avatar_tpu_torch/csrc/flash_backward.cu",
+                     "replaces": f"avatar_tpu/ops/flash_attention.py:{line}",
+                     "max_abs_err": err, "tol": tol, "ms": main[f"{short}_ms"],
+                     "plain_ms": main["plain_ms"], "bound_ms": main[f"{short}_bound"][0],
+                     "bound_by": main[f"{short}_bound"][1],
+                     "library_ms": main["library_backward_ms"],
+                     "shape": f"[{b}, {HEADS}, {TRAIN_TOKENS}, {HEAD_DIM}] self-attention",
+                     "plain_and_library_cover": "the whole backward (dq, dk, dv)"})
+    for short, err in (("dkv", dkv_err), ("dq", dq_err)):
+        emit({"phase": f"kernel_flash_bwd_{short}", "errors": err.errs,
+              "limits": err.tols, "ulps": BWD_ULPS,
+              "times": {label: {"ms": t[f"{short}_ms"], "plain_ms": t["plain_ms"],
+                                "library_backward_ms": t["library_backward_ms"],
+                                "bound_us": t[f"{short}_bound"][0] * 1e3,
+                                "bound_by": t[f"{short}_bound"][1],
+                                "flops": t[f"{short}_flops"]}
+                        for label, t in timed.items()}})
+    return rows
+
+
+def check_attention_gradients():
+    """Autograd through the three attention entries on the card, bf16,
+    against autograd through their plain versions in f32 on the card from
+    the same inputs: A and B at the training shapes (480 tokens, 256
+    caption keys, batch 8, one sample's caption fully masked), head-major
+    flash_attention at 2 x 1100 masked, bounded (C) and not (D). Each entry
+    must launch its forward kernel and the flash backward."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    scale = HEAD_DIM**-0.5
+    b = TRAIN_BATCH
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    rq, rk, rv, cos, sin = rope_inputs(g, b, TRAIN_TOKENS, TRAIN_GRID)
+    tq, tk, tv = (rms_rows(randn(b, TRAIN_TOKENS, WIDTH)), rms_rows(randn(b, CAPTION, WIDTH)),
+                  randn(b, CAPTION, WIDTH))
+    tmask = torch.ones(b, CAPTION, device="cuda")
+    tmask[:, 200:] = 0.0
+    tmask[-1] = 0.0
+    hq, hk, hv = (rms_rows(randn(2, HEADS, 1100, HEAD_DIM)),
+                  rms_rows(randn(2, HEADS, 1100, HEAD_DIM)), randn(2, HEADS, 1100, HEAD_DIM))
+    hmask = torch.ones(2, 1100, device="cuda")
+    hmask[1, 900:] = 0.0
+    cases = {
+        "rope_fused_attention": ((rq, rk, rv), lambda q, k, v: fa.rope_fused_attention(
+            q, k, v, cos, sin, HEADS, scale, True),
+            lambda q, k, v: fa._rope_attention_plain(q, k, v, cos, sin, HEADS, scale, True),
+            "rope_fused_attention"),
+        "fused_token_attention": ((tq, tk, tv), lambda q, k, v: fa.fused_token_attention(
+            q, k, v, tmask, HEADS, scale, True),
+            lambda q, k, v: fa._token_attention_plain(q, k, v, tmask, HEADS, scale, True),
+            "fused_token_attention"),
+    }
+    for bounded, mode in ((True, "bounded"), (False, "online")):
+        cases[f"flash_attention {mode}"] = (
+            (hq, hk, hv), lambda q, k, v, bd=bounded: fa.flash_attention(
+                q, k, v, kv_mask=hmask, scale=scale, bounded_logits=bd),
+            lambda q, k, v, m=mode: fa._flash_plain(q, k, v, hmask, scale, m)[0],
+            f"flash_{mode}")
+    results = {}
+    for label, (inputs, kernel, plain, forward) in cases.items():
+        gout = randn(*kernel(*inputs).shape)
+        before = dict(fa.launch_counts)
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        got = torch.autograd.grad(kernel(*leaves), leaves, gout)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+        if not (launched.get(forward) and launched.get("flash_bwd_dkv")
+                and launched.get("flash_bwd_dq")):
+            fail(f"gradient of {label}: launched {launched}")
+        leaves32 = [t.detach().float().requires_grad_() for t in inputs]
+        want = torch.autograd.grad(plain(*leaves32), leaves32, gout.float())
+        errs = [_rel_rms(a.float(), w) for a, w in zip(got, want)]
+        results[label] = {"rel_rms_dq_dk_dv": errs, "launched": launched}
+        if not all(math.isfinite(e) and e <= GRAD_TOL for e in errs):
+            fail(f"gradient of {label} disagrees with its plain version's: {errs}")
+    emit({"phase": "attention_gradients", "tol": GRAD_TOL, "results": results})
+
+
+# Tiny training runs: a DiT of 2 heads of 64 (so the CUDA kernels take it)
+# and 128 tokens (so the backwards take the flash route: 128 * 128 is the
+# route rule's threshold), 2 layers, 2 optimizer steps of 2 micro-batches
+TINY_TRAIN_DIT = dict(num_attention_heads=2, attention_head_dim=64, in_channels=16,
+                      out_channels=16, num_layers=2, cross_attention_dim=128,
+                      caption_channels=64)
+# The card's bf16 training against f32 on the CPU fed the same weights (the
+# bf16 values), t and noise, with t * 1000 rounded in the model as bf16
+# rounds it (the timestep embedding's input; see REFERENCE_TOL): the loss of
+# each step within TRAIN_LOSS_RTOL, and the change of the trainable tree over
+# the two steps within TRAIN_UPDATE_TOL relative RMS. Adam's first steps
+# are near sign(g) * lr, so elements whose gradient bf16 moves across 0
+# dominate the second: a CPU rehearsal of the same runs in bf16 read
+# 1e-4 / 1.3e-3 on the loss and 0.05 / 0.06 on the update (lora_audio /
+# full), 0.035 between its kernel path and its plain attention path.
+TRAIN_LOSS_RTOL = 5e-3
+TRAIN_UPDATE_TOL = 0.15
+
+
+def backward_recomputes(mode, layers):
+    """How many attention backwards (each one E forward, one F dkv and one
+    F dq) a micro-step runs: self- and cross-attention in every block,
+    except in "lora_audio" the first block's self-attention, whose inputs
+    depend on no trainable leaf (the LoRA targets attn2, and everything
+    before the first block is frozen), so autograd never reaches it."""
+    return 2 * layers - (mode == "lora_audio")
+
+
+def _tiny_train_setup():
+    import torch
+
+    from avatar_tpu_torch.models.dit import DiTConfig, init_dit
+    from avatar_tpu_torch.train.train import clamp_rf_timesteps
+
+    dcfg = DiTConfig(**TINY_TRAIN_DIT)
+    # bf16 values held in f32, so that both devices train the same model
+    params = _tree_to(_tree_to(init_dit(dcfg, 2, device="cpu"), "cpu", torch.bfloat16),
+                      "cpu", torch.float32)
+    g = torch.Generator().manual_seed(3)
+    accum, micro, frames, hw, ch, cap = TRAIN_ACCUM, 2, 2, 8, 16, 128
+    batch = {k: torch.randn(accum, micro, f, hw, hw, ch, generator=g)
+             for k, f in (("latents", frames), ("pose_latents", frames),
+                          ("ref_image_latents", 1))}
+    embeds = torch.randn(1, cap, TINY_TRAIN_DIT["caption_channels"], generator=g)
+    mask = torch.ones(1, cap)
+    mask[0, 100:] = 0.0
+    draws = [(clamp_rf_timesteps(torch.randn(accum * micro, generator=g), -0.5, 1.0,
+                                 0.005, 0.999).reshape(accum, micro),
+              torch.randn(accum, micro, frames * hw * hw, ch, generator=g))
+             for _ in range(2)]
+    return dcfg, params, batch, embeds, mask, draws
+
+
+def _tiny_train_config(mode):
+    from avatar_tpu_torch.core.config import TrainConfig
+
+    return TrainConfig(checkpoint_path="-", train_mode=mode, learning_rate=1e-3,
+                       lora_rank=8, lora_alpha=8, gradient_accumulation_steps=TRAIN_ACCUM,
+                       batch_size=2, rf_log_normal_mu=-0.5, rf_log_normal_sigma=1.0)
+
+
+def _tiny_train_run(setup, mode, device, dtype, impl="auto"):
+    """Two optimizer steps; returns (initial trainable, final trainable,
+    losses, launches), trees f32 on the CPU."""
+    import torch
+
+    from avatar_tpu_torch.models.dit import permute_dit_params_for_split_rope
+    from avatar_tpu_torch.train import train as tt
+
+    dcfg, params, batch, embeds, mask, draws = setup
+    cfg = _tiny_train_config(mode)
+    tr0 = tt.init_trainable(params, dcfg, cfg, torch.Generator().manual_seed(1))
+    split = mode == "lora_audio"
+    dit = _tree_to(params, device, dtype)
+    run = permute_dit_params_for_split_rope(dit, dcfg) if split else dit
+    opt = tt.make_optimizer(cfg)
+    tr = _tree_to(tr0, device, torch.float32)
+    state = opt.init(tr)
+    step = tt.make_train_step(dcfg, cfg, opt, attention_impl=impl, rope_split=split)
+    losses = []
+    reset_counts()
+    for t, noise in draws:
+        tr, state, metrics = step(tr, state, run, _tree_to(batch, device, torch.float32),
+                                  embeds.to(device), mask.to(device), t=t.to(device),
+                                  noise=noise.to(device))
+        losses.append(float(metrics["loss"]))
+    launches = {k: n for k, n in read_counts().items() if n}
+    return tr0, _tree_to(tr, "cpu", torch.float32), losses, launches
+
+
+def _update_rel_rms(tr0, a, b):
+    """RMS of the difference of two runs' changes to the trainable tree,
+    over the RMS of ``b``'s change."""
+    import torch
+
+    from avatar_tpu_torch.train.train import tree_leaves
+
+    da = torch.cat([(x - y).flatten() for x, y in zip(tree_leaves(a), tree_leaves(tr0))])
+    db = torch.cat([(x - y).flatten() for x, y in zip(tree_leaves(b), tree_leaves(tr0))])
+    return ((da - db).norm() / db.norm()).item()
+
+
+def check_reference_train():
+    """The tiny DiT trained 2 steps with accumulation 2 in "lora_audio"
+    (split RoPE: A, B) and "full" (B for both attentions) mode: bf16 on the
+    card through the kernels, against f32 on the CPU (plain versions, t
+    rounded as bf16 rounds it) and against bf16 on the card with
+    ``attention_impl="xla"`` (no kernel). Each kernel launched exactly as
+    often as the path calls it."""
+    from unittest import mock
+
+    import torch
+
+    from avatar_tpu_torch.train import train as tt
+
+    setup = _tiny_train_setup()
+    layers, micro_steps = TINY_TRAIN_DIT["num_layers"], 2 * TRAIN_ACCUM
+    per_micro = {"lora_audio": {"rope_fused_attention": layers,
+                                "fused_token_attention": layers},
+                 "full": {"fused_token_attention": 2 * layers}}
+    apply = tt.dit_apply
+
+    def rounded_t(params, cfg, hidden, coords, t, *a, **kw):
+        mult = cfg.timestep_scale_multiplier
+        return apply(params, cfg, hidden, coords,
+                     (t.to(torch.bfloat16) * mult).float() / mult, *a, **kw)
+
+    results, total = {}, {}
+    for mode in ("lora_audio", "full"):
+        with mock.patch.object(tt, "dit_apply", rounded_t):
+            tr0, cpu, cpu_losses, _ = _tiny_train_run(setup, mode, "cpu", torch.float32)
+        _, xla, xla_losses, none = _tiny_train_run(setup, mode, "cuda", torch.bfloat16, "xla")
+        _, card, losses, launches = _tiny_train_run(setup, mode, "cuda", torch.bfloat16)
+        expect = {k: n * micro_steps for k, n in per_micro[mode].items()}
+        for name in ("flash_single", "flash_bwd_dkv", "flash_bwd_dq"):
+            expect[name] = backward_recomputes(mode, layers) * micro_steps
+        res = {"losses": losses, "cpu_losses": cpu_losses, "xla_losses": xla_losses,
+               "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)),
+               "update_rel_rms": _update_rel_rms(tr0, card, cpu),
+               "update_rel_rms_vs_xla": _update_rel_rms(tr0, card, xla),
+               "launches": launches}
+        results[mode] = res
+        if none or launches != expect:
+            fail(f"reference_train/{mode}: launched {launches} (and {none} under 'xla'), "
+                 f"expected {expect}")
+        if not (res["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                and res["update_rel_rms"] <= TRAIN_UPDATE_TOL
+                and res["update_rel_rms_vs_xla"] <= TRAIN_UPDATE_TOL):
+            fail(f"reference_train/{mode}: the card disagrees with its references: {res}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    emit({"phase": "reference_train", "runs": results, "loss_rtol": TRAIN_LOSS_RTOL,
+          "update_tol": TRAIN_UPDATE_TOL})
+    return total
+
+
+def profile_train_step(step, args, step_s):
+    """Device time by kernel over one call of ``step`` (torch.profiler), and
+    the device's idle share of an unprofiled call of ``step_s`` seconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not kernels or busy_us <= 0:
+        return {"device_time": "not measured (profiler saw no device time)"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]
+    return {
+        "device_busy_ms": busy_us / 1e3, "unprofiled_ms": step_s * 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e3 / (step_s * 1e3),
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels_ms": {e.key[:90]: e.self_device_time_total / 1e3 for e in top},
+        "top_kernels_launches": {e.key[:90]: e.count for e in top},
+    }
+
+
+def run_train(pipe):
+    """The full-width 2B DiT trained in "lora_audio" mode (r 32 / alpha 32,
+    AdamW at lr 1e-4, split RoPE) on random latents at the training point:
+    batch 8, [8, 8, 6, 10, 128] latents (480 tokens), 256 caption tokens of
+    which 200 kept, 2 micro-batches per step, 3 optimizer steps, t and noise
+    drawn on the card. Checks finite losses, nonzero LoRA b after the first
+    step and the launches per micro-step (A and B once per block, E and
+    both F kernels once per attention backward: :func:`backward_recomputes`);
+    prints seconds per step, peak memory and a profile of one micro-step (a
+    step of one micro-batch)."""
+    import dataclasses
+
+    import torch
+
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.train import train as tt
+
+    dcfg = pipe.dit_cfg
+    cfg = TrainConfig(checkpoint_path="-", train_mode="lora_audio", learning_rate=1e-4,
+                      lora_rank=32, lora_alpha=32, batch_size=TRAIN_BATCH,
+                      gradient_accumulation_steps=TRAIN_ACCUM, rf_log_normal_mu=-0.5,
+                      rf_log_normal_sigma=1.0)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    f, h, w = TRAIN_GRID
+    batch = {k: torch.randn(TRAIN_ACCUM, TRAIN_BATCH, n, h, w, dcfg.in_channels,
+                            generator=g, device="cuda")
+             for k, n in (("latents", f), ("pose_latents", f), ("ref_image_latents", 1))}
+    embeds = torch.randn(1, CAPTION, dcfg.caption_channels, generator=g, device="cuda")
+    mask = torch.ones(1, CAPTION, device="cuda")
+    mask[0, 200:] = 0.0
+    trainable = tt.init_trainable(pipe.raw_dit_params, dcfg, cfg, g)
+    opt = tt.make_optimizer(cfg)
+    state = opt.init(trainable)
+    step = tt.make_train_step(dcfg, cfg, opt, rope_split=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        trainable, state, metrics = step(trainable, state, pipe.dit_params, batch, embeds,
+                                         mask, g)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        if i == 0 and not all(bool(blk["attn2"][n]["b"].abs().sum() > 0)
+                              for blk in trainable["lora"]["blocks"]
+                              for n in blk["attn2"]):
+            fail("train: a LoRA b is still zero after the first step")
+    launches = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    micro_steps = TRAIN_STEPS * TRAIN_ACCUM
+    backwards = backward_recomputes("lora_audio", LAYERS)
+    per_micro = {"rope_fused_attention": LAYERS, "fused_token_attention": LAYERS,
+                 "flash_single": backwards, "flash_bwd_dkv": backwards,
+                 "flash_bwd_dq": backwards}
+    for name, n in launches.items():
+        if n != per_micro.get(name, 0) * micro_steps:
+            fail(f"train: {name} launched {n} times in {micro_steps} micro-steps, "
+                 f"expected {per_micro.get(name, 0)} per micro-step")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: losses not finite: {losses}")
+    steady = statistics.mean(step_s[1:])
+    # one micro-step: a step of one micro-batch, timed, then profiled
+    one = tt.make_train_step(dcfg, dataclasses.replace(cfg, gradient_accumulation_steps=1),
+                             opt, rope_split=True)
+    micro_batch = {k: v[:1] for k, v in batch.items()}
+    args = (trainable, state, pipe.dit_params, micro_batch, embeds, mask, g)
+    one(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one(*args)
+    torch.cuda.synchronize()
+    micro_s = time.perf_counter() - t0
+    emit({"phase": "train", "mode": "lora_audio", "batch": TRAIN_BATCH,
+          "tokens": TRAIN_TOKENS, "caption": CAPTION, "accum": TRAIN_ACCUM,
+          "lora_rank": 32, "losses": losses, "step_s": step_s,
+          "s_per_optimizer_step": steady, "s_per_micro_step": steady / TRAIN_ACCUM,
+          "s_one_micro_batch_step": micro_s,
+          "samples_per_s": TRAIN_BATCH * TRAIN_ACCUM / steady,
+          "max_memory_allocated_gib": peak_gib, "launches": launches,
+          "launches_per_micro_step": {k: n / micro_steps for k, n in launches.items() if n},
+          "clock_max_clock_power_temperature_after": card_state()})
+    emit({"phase": "profile_train_micro_step", **profile_train_step(one, args, micro_s)})
+    return launches
+
+
+def check_train_cli():
+    """The port's ``train_loop`` on the tiny DiT in a temporary directory:
+    a checkpoint written by ``save_single_file_checkpoint``, four synthetic
+    .npy clips, batch 2, 2 epochs in bf16 on the card with validation;
+    checks the exports and the resume state, then a second call with 3
+    epochs resumes at the saved step and runs the third epoch only."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from avatar_tpu_torch.cli.train import train_loop
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.models.dit import DiTConfig, init_dit
+    from avatar_tpu_torch.train.checkpoints import TrainStateCheckpointer
+    from avatar_tpu_torch.utils.weight_import import save_single_file_checkpoint
+
+    dcfg = DiTConfig(**TINY_TRAIN_DIT)
+    rng = np.random.default_rng(8)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ckpt = root / "base.safetensors"
+        save_single_file_checkpoint(ckpt, init_dit(dcfg, 4, device="cpu",
+                                                   dtype=torch.bfloat16), dcfg)
+        enc, cond = root / "enc", root / "cond"
+        enc.mkdir()
+        cond.mkdir()
+        for i in range(4):
+            for d, stem, shape in ((enc, f"c{i}", (16, 2, 8, 8)), (cond, f"c{i}", (16, 2, 8, 8)),
+                                   (cond, f"c{i}_ref", (16, 8, 8))):
+                np.save(d / f"{stem}.npy", rng.standard_normal(shape).astype(np.float32))
+        out = root / "out"
+        cfg = TrainConfig(checkpoint_path=str(ckpt), condition_latents_dir=str(cond),
+                          encoder_latents_dir=str(enc), val_condition_latents_dir=str(cond),
+                          val_encoder_latents_dir=str(enc), output_dir=str(out),
+                          batch_size=2, num_epochs=2, learning_rate=1e-3, lora_rank=8,
+                          lora_alpha=8, precision="bf16", train_mode="lora_audio",
+                          log_every_n_steps=1, wandb_project=None,
+                          rf_log_normal_mu=-0.5, rf_log_normal_sigma=1.0)
+        reset_counts()
+        t0 = time.perf_counter()
+        train_loop(cfg, device="cuda")
+        state = TrainStateCheckpointer(out / "state")
+        first_step = state.latest_step()
+        exports = sorted(p.name for p in out.glob("*.safetensors"))
+        train_loop(dataclasses.replace(cfg, num_epochs=3), device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = {k: n for k, n in read_counts().items() if n}
+        second_step = state.latest_step()
+        logged = [json.loads(line)["step"] for line in
+                  (out / "metrics.jsonl").read_text().splitlines() if "train/loss" in line]
+        exports_after = sorted(p.name for p in out.glob("*.safetensors"))
+    res = {"exports_after_first_call": exports, "exports": exports_after,
+           "resume_step_after_first_call": first_step,
+           "resume_step_after_second_call": second_step, "logged_steps": logged,
+           "seconds": seconds, "launches": launches}
+    emit({"phase": "train_cli", **res})
+    if not (first_step == 4 and second_step == 6 and logged == [1, 2, 3, 4, 5, 6]
+            and len(exports) == 2 and len(exports_after) == 3):
+        fail(f"train_cli: expected steps 4 then 6, two exports then three: {res}")
+    if not {"rope_fused_attention", "fused_token_attention", "flash_bwd_dkv",
+            "flash_bwd_dq"} <= set(launches):
+        fail(f"train_cli: the training path did not launch the kernels: {launches}")
+    return launches
+
+
 def card_state() -> str:
     """SM clock, power draw and temperature as ``nvidia-smi`` reads them now:
     a card that throttles under a long load shows it here."""
@@ -1120,13 +1688,16 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     rows = [check_rope_kernel(peaks), check_token_kernel(peaks)] + [
-        check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS] + [
-        check_w8a8_kernel(peaks)] + check_row_quant_kernels(peaks)
+        check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS] + check_flash_backward(
+        peaks) + [check_w8a8_kernel(peaks)] + check_row_quant_kernels(peaks)
+    check_attention_gradients()
     # launches of each kernel on each driven path: the counts are set to 0
     # just before a path and read just after it
     by_path = {"reference": check_reference(),
                "reference_guided": check_reference_guided(),
-               "reference_w8a8": check_reference_w8a8()}
+               "reference_w8a8": check_reference_w8a8(),
+               "reference_train": check_reference_train(),
+               "train_cli": check_train_cli()}
     pipe, init_s = make_full_pipeline()
     emit({"phase": "init", "seconds": init_s})
     every = LAYERS * STEPS
@@ -1160,6 +1731,9 @@ def main() -> int:
     # a finding, not a gate: how far int8 moves the 2B latents from bf16's
     emit({"phase": "pipeline_long_w8a8_vs_bf16",
           "rel_rms": _rel_rms(w8a8_latents.float(), long_latents.float())})
+    del pipe_w8a8, w8a8_latents, long_latents
+    torch.cuda.empty_cache()
+    by_path["train"] = run_train(pipe)
     for row in rows:
         row["launches_by_path"] = {
             path: counts[row["name"]] for path, counts in by_path.items()

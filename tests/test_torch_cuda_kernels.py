@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (attention and int8) against their plain
-PyTorch versions, on the card. Marked ``cuda``; they skip where there is no CUDA device. Run
+"""The port's CUDA kernels (attention forward and backward, and int8)
+against their plain PyTorch versions, on the card, and autograd through the
+attention kernels. Marked ``cuda``; they skip where there is no CUDA device. Run
 them on a card with
 ``python -m pytest tests/test_torch_cuda_kernels.py --noconftest`` (the
 shared conftest imports JAX, which the card's machine need not have)."""
@@ -119,6 +120,84 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # head_dim 32
         q32 = q.reshape(1, 64, 2 * HEADS, HD // 2).transpose(1, 2)
         fa.flash_attention(q32, q32, q32)
+
+
+# ---------------------------------------------------------------------------
+# The flash backward (F) and the attention gradients
+# ---------------------------------------------------------------------------
+
+
+def _ulps_ok(out, ref, ulps=4):
+    """Within ``ulps`` bf16 ulps (2^-8 relative) of the largest reference
+    value: see chip_smoke.py's BWD_ULPS."""
+    ref = ref.float()
+    return (out.float() - ref).abs().max().item() <= ulps * 2.0**-8 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("lq,lk,masked", [(150, 150, False), (96, 77, True)])
+def test_flash_backward_kernels_match_plain(gen, lq, lk, masked):
+    """dK/dV and dQ against the plain version, from the forward kernel's
+    own O and lse; ragged lengths and, with the mask, a fully masked batch
+    row (zero gradients)."""
+    q, k = _rows(gen, 2, HEADS, lq, HD), _rows(gen, 2, HEADS, lk, HD)
+    v = torch.randn(2, HEADS, lk, HD, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(2, HEADS, lq, HD, generator=gen, device="cuda").bfloat16()
+    mask = None
+    if masked:
+        mask = torch.ones(2, lk, device="cuda")
+        mask[0, lk // 2:] = 0.0
+        mask[1] = 0.0
+    out, lse = fa.flash_attention(q, k, v, kv_mask=mask, with_lse=True)
+    before = dict(fa.launch_counts)
+    dq, dk, dv = fa._flash_backward(q, k, v, mask, out, lse, g, HD**-0.5)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert fa.launch_counts["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    ref = fa._flash_backward_plain(q, k, v, mask, out, lse, g, HD**-0.5)
+    for got, want in zip((dq, dk, dv), ref):
+        assert _ulps_ok(got, want)
+    if masked:
+        assert all(bool((x[1] == 0).all()) for x in (dq, dk, dv))
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def test_attention_gradients_on_the_card(gen):
+    """Autograd through A, B and flash_attention in bf16 on the card
+    against autograd through the same functions in f32 on the CPU (plain
+    versions): each entry's gradient flows, through its kernels."""
+    c, length, lk = HEADS * HD, 128, 128
+    q, k = _rows(gen, 2, length, c), _rows(gen, 2, length, c)
+    v, g = (torch.randn(2, length, c, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    ang = torch.rand(2, length, c // 2, generator=gen, device="cuda") * 6.3
+    cos, sin = ang.cos().bfloat16(), ang.sin().bfloat16()
+    mask = torch.ones(2, lk, device="cuda")
+    mask[1, 100:] = 0.0
+    cases = {
+        "rope_fused_attention": lambda q_, k_, v_, m: fa.rope_fused_attention(
+            q_, k_, v_, cos.to(q_.device, q_.dtype), sin.to(q_.device, q_.dtype),
+            HEADS, HD**-0.5, True),
+        "fused_token_attention": lambda q_, k_, v_, m: fa.fused_token_attention(
+            q_, k_, v_, m, HEADS, HD**-0.5, True),
+        "flash_attention": lambda q_, k_, v_, m: fa.flash_attention(
+            *(t.reshape(2, -1, HEADS, HD).transpose(1, 2) for t in (q_, k_, v_)),
+            kv_mask=m, bounded_logits=True).transpose(1, 2).reshape(2, -1, c),
+    }
+    for name, fn in cases.items():
+        grads = {}
+        before = dict(fa.launch_counts)
+        for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+            leaves = [t.to(device, dtype).requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves, mask.to(device))
+            grads[device] = torch.autograd.grad(out, leaves, g.to(device, dtype))
+        launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+        assert launched.get("flash_bwd_dkv") == 1 and launched.get("flash_bwd_dq") == 1, name
+        # bf16 operands and outputs against f32 throughout
+        for got, want in zip(grads["cuda"], grads["cpu"]):
+            assert _rel(got.cpu(), want) < 2e-2, name
 
 
 # ---------------------------------------------------------------------------

@@ -112,11 +112,12 @@ def test_launch_counts_untouched_on_cpu():
     q, k, v = _qkv(rng, 1, 8, 8, 128)
     tfa.reset_launch_counts()
     tfa.fused_token_attention(_t(q), _t(k), _t(v), None, 2, 0.125, True)
-    heads = [_t(a).reshape(1, 8, 2, 64).transpose(1, 2) for a in (q, k, v)]
-    tfa.flash_attention(*heads, bounded_logits=True)
+    heads = [_t(a).reshape(1, 8, 2, 64).transpose(1, 2).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*heads, bounded_logits=True)
+    torch.autograd.grad(out.sum(), heads)  # the flash backward's plain version
     assert set(tfa.launch_counts) == {
         "rope_fused_attention", "fused_token_attention", "flash_bounded",
-        "flash_online", "flash_single"}
+        "flash_online", "flash_single", "flash_bwd_dkv", "flash_bwd_dq"}
     assert not any(tfa.launch_counts.values())
 
 
