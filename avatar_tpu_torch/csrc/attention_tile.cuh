@@ -178,6 +178,29 @@ __device__ __forceinline__ void row_max_tile(Smem& sm, int warp, int lane,
   __syncwarp();
 }
 
+// O += P V for this warp's 16 query rows: the warp's bf16 p rows of sm.p
+// against the kv tile's v, into its f32 rows of sm.o.
+__device__ __forceinline__ void pv_accumulate(Smem& sm, int warp) {
+  const int row0 = warp * 16;
+  float* o_w = sm.o + row0 * kLdf;
+  const __nv_bfloat16* p_w = sm.p + row0 * kLdh;
+#pragma unroll
+  for (int j = 0; j < kHeadDim / 16; ++j) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::load_matrix_sync(acc, o_w + j * 16, kLdf, wmma::mem_row_major);
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+      wmma::load_matrix_sync(a, p_w + kk * 16, kLdh);
+      wmma::load_matrix_sync(b, sm.v + kk * 16 * kLdh + j * 16, kLdh);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(o_w + j * 16, acc, kLdf, wmma::mem_row_major);
+  }
+  __syncwarp();
+}
+
 // One kv tile for this warp's 16 query rows: S = Q K^T, softmax update,
 // O += P V. `m` and `l` are the running row max and row sum of the row
 // this lane shares with its neighbour lane (lanes 2r and 2r+1 own row r,
@@ -230,22 +253,7 @@ __device__ __forceinline__ void attend_tile(Smem& sm, int warp, int lane,
     for (int c = 0; c < kHeadDim / 2; ++c) orow[c] *= alpha;
   }
   __syncwarp();
-
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, o_w + j * 16, kLdf, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kTileK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, p_w + kk * 16, kLdh);
-      wmma::load_matrix_sync(b, sm.v + kk * 16 * kLdh + j * 16, kLdh);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(o_w + j * 16, acc, kLdf, wmma::mem_row_major);
-  }
-  __syncwarp();
+  pv_accumulate(sm, warp);
 }
 
 // Write O / l for this warp's rows as bf16 to out (row stride ld), head

@@ -64,6 +64,11 @@ def scaled_dot_product_attention(
     - "flash": the kernel path (``flash_attention``) at any shape;
     - "auto": the kernel path where ``supports()`` holds, else "xla".
 
+    On the kernel path a 4-D bias [B, 1, 1, Lk] becomes a keep-mask, a
+    dense [B, 1 or H, Lq, Lk] bias that ``dense_bias_supported`` takes runs
+    the dense-bias kernels (differentiable in the bias too), and any other
+    bias runs :func:`xla_attention`, as the JAX package routes them.
+
     The JAX package's "auto" takes the kernels only on a TPU backend. The
     port has no such test: "auto" means the same path on either device (on
     a CPU tensor the kernels' plain versions), so results do not depend on

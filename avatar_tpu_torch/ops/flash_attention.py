@@ -16,7 +16,11 @@ Head-major, [B, H, L, head_dim]:
   online-softmax ``_fwd_kernel`` and the whole-row ``_fwd_kernel_single``,
   each also returning the row log-sum-exp; its gradient runs the two
   kernels of ``_flash_backward`` (``csrc/flash_backward.cu``):
-  ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``.
+  ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``. With a dense additive bias
+  [B, 1|H, Lq, Lk] it runs the four kernels of the dense-bias path
+  (``csrc/flash_dense.cu``): ``_fwd_kernel_dense_bias``, and for the
+  gradient ``_bwd_dkv_kernel_bias``, ``_bwd_dq_kernel_bias`` and
+  ``_bwd_db_kernel`` (dBias summed over the heads that share a slab).
 
 On a CUDA tensor a wrapper launches its kernel (bf16, head_dim 64) or
 raises; on a CPU tensor it runs the plain PyTorch version beside it, which
@@ -27,14 +31,16 @@ logits) drops the softmax max pass: p = exp(min(s, 80)).
 Gradients follow the JAX package's custom VJPs. Where an input requires a
 gradient, each of the three attention entries runs as a
 ``torch.autograd.Function``, on either device: :func:`flash_attention`
-saves q, k, v, the mask, O and lse and its backward is the flash backward;
+saves q, k, v, the mask (or the dense bias), O and lse and its backward is
+the flash backward (the dense-bias backward);
 the token-major entries save their inputs and their backward recomputes
 the attention under autograd (:func:`_fused_recompute_fn`), RoPE first for
 :func:`rope_fused_attention`. Without a gradient the wrappers run their
 forward alone and save nothing.
 
-The predicates :func:`supports`, :func:`rope_fused_supports` and
-:func:`fused_supports` are the JAX package's. Their 6 MiB caps are sizes of
+The predicates :func:`supports`, :func:`rope_fused_supports`,
+:func:`fused_supports` and :func:`dense_bias_supported` are the JAX
+package's. Their 6 MiB caps are sizes of
 the TPU's fast memory, not semantics, but they decide which kernel the
 reference runs at which shape; the port keeps them so that each of its
 paths is held against the same path of the reference.
@@ -64,6 +70,8 @@ launch_counts: Dict[str, int] = {
     "rope_fused_attention": 0, "fused_token_attention": 0,
     "flash_bounded": 0, "flash_online": 0, "flash_single": 0,
     "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+    "flash_dense_forward": 0, "flash_dense_bwd_dkv": 0, "flash_dense_bwd_dq": 0,
+    "flash_dense_bwd_db": 0,
 }
 
 
@@ -109,6 +117,25 @@ def fused_supports(lq: int, lk: int, heads: int, head_dim: int, dtype) -> bool:
         and lq % sub == 0
         and lk % sub == 0
         and lq * lk * 4 <= 6 * 1024 * 1024
+    )
+
+
+def dense_bias_supported(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> bool:
+    """Whether :func:`flash_attention` takes this dense additive bias to
+    the dense-bias kernels: [B, 1 or H, Lq, Lk] over head-major q [B, H, Lq,
+    D] with ``D % 8 == 0``, ``D <= 512`` and ``Lq * Lk >= 128 * 128``."""
+    if bias.ndim != 4 or q.ndim != 4:
+        return False
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    return (
+        bias.shape[0] == b
+        and bias.shape[1] in (1, h)
+        and bias.shape[2] == lq
+        and bias.shape[3] == lk
+        and d % 8 == 0
+        and d <= 512
+        and lq * lk >= 128 * 128
     )
 
 
@@ -228,6 +255,52 @@ def _flash_backward_plain(q, k, v, kv_mask, out, lse, g, scale):
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _dense_logits(q, k, bias3, scale):
+    """s = fl(fl(q k^T) scale) + bias in f32, [B, H, Lq, Lk]; ``bias3`` is
+    the f32 [B or B*H, Lq, Lk] slab tensor."""
+    b, _, lq, _ = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    return s + bias3.reshape(b, -1, lq, k.shape[2])
+
+
+def _flash_dense_plain(q, k, v, bias3, scale):
+    """Plain version of ``_fwd_kernel_dense_bias``: (out [B, H, Lq, D],
+    lse [B, H, Lq] f32). The kernel keeps a running max from -1e30 over key
+    tiles; the whole-row max (floored at -1e30) gives the same sums up to
+    the rounding of p. Entries with s <= -5e29 get p = 0; p is rounded to
+    v's dtype for the PV product and summed in f32; a row with no entry left
+    returns 0 and lse = 1e30 (``xla_attention`` would return the mean of v)."""
+    s = _dense_logits(q, k, bias3, scale)
+    m = torch.clamp_min(s.amax(dim=-1, keepdim=True), NEG_INF)
+    p = torch.where(s > NEG_INF / 2, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    empty = l == 0.0
+    l_safe = torch.where(empty, torch.ones_like(l), l)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()) / l_safe
+    lse = torch.where(empty, torch.full_like(l, LSE_MASKED), m + torch.log(l_safe))
+    return out.to(q.dtype), lse[..., 0]
+
+
+def _flash_dense_backward_plain(q, k, v, bias3, out, lse, g, scale, with_db=True):
+    """Plain version of the dense-bias backward's three kernels: (dq, dk,
+    dv, dbias3 or None). p = exp(s - lse) regenerated with the bias, p
+    rounded to g's dtype for dV and dS = p (dP - delta) scale to q's (k's)
+    dtype for dK (dQ); dBias = p (dP - delta), no scale, summed in f32 over
+    the heads that share a slab, [Bb, Lq, Lk] f32."""
+    delta = (g.float() * out.float()).sum(-1)
+    p = torch.exp(_dense_logits(q, k, bias3, scale) - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).float(), g.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    dsr = p * (dp - delta[..., None])
+    ds = dsr * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+    db = None
+    if with_db:
+        db = dsr.reshape(bias3.shape[0], -1, *dsr.shape[2:]).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), db
 
 
 # ---------------------------------------------------------------------------
@@ -584,6 +657,142 @@ class _FlashFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def _check_dense_inputs(q, k, v, bias3, tensors=()):
+    """Shapes of the dense-bias kernels' operands; returns (b, heads, lq,
+    lk, heads_group)."""
+    b, heads, lq, d = q.shape
+    lk = k.shape[2]
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"CUDA attention kernels take head_dim {KERNEL_HEAD_DIM}; got {d}")
+    bb = bias3.shape[0]
+    if bb not in (b, b * heads):
+        raise ValueError(f"bias slabs {bb}: expected {b} or {b * heads}")
+    for name, t, n in (("q", q, lq), ("k", k, lk), ("v", v, lk)) + tuple(tensors):
+        _check_cuda(name, t, (b, heads, n, d))
+    _check_cuda("bias", bias3, (bb, lq, lk), dtype=torch.float32)
+    return b, heads, lq, lk, b * heads // bb
+
+
+def _flash_dense_forward(q, k, v, bias3, scale: float):
+    """(out, lse) of the dense-bias forward: kernel ``flash_dense_fwd_bf16``
+    on the card, its plain version on the CPU."""
+    if _wrapper_device(q) == "cpu":
+        return _flash_dense_plain(q, k, v, bias3, scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    b, heads, lq, lk, group = _check_dense_inputs(q, k, v, bias3)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, heads, lq), device=q.device, dtype=torch.float32)
+    fn = _c_entry("flash_dense", "flash_dense_fwd_bf16", 6, 5, bounded_flag=False)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias3.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), b, heads, lq, lk, group, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_dense_fwd_bf16")
+    launch_counts["flash_dense_forward"] += 1
+    return out, lse
+
+
+def _dense_backward_call(name, n_ptrs, q, k, v, g, lse, delta, bias3, outs, scale):
+    b, heads, lq, lk, group = _check_dense_inputs(q, k, v, bias3,
+                                                  (("g", g, q.shape[2]),))
+    for label, t in (("lse", lse), ("delta", delta)):
+        _check_cuda(label, t, (b, heads, lq), dtype=torch.float32)
+    fn = _c_entry("flash_dense", f"{name}_bf16", n_ptrs, 5, bounded_flag=False)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), bias3.data_ptr(), *(t.data_ptr() for t in outs),
+             b, heads, lq, lk, group, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, f"{name}_bf16")
+    launch_counts[name] += 1
+
+
+def flash_dense_bwd_dkv(q, k, v, g, lse, delta, bias3, scale: float):
+    """Kernel ``flash_dense_bwd_dkv_bf16`` (``_bwd_dkv_kernel_bias``): (dk,
+    dv) of head-major bf16 attention with the f32 bias slabs ``bias3``
+    [B or B*H, Lq, Lk], from contiguous q, k, v, the output gradient g, lse
+    and delta = rowsum(g * O) [B, H, Lq] f32. CUDA tensors only."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _dense_backward_call("flash_dense_bwd_dkv", 9, q, k, v, g, lse, delta, bias3,
+                         (dk, dv), scale)
+    return dk, dv
+
+
+def flash_dense_bwd_dq(q, k, v, g, lse, delta, bias3, scale: float):
+    """Kernel ``flash_dense_bwd_dq_bf16`` (``_bwd_dq_kernel_bias``): dq, with
+    the arguments of :func:`flash_dense_bwd_dkv`. CUDA tensors only."""
+    dq = torch.empty_like(q)
+    _dense_backward_call("flash_dense_bwd_dq", 8, q, k, v, g, lse, delta, bias3,
+                         (dq,), scale)
+    return dq
+
+
+def flash_dense_bwd_db(q, k, v, g, lse, delta, bias3, scale: float):
+    """Kernel ``flash_dense_bwd_db_bf16`` (``_bwd_db_kernel``): dBias
+    [B or B*H, Lq, Lk] f32, each slab summed over the heads that share it,
+    with the arguments of :func:`flash_dense_bwd_dkv`. CUDA tensors only."""
+    db = torch.empty_like(bias3)
+    _dense_backward_call("flash_dense_bwd_db", 8, q, k, v, g, lse, delta, bias3,
+                         (db,), scale)
+    return db
+
+
+def _flash_dense_backward(q, k, v, bias3, out, lse, g, scale: float, with_db: bool):
+    """(dq, dk, dv, dbias3 or None) of the dense-bias attention: the three
+    backward kernels on the card (dBias only ``with_db``), their plain
+    version on the CPU. delta = rowsum(g * O) in f32 is one PyTorch
+    reduction on either."""
+    if _wrapper_device(q) == "cpu":
+        return _flash_dense_backward_plain(q, k, v, bias3, out, lse, g, scale, with_db)
+    g = g.contiguous()
+    delta = (g.float() * out.float()).sum(-1)
+    dk, dv = flash_dense_bwd_dkv(q, k, v, g, lse, delta, bias3, scale)
+    dq = flash_dense_bwd_dq(q, k, v, g, lse, delta, bias3, scale)
+    db = flash_dense_bwd_db(q, k, v, g, lse, delta, bias3, scale) if with_db else None
+    return dq, dk, dv, db
+
+
+def _dense_bias3(bias: torch.Tensor) -> torch.Tensor:
+    """[B, 1 or H, Lq, Lk] -> contiguous f32 slabs [B or B*H, Lq, Lk]; an
+    expanded (stride-0) bias is copied, so the kernels read real memory."""
+    return bias.float().reshape(-1, *bias.shape[2:]).contiguous()
+
+
+class _FlashDenseFn(torch.autograd.Function):
+    """Kernel G with the gradient of ``_flash_dense``'s custom VJP: the
+    forward saves q, k, v, the f32 bias slabs, O and lse; the backward
+    returns dq, dk, dv and, where the bias requires it, dBias in the bias's
+    shape and dtype (autograd sums it over any broadcast that made the
+    bias). lse is returned without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        bias3 = _dense_bias3(bias)
+        out, lse = _flash_dense_forward(q, k, v, bias3, scale)
+        ctx.save_for_backward(q, k, v, bias3, out, lse)
+        ctx.scale, ctx.bias_shape, ctx.bias_dtype = scale, bias.shape, bias.dtype
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, bias3, out, lse = ctx.saved_tensors
+        dq, dk, dv, db = _flash_dense_backward(q, k, v, bias3, out, lse, g, ctx.scale,
+                                               with_db=ctx.needs_input_grad[3])
+        if db is not None:
+            db = db.to(ctx.bias_dtype).reshape(ctx.bias_shape)
+        return dq, dk, dv, db, None
+
+
+def _flash_dense(q, k, v, bias, scale: float):
+    """(out, lse) of attention with a dense bias that
+    :func:`dense_bias_supported` takes; differentiable in q, k, v and the
+    bias (:class:`_FlashDenseFn`)."""
+    if _needs_grad(q, k, v, bias):
+        return _FlashDenseFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                                   scale)
+    return _flash_dense_forward(q, k, v, _dense_bias3(bias), scale)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -596,25 +805,41 @@ def flash_attention(
 ):
     """Flash attention over head-major [B, H, L, D].
 
-    Takes a [B, Lk] keep-mask (``kv_mask``) or a per-key additive ``bias``
-    [B, 1, 1, Lk], which becomes a keep-mask (bias >= -1 keeps). A general
-    dense bias is the dense-bias kernel's work (``_fwd_kernel_dense_bias``),
-    which is not ported: it raises. ``bounded_logits``: the caller
-    guarantees logits far below the f32 exp limit (true after qk-norm), so
-    long sequences take the max-free kernel. ``with_lse`` also returns the
-    row log-sum-exp [B, H, Lq] f32 (1e30 for a row with no kept key).
-    Differentiable in q, k and v (:class:`_FlashFn`).
+    Takes a [B, Lk] keep-mask (``kv_mask``) or an additive ``bias`` (used
+    only without ``kv_mask``, as in the JAX package), routed as the JAX
+    package routes it:
+
+    - a per-key bias [B, 1, 1, Lk] becomes a keep-mask (bias >= -1 keeps)
+      for the keep-mask kernels;
+    - a dense bias that :func:`dense_bias_supported` takes ([B, 1 or H, Lq,
+      Lk], any float dtype) goes to the dense-bias kernels: entries at or
+      below -5e29 count as masked, a row with none left returns 0 (lse
+      1e30), and the bias gets a gradient;
+    - any other bias goes to ``xla_attention``, the JAX package's own rule
+      for the layouts its kernel does not take (no lse there).
+
+    ``bounded_logits``: the caller guarantees logits far below the f32 exp
+    limit (true after qk-norm), so long sequences take the max-free kernel
+    (the dense-bias path has one kernel and ignores it). ``with_lse`` also
+    returns the row log-sum-exp [B, H, Lq] f32 (1e30 for a row with no kept
+    key). Differentiable in q, k and v (:class:`_FlashFn`,
+    :class:`_FlashDenseFn`).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if bias is not None and kv_mask is None:
         if bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1:
             kv_mask = (bias[:, 0, 0, :] >= -1.0).to(torch.float32)
+        elif dense_bias_supported(q, k, bias):
+            out, lse = _flash_dense(q, k, v, bias, float(scale))
+            return (out, lse) if with_lse else out
         else:
-            raise NotImplementedError(
-                "flash_attention with a dense additive bias needs the "
-                "dense-bias kernel (_fwd_kernel_dense_bias), which is not "
-                "ported yet")
+            if with_lse:
+                raise ValueError("with_lse: this bias layout takes xla_attention, "
+                                 "which returns no lse")
+            from avatar_tpu_torch.ops.attention import xla_attention
+
+            return xla_attention(q, k, v, bias, scale)
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.float32).contiguous()
     args = (float(scale), bool(bounded_logits))

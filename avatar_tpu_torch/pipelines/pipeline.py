@@ -1,20 +1,22 @@
 """Avatar video generation pipeline (port of
 ``avatar_tpu/pipelines/pipeline.py``).
 
-VAE-encode the reference image and pose frames, draw the initial noise,
-precompute the RoPE tables, the caption k/v and the AdaLN tables once, run
-the denoising walk over ``dit_apply`` with the avatar lerp, then decode
-with decode-time noise and timestep conditioning. The walk takes
-classifier-free guidance (with ``cfg_star_rescale``), STG with the std
-rescale, per-step guidance lists, the Euler or Heun solver, stochastic
-sampling and skipped final steps. Still missing, and raising
-``NotImplementedError``: conditioning items, ``media_items``/``latents``
-inputs, ``skip_initial_inference_steps`` and ``image_cond_noise_scale``.
+VAE-encode the reference image and pose frames, draw the initial noise
+(or noise ``latents`` / encoded ``media_items`` to the first timestep),
+place the conditioning items, precompute the RoPE tables, the caption k/v
+and (without conditioning items) the AdaLN tables once, run the denoising
+walk over ``dit_apply`` with the avatar lerp, then decode with decode-time
+noise and timestep conditioning. The walk takes classifier-free guidance
+(with ``cfg_star_rescale``), STG with the std rescale, per-step guidance
+lists, the Euler or Heun solver, stochastic sampling, skipped initial and
+final steps, and the conditioning items' per-token timesteps
+``min(t, 1 - mask)`` with ``image_cond_noise_scale``.
 
 ``torch`` cannot reproduce ``jax.random``: every random draw comes from the
 caller's ``torch.Generator`` unless it is handed in as a tensor
-(``ref_noise``, ``pose_noise``, ``init_noise``, ``step_noise``,
-``decode_noise``).
+(``ref_noise``, ``pose_noise``, ``media_noise``, ``init_noise``,
+``item_noise`` and ``prefix_noise`` per conditioning item,
+``image_cond_noise`` and ``step_noise`` per step, ``decode_noise``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from avatar_tpu_torch.diffusion.rf import RectifiedFlowSchedule, rf_step
 from avatar_tpu_torch.models.dit import (
@@ -49,6 +52,24 @@ from avatar_tpu_torch.ops.rope import (
 from avatar_tpu_torch.utils.quantize import quantize_dit_params
 
 OUTPUT_TYPES = ("latent", "np", "uint8", "yuv420")
+T_EPS = 1e-6
+
+
+@dataclass
+class ConditioningItem:
+    """A frame or sequence conditioning item (same fields as the JAX
+    package's). ``media_item``: [B, F, H, W, 3] channels-last pixels in
+    [-1, 1], F = 8k + 1. At ``media_frame_number`` 0 its latents replace the
+    first latent frames (at ``media_x``/``media_y`` in pixels, else
+    centred); elsewhere its first two latent frames ride along as extra
+    tokens and the rest replace the frames from ``media_frame_number`` on.
+    ``conditioning_strength`` 1 pins them; below 1 they are a lerp."""
+
+    media_item: torch.Tensor
+    media_frame_number: int = 0
+    conditioning_strength: float = 1.0
+    media_x: Optional[int] = None
+    media_y: Optional[int] = None
 
 
 @dataclass
@@ -81,16 +102,6 @@ class GenerationParams:
     solver: str = "euler"
 
 
-def _check_ported(p: GenerationParams, **inputs) -> None:
-    unported = [f"{name} input" for name, val in inputs.items() if val is not None]
-    if p.skip_initial_inference_steps:
-        unported.append("skip_initial_inference_steps (needs media_items or latents)")
-    if p.image_cond_noise_scale > 0.0:
-        unported.append("image_cond_noise_scale > 0 (needs conditioning items)")
-    if unported:
-        raise NotImplementedError("not ported yet: " + ", ".join(unported))
-
-
 def _guidance_mapping(timesteps: np.ndarray,
                       guidance_timesteps: Sequence[float]) -> List[int]:
     """Index of the guidance entry that applies at each schedule step: the
@@ -116,6 +127,26 @@ def _as_step_array(value, timesteps: np.ndarray,
 
 def _tile(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
     return x if x is None or n == 1 else torch.cat([x] * n)
+
+
+def _per_item(noise, n: int) -> list:
+    """A per-item list of optional noise tensors (None: draw each)."""
+    if noise is None:
+        return [None] * n
+    if len(noise) != n:
+        raise ValueError(f"{len(noise)} noise tensors for {n} conditioning items")
+    return list(noise)
+
+
+def resize_media(media: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear resize of [B, F, H, W, C] frames to (height, width), with
+    the antialiasing filter when shrinking, as ``jax.image.resize(...,
+    "bilinear")`` computes it."""
+    b, f, h, w, c = media.shape
+    x = media.reshape(b * f, h, w, c).permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return x.permute(0, 2, 3, 1).reshape(b, f, height, width, c)
 
 
 def _flat_f32(x: torch.Tensor) -> torch.Tensor:
@@ -175,7 +206,9 @@ class LTXVideoPipeline:
     not ported and raises;
     ``scan_blocks`` keeps the transformer blocks stacked on a leading
     layer axis, the layout the JAX package scans over (here walked by the
-    same Python loop, slice by slice)."""
+    same Python loop, slice by slice); ``allowed_inference_steps``, if
+    given, lists the only timesteps (rounded to 4 decimals) a run may
+    visit."""
 
     def __init__(
         self,
@@ -190,9 +223,11 @@ class LTXVideoPipeline:
         quantize_vae: Union[bool, str] = False,
         rope_split: bool = True,
         scan_blocks: bool = False,
+        allowed_inference_steps: Optional[List[float]] = None,
         device="cuda",
     ):
         self.device = torch.device(device)
+        self.allowed_inference_steps = allowed_inference_steps
         self.dit_cfg = dit_cfg
         self.attention_impl = attention_impl
         self.rope_split = rope_split
@@ -234,31 +269,154 @@ class LTXVideoPipeline:
                           per_channel_normalize=per_channel_normalize)
 
     def prepare_latents(self, generator, latent_shape, dtype,
-                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Initial noise [B, F, H, W, C]. Each sample draws from its own
-        generator seeded from ``generator``, so sample i's noise does not
-        depend on the batch size."""
+                        noise: Optional[torch.Tensor] = None,
+                        latents: Optional[torch.Tensor] = None,
+                        media_items: Optional[torch.Tensor] = None,
+                        timestep: float = 1.0, per_channel_normalize: bool = True,
+                        media_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Initial latents [B, F, H, W, C]: noise, or ``latents`` (or the
+        encoded ``media_items``, with ``media_noise`` as the encoder's draw)
+        noised to ``timestep``: t * noise + (1 - t) * latents. The noise is
+        ``noise`` or drawn per sample from a generator seeded from
+        ``generator``, so sample i's noise does not depend on the batch
+        size."""
+        if latents is not None and media_items is not None:
+            raise ValueError("give latents or media_items, not both")
+        if media_items is not None:
+            latents = self.encode_media(media_items.to(dtype), generator, media_noise,
+                                        per_channel_normalize)
         if noise is not None:
             if tuple(noise.shape) != tuple(latent_shape):
                 raise ValueError(f"init noise {tuple(noise.shape)} != {latent_shape}")
-            return noise.to(self.device, dtype)
-        seeds = torch.randint(0, 2**62, (latent_shape[0],), generator=generator,
-                              device=generator.device).tolist()
-        out = []
-        for seed in seeds:
-            g = torch.Generator(device=self.device)
-            g.manual_seed(seed)
-            out.append(torch.randn(latent_shape[1:], generator=g,
-                                   device=self.device, dtype=torch.float32))
-        return torch.stack(out).to(dtype)
+            noise = noise.to(self.device, dtype)
+        else:
+            seeds = torch.randint(0, 2**62, (latent_shape[0],), generator=generator,
+                                  device=generator.device).tolist()
+            out = []
+            for seed in seeds:
+                g = torch.Generator(device=self.device)
+                g.manual_seed(seed)
+                out.append(torch.randn(latent_shape[1:], generator=g,
+                                       device=self.device, dtype=torch.float32))
+            noise = torch.stack(out).to(dtype)
+        if latents is None:
+            return noise
+        if tuple(latents.shape) != tuple(latent_shape):
+            raise ValueError(f"latents {tuple(latents.shape)} != {latent_shape}")
+        return timestep * noise + (1 - timestep) * latents.to(self.device, dtype)
 
-    def prepare_conditioning(self, init_latents: torch.Tensor):
-        """No-conditioning-items branch: (tokens [B,N,C], pixel coords
-        [B,3,N])."""
-        tokens, coords = patchify(init_latents, self.patch_size)
+    def prepare_conditioning(self, conditioning_items: Optional[Sequence["ConditioningItem"]],
+                             init_latents: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             per_channel_normalize: bool = True,
+                             item_noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                             prefix_noise: Optional[Sequence[Optional[torch.Tensor]]] = None):
+        """(tokens [B, N, C], pixel coords [B, 3, N], conditioning mask
+        [B, N] f32 or None, number of extra prefix tokens).
+
+        Each item is resized to the frame size (unless it is placed at
+        ``media_x``/``media_y``) and VAE-encoded (``item_noise[i]``: the
+        encoder's draw). A first-frame item lerps its latents into the
+        first latent frames, centred or at its offset, after stripping the
+        latent border rows and columns that do not meet the frame's border;
+        its region of the mask gets its strength. A later item lerps its
+        frames after the first two into the frames from its frame number
+        on, and its first two latent frames, lerped from noise
+        (``prefix_noise[i]``) by its strength, go first as extra tokens
+        whose time coordinate is shifted by its frame number.
+        """
+        b, f_l, h_l, w_l, _ = init_latents.shape
         scale_factors = (self.video_scale_factor, self.vae_scale_factor,
                          self.vae_scale_factor)
-        return tokens, latent_to_pixel_coords(coords, scale_factors)
+        if not conditioning_items:
+            tokens, coords = patchify(init_latents, self.patch_size)
+            return tokens, latent_to_pixel_coords(coords, scale_factors), None, 0
+        item_noise = _per_item(item_noise, len(conditioning_items))
+        prefix_noise = _per_item(prefix_noise, len(conditioning_items))
+        dev, dtype = init_latents.device, init_latents.dtype
+        init_latents = init_latents.clone()
+        init_mask = torch.zeros((b, f_l, h_l, w_l), dtype=torch.float32, device=dev)
+        extra_tokens, extra_coords, extra_masks = [], [], []
+        scale = self.vae_scale_factor
+        height, width = h_l * scale, w_l * scale
+        for item, enc_noise, pre_noise in zip(conditioning_items, item_noise, prefix_noise):
+            if not isinstance(item, ConditioningItem):
+                raise TypeError(f"conditioning_items takes ConditioningItem, got {type(item)}")
+            media = item.media_item.to(dev)
+            frame_no, strength = item.media_frame_number, item.conditioning_strength
+            has_position = item.media_x is not None or item.media_y is not None
+            if not has_position and tuple(media.shape[2:4]) != (height, width):
+                media = resize_media(media.float(), height, width)
+            if media.ndim != 5 or media.shape[1] % 8 != 1:
+                raise ValueError(f"conditioning media {tuple(media.shape)}: expected "
+                                 "[B, 8k + 1, H, W, 3]")
+            lat = self.encode_media(media.to(dtype), generator, enc_noise,
+                                    per_channel_normalize).to(dtype)
+            if frame_no == 0:
+                h_m, w_m = media.shape[2:4]
+                if h_m > height or w_m > width or h_m % scale or w_m % scale:
+                    raise ValueError(f"conditioning media {h_m}x{w_m} must fit "
+                                     f"{height}x{width} in multiples of {scale}")
+                x_start = (width - w_m) // 2 if item.media_x is None else item.media_x
+                y_start = (height - h_m) // 2 if item.media_y is None else item.media_y
+                x_end, y_end = x_start + w_m, y_start + h_m
+                if x_end > width or y_end > height:
+                    raise ValueError(f"conditioning {x_start}:{x_end}x{y_start}:{y_end} "
+                                     f"out of bounds for {width}x{height}")
+                # strip the latent border that does not meet the frame's border
+                if x_start > 0:
+                    x_start += scale
+                    lat = lat[:, :, :, 1:]
+                if y_start > 0:
+                    y_start += scale
+                    lat = lat[:, :, 1:]
+                if x_end < width:
+                    lat = lat[:, :, :, :-1]
+                if y_end < height:
+                    lat = lat[:, :, :-1]
+                l_x, l_y = x_start // scale, y_start // scale
+                fl, hl_m, wl_m = lat.shape[1:4]
+                region = (slice(None), slice(0, fl), slice(l_y, l_y + hl_m),
+                          slice(l_x, l_x + wl_m))
+                init_latents[region] = init_latents[region] + strength * (
+                    lat - init_latents[region])
+                init_mask[region] = strength
+                continue
+            # a later sequence: lerp the frames after its two-frame prefix in
+            # place, pass the prefix on as extra tokens
+            if lat.shape[1] > 1:
+                f_prefix = 2
+                if frame_no % self.video_scale_factor:
+                    raise ValueError(f"media_frame_number {frame_no} is not a multiple "
+                                     f"of {self.video_scale_factor}")
+                start = frame_no // self.video_scale_factor + f_prefix
+                end = start + lat.shape[1] - f_prefix
+                if lat.shape[1] > f_prefix:
+                    init_latents[:, start:end] = init_latents[:, start:end] + strength * (
+                        lat[:, f_prefix:] - init_latents[:, start:end])
+                    init_mask[:, start:end] = strength
+                lat = lat[:, :f_prefix]
+            if pre_noise is None:
+                pre_noise = torch.randn(lat.shape, generator=generator, device=dev,
+                                        dtype=torch.float32)
+            pre_noise = pre_noise.to(dev, dtype)
+            lat = pre_noise + strength * (lat - pre_noise)
+            tok, coords = patchify(lat, self.patch_size)
+            pix = latent_to_pixel_coords(coords, scale_factors)
+            pix[:, 0] += frame_no
+            extra_tokens.append(tok)
+            extra_coords.append(pix)
+            extra_masks.append(torch.full(tok.shape[:2], strength, dtype=torch.float32,
+                                          device=dev))
+        tokens, coords = patchify(init_latents, self.patch_size)
+        pixel_coords = latent_to_pixel_coords(coords, scale_factors)
+        mask = patchify(init_mask[..., None], self.patch_size)[0][..., 0]
+        num_extra = sum(t.shape[1] for t in extra_tokens)
+        if extra_tokens:
+            tokens = torch.cat(extra_tokens + [tokens], dim=1)
+            pixel_coords = torch.cat(extra_coords + [pixel_coords], dim=2)
+            mask = torch.cat(extra_masks + [mask], dim=1)
+        return tokens, pixel_coords, mask, num_extra
 
     def denoise(self, tokens, fractional_coords, prompt_embeds, prompt_mask,
                 sigmas: torch.Tensor, ref_lat, pose_lat, *,
@@ -270,7 +428,10 @@ class LTXVideoPipeline:
                 skip_layer_strategy: Optional[SkipLayerStrategy] = None,
                 solver: str = "euler", stochastic: bool = False,
                 generator: Optional[torch.Generator] = None,
-                step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                step_noise: Optional[torch.Tensor] = None,
+                cond_mask: Optional[torch.Tensor] = None,
+                image_cond_noise_scale: float = 0.0,
+                image_cond_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The denoising walk over ``sigmas`` (f32, on the device).
 
         ``tokens`` [B, N, C]; ``fractional_coords``, ``prompt_embeds`` and
@@ -282,6 +443,14 @@ class LTXVideoPipeline:
         except at the last, which is plain Euler. Stochastic sampling
         takes step i's noise from ``step_noise[i]`` or draws it from
         ``generator``.
+
+        ``cond_mask`` [B, N] (conditioning items): each token runs at its
+        own timestep min(t, 1 - mask), computed in f32 inside the model (no
+        AdaLN tables), and keeps its value wherever t - 1e-6 is not below
+        1 - mask. With ``image_cond_noise_scale`` > 0 the fully conditioned
+        tokens (mask > 1 - 1e-6) restart each step from ``tokens`` plus
+        scale * t^2 times fresh noise (``image_cond_noise[i]`` or a draw
+        from ``generator``).
         """
         cfg, params = self.dit_cfg, self.dit_params
         dtype = tokens.dtype
@@ -308,10 +477,20 @@ class LTXVideoPipeline:
         cross_kv, _ = precompute_cross_attention_kv(params, cfg, prompt_embeds,
                                                     dtype=dtype)
         sigmas_ext = torch.cat([sigmas, sigmas.new_zeros(1)])
-        ada_table, emb_table = precompute_timestep_tables(
-            params, cfg, sigmas_ext, prompt_embeds.shape[0], dtype=dtype)
+        if cond_mask is None:
+            ada_table, emb_table = precompute_timestep_tables(
+                params, cfg, sigmas_ext, prompt_embeds.shape[0], dtype=dtype)
+        else:
+            cond_mask = cond_mask.to(self.device, torch.float32)
+            free_t = 1.0 - cond_mask
         mask = prompt_mask.to(torch.float32).contiguous()
         ref_b, pose_b = _tile(ref_lat, num_conds), _tile(pose_lat, num_conds)
+
+        def token_t(level):
+            """The timestep rf_step and the model see at ``sigmas_ext[level]``:
+            the level, or per token min(level, 1 - cond_mask)."""
+            t = sigmas_ext[level]
+            return t if cond_mask is None else torch.minimum(t, free_t)
 
         def guided_velocity(lat, i, level):
             """The guided velocity at noise level ``sigmas_ext[level]`` with
@@ -322,12 +501,15 @@ class LTXVideoPipeline:
             step_mask = skip_layer_mask
             if step_mask is not None and step_mask.ndim == 3:
                 step_mask = step_mask[i]
+            if cond_mask is None:
+                timing = dict(timestep_tables=(ada_table[level], emb_table[level]))
+            else:
+                timing = dict(timestep=_tile(token_t(level), num_conds))
             pred = dit_apply(
                 params, cfg, latent_in, encoder_attention_mask=mask,
                 skip_layer_mask=step_mask, skip_layer_strategy=skip_layer_strategy,
                 attention_impl=self.attention_impl, freqs_cis=freqs,
-                rope_split=self.rope_split, cross_kv=cross_kv,
-                timestep_tables=(ada_table[level], emb_table[level]),
+                rope_split=self.rope_split, cross_kv=cross_kv, **timing,
             ).to(dtype)
             if num_conds == 1:
                 return pred
@@ -336,19 +518,44 @@ class LTXVideoPipeline:
             return combine_guidance(pred.chunk(num_conds), do_cfg, do_stg, g_dev[i],
                                     sg_dev[i], rs, cfg_star)
 
+        def pin(new, old, t):
+            """Tokens whose 1 - mask is not above t - 1e-6 keep ``old``."""
+            if cond_mask is None:
+                return new
+            return torch.where((t - T_EPS < free_t)[..., None], new, old)
+
+        noisy_cond = cond_mask is not None and image_cond_noise_scale > 0.0
+        if noisy_cond:
+            pinned = (cond_mask > 1.0 - T_EPS)[..., None]
+            if image_cond_noise is not None and (
+                    tuple(image_cond_noise.shape) != (steps, *tokens.shape)):
+                raise ValueError(
+                    f"image_cond_noise {tuple(image_cond_noise.shape)}: one draw of "
+                    f"{tuple(tokens.shape)} per step for image_cond_noise_scale > 0")
         latents = tokens
         for i in range(steps):
+            t = sigmas[i]
+            if noisy_cond:
+                if image_cond_noise is None:
+                    noise = torch.randn(latents.shape, generator=generator,
+                                        device=self.device, dtype=torch.float32)
+                else:
+                    noise = image_cond_noise[i]
+                noise_scale = (image_cond_noise_scale * t**2).to(dtype)
+                latents = torch.where(pinned, tokens + noise_scale * noise.to(dtype),
+                                      latents)
             pred = guided_velocity(latents, i, i)
+            t_tok = token_t(i)
             if solver == "heun" and i + 1 < steps:
                 # Euler predictor to the next level, then the trapezoidal
                 # corrector; rf_step is linear in the velocity, so the Heun
                 # update is rf_step on the averaged velocity
-                predicted = rf_step(sigmas, pred, sigmas[i], latents)
+                predicted = pin(rf_step(sigmas, pred, t_tok, latents), latents, t)
                 pred = 0.5 * (pred + guided_velocity(predicted, i, i + 1))
-            latents = rf_step(
-                sigmas, pred, sigmas[i], latents, stochastic_sampling=stochastic,
+            latents = pin(rf_step(
+                sigmas, pred, t_tok, latents, stochastic_sampling=stochastic,
                 generator=generator,
-                noise=None if step_noise is None else step_noise[i])
+                noise=None if step_noise is None else step_noise[i]), latents, t)
         return latents
 
     def decode_latents(self, latents, p: GenerationParams, generator=None,
@@ -395,9 +602,9 @@ class LTXVideoPipeline:
         prompt_attention_mask: torch.Tensor,  # [B, L]
         negative_prompt_embeds: Optional[torch.Tensor] = None,
         negative_prompt_attention_mask: Optional[torch.Tensor] = None,
-        latents: Optional[torch.Tensor] = None,
-        media_items: Optional[torch.Tensor] = None,
-        conditioning_items: Optional[list] = None,
+        latents: Optional[torch.Tensor] = None,  # [B, F', H', W', C]
+        media_items: Optional[torch.Tensor] = None,  # [B, F, H, W, 3]
+        conditioning_items: Optional[Sequence[ConditioningItem]] = None,
         ref_image: Optional[torch.Tensor] = None,  # [B, 1, H, W, 3]
         pose_frames: Optional[torch.Tensor] = None,  # [B, F, H, W, 3]
         ref_latents: Optional[torch.Tensor] = None,  # [B, 1, h, w, C]
@@ -406,7 +613,11 @@ class LTXVideoPipeline:
         dtype: torch.dtype = torch.bfloat16,
         ref_noise: Optional[torch.Tensor] = None,
         pose_noise: Optional[torch.Tensor] = None,
+        media_noise: Optional[torch.Tensor] = None,
         init_noise: Optional[torch.Tensor] = None,
+        item_noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        prefix_noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        image_cond_noise: Optional[torch.Tensor] = None,  # [steps, B, N, C]
         step_noise: Optional[torch.Tensor] = None,  # [steps, B, N, C]
         decode_noise: Optional[torch.Tensor] = None,
         stage_times: Optional[Dict[str, float]] = None,
@@ -415,12 +626,13 @@ class LTXVideoPipeline:
         [B, F', H', W', C]), "np" (float frames [B, F, H, W, 3] in [0, 1]),
         "uint8" or "yuv420" (I420 planes [B, F, H*3/2, W]); all returned as
         tensors on the device. Absent negative prompt embeds are zeros with
-        an all-zero mask. ``stage_times``, if given, receives the seconds
-        of the encode, denoise and decode stages (each ends in a device
+        an all-zero mask. ``latents`` or ``media_items`` (pixels in [-1, 1])
+        start the walk from those latents noised to its first timestep,
+        which ``skip_initial_inference_steps`` moves later; neither may come
+        with the other. ``stage_times``, if given, receives the seconds of
+        the encode, denoise and decode stages (each ends in a device
         synchronize)."""
         p = params
-        _check_ported(p, latents=latents, media_items=media_items,
-                      conditioning_items=conditioning_items or None)
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f"output_type must be one of {OUTPUT_TYPES}")
         if p.solver not in ("euler", "heun"):
@@ -452,8 +664,14 @@ class LTXVideoPipeline:
             samples_shape=(b, self.dit_cfg.in_channels, lat_f, lat_h, lat_w),
         )
         timesteps = np.asarray(sched.sigmas)
-        if p.skip_final_inference_steps:
-            timesteps = timesteps[:len(timesteps) - p.skip_final_inference_steps]
+        if p.skip_initial_inference_steps and latents is None and media_items is None:
+            raise ValueError("skip_initial_inference_steps requires media_items or latents")
+        timesteps = timesteps[p.skip_initial_inference_steps:
+                              len(timesteps) - p.skip_final_inference_steps]
+        if self.allowed_inference_steps is not None:
+            for t in np.round(timesteps, 4):
+                if t not in self.allowed_inference_steps:
+                    raise ValueError(f"Invalid inference timestep {t}")
         sigmas = torch.tensor(timesteps, dtype=torch.float32, device=dev)
 
         guidance = _as_step_array(p.guidance_scale, timesteps, p.guidance_timesteps)
@@ -492,8 +710,12 @@ class LTXVideoPipeline:
             raise ValueError("the avatar lerp needs both ref and pose latents")
         t0 = mark("encode_s", t0)
 
-        init = self.prepare_latents(generator, latent_shape, dtype, init_noise)
-        tokens, pixel_coords = self.prepare_conditioning(init)
+        init = self.prepare_latents(
+            generator, latent_shape, dtype, init_noise, latents=latents,
+            media_items=media_items, timestep=float(timesteps[0]),
+            per_channel_normalize=pcn, media_noise=media_noise)
+        tokens, pixel_coords, cond_mask, num_cond_latents = self.prepare_conditioning(
+            conditioning_items, init, generator, pcn, item_noise, prefix_noise)
         fractional = pixel_coords.float()
         fractional[:, 0] *= 1.0 / p.frame_rate
 
@@ -521,13 +743,19 @@ class LTXVideoPipeline:
 
         if step_noise is not None:
             step_noise = step_noise.to(dev, dtype)
+        if image_cond_noise is not None:
+            image_cond_noise = image_cond_noise.to(dev, dtype)
         final_tokens = self.denoise(
             tokens, _tile(fractional, num_conds), prompt_embeds_b, prompt_mask_b,
             sigmas, ref_lat, pose_lat, guidance=guidance, stg=stg, rescale=rescale,
             cfg_star=p.cfg_star_rescale, skip_layer_mask=skip_layer_mask,
             skip_layer_strategy=p.skip_layer_strategy, solver=p.solver,
             stochastic=p.stochastic_sampling, generator=generator,
-            step_noise=step_noise)
+            step_noise=step_noise, cond_mask=cond_mask,
+            image_cond_noise_scale=p.image_cond_noise_scale,
+            image_cond_noise=image_cond_noise)
+        # the sequence items' prefix tokens go first; they are not output
+        final_tokens = final_tokens[:, num_cond_latents:]
         latents = unpatchify(final_tokens, lat_f, lat_h, lat_w, self.patch_size)
         t0 = mark("denoise_s", t0)
         if output_type == "latent":

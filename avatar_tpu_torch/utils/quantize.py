@@ -1,6 +1,7 @@
-"""int8 quantization of the DiT's linears (port of
-``avatar_tpu/utils/quantize.py``: ``quantize_linear`` and
-``quantize_dit_params``). Applied once, when a pipeline is built.
+"""int8 quantization of the DiT's and the T5 encoder's linears (port of
+``avatar_tpu/utils/quantize.py``: ``quantize_linear``,
+``quantize_dit_params`` and ``quantize_t5_params``). Applied once, when a
+pipeline or an encoder is built.
 
 - **"w8"** (weight-only): every linear with at least ``min_size`` weight
   elements becomes ``{"kernel_q": int8 [out, in], "scale": bf16 [out]}``;
@@ -17,8 +18,7 @@ Scales are per output channel, ``max|w| / 127`` (1 for a zero channel);
 ``round(w / scale)`` rounds half to even (``torch.round``, as
 ``jnp.round``) and is clipped to +-127, with IEEE divisions on any device
 (``div127``), so the int8 equals the JAX package's bit for bit from the
-same f32 weights. The VAE's int8 conv3d and the T5 encoder's quantization
-are not ported.
+same f32 weights. The VAE's int8 conv3d is not ported.
 """
 
 from __future__ import annotations
@@ -85,4 +85,23 @@ def quantize_dit_params(params: dict, min_size: int = 2**18,
                        else lin for name, lin in mod.items()}
             nb[mod_name] = mod
         blocks.append(nb)
+    return dict(params, blocks=blocks)
+
+
+def quantize_t5_params(params: dict, mode: str = "w8") -> dict:
+    """int8 T5 encoder (``models/t5.py``): every block linear (attention q,
+    k, v, o and the feed-forward) becomes "w8" (weight-only) or "w8a8"
+    (int8 activations too; at T5's 256 tokens ``linear`` takes the short
+    route, the library int8 product). The embedding, the norms and the
+    relative-bias table stay full precision; they are shared with
+    ``params``."""
+    if mode not in ("w8", "w8a8"):
+        raise ValueError(f"unknown quantization mode {mode!r}")
+    act = mode == "w8a8"
+    blocks = [
+        dict(block, **{part: {name: quantize_linear(lin, act=act)
+                              for name, lin in block[part].items()}
+                       for part in ("attn", "ff")})
+        for block in params["blocks"]
+    ]
     return dict(params, blocks=blocks)

@@ -111,6 +111,15 @@ def vae_params_from_numpy(tree: dict, cfg: VAEConfig, device="cuda",
     return _convert(tree, device, dtype)
 
 
+def t5_params_from_numpy(tree: dict, device="cuda",
+                         dtype: torch.dtype = torch.float32) -> dict:
+    """JAX T5 encoder params (numpy leaves, ``avatar_tpu/models/t5.py``'s
+    tree, plain or int8 from ``quantize_t5_params``) -> the port's tree:
+    linear kernels [in, out] become weights [out, in], int8 kernels stay
+    int8 with their scales in their own dtype."""
+    return _convert(tree, device, dtype)
+
+
 def lora_from_numpy(tree: dict, device="cuda",
                     dtype: torch.dtype = torch.float32) -> dict:
     """A JAX LoRA tree (numpy leaves, ``{"blocks": [{"attn2": {"to_q":

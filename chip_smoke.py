@@ -18,12 +18,18 @@ Phases, each printing one JSON line as soon as it has its numbers:
    stated fraction, scales at rtol 1e-6); the flash backward's two kernels
    (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) at the training
    shapes, at 5376 tokens with lse from kernel C and from D, and ragged
-   with a fully masked sample;
+   with a fully masked sample; the dense-bias attention's four kernels
+   (``kernel_flash_dense_*``: forward, dK/dV, dQ, dBias) at T5-XXL's shape
+   with a per-head position-and-padding bias and at 5376 tokens with one
+   shared bias, a band of masked keys and a fully masked row;
    then each one's time, the plain version's, one PyTorch library call's
    where there is one (a yardstick the port never calls) and the card's
    lower bound for the same work; then autograd through the three
    attention entries on the card against their plain versions in f32
-   (``attention_gradients``);
+   (``attention_gradients``), and the dense-bias path's driven run
+   (``attention_dense_bias``: autograd through
+   ``scaled_dot_product_attention(mask=<4-D bias>, impl="flash")`` at both
+   shapes, out and every gradient, bias included, against f32);
 4. reference: a tiny pipeline at guidance 1 in bf16 on the card against the
    same pipeline in f32 on the CPU (plain kernel versions), once as it is
    and once with the timestep rounded as a bf16 run rounds it, and in bf16
@@ -31,11 +37,19 @@ Phases, each printing one JSON line as soon as it has its numbers:
 5. reference_guided: the same with CFG 3 + STG 1 + rescale 0.7 + Heun, on
    the default path and with ``attention_impl="flash", rope_split=False``
    at shapes that reach each head-major kernel inside a pipeline;
+   reference_conditioned: conditioning items (first frame resized up with
+   the image-conditioning noise; off-centre beside a sequence at frame 8
+   with its prefix tokens) and ``media_items`` with skipped initial steps,
+   the same four ways;
 6. reference_w8a8: tiny quantized pipelines in bf16 on the card against
    f32 on the CPU, same int8 weights and noise: W8A8 at 4352 tokens (the
    int8 kernels), W8A8 at 16 tokens (the library int8 product) and
    weight-only w8;
-7. pipeline: the full-width 2B DiT (28 layers, 32 x 64) and the 2B VAE
+7. t5: T5-XXL at full width, seeded random bf16 weights: a prompt and a
+   negative prompt encoded (2 x 256 tokens), its time, peak memory, the
+   W8A8 encode's time and distance, and a tiny T5 in bf16 on the card
+   against f32 on the CPU;
+   pipeline: the full-width 2B DiT (28 layers, 32 x 64) and the 2B VAE
    with timestep conditioning, random weights from a seed, 97 frames at
    256 px, 40 Euler steps, guidance 1, STG 0, I420 output; checks shapes,
    finite latents, and that each kernel of the path launched exactly
@@ -46,7 +60,10 @@ Phases, each printing one JSON line as soon as it has its numbers:
    cross-attention through the token-major one; profile of 3 steps;
 9. pipeline_guided: 97 frames at 256 px with the shipped guided settings
    (CFG 3, STG 1 on block 19 with AttentionValues, rescale 0.7): three
-   conds per step in one batch;
+   conds per step in one batch; pipeline_conditioned: the same with the
+   t5 phase's embeddings as prompt and negative prompt and one first-frame
+   conditioning item (strength 1, image-conditioning noise 0.15):
+   image-to-video;
 10. pipeline_long_w8a8: the long path with the DiT quantized W8A8 (from
    the same bf16 weights): every block linear through the int8 kernels,
    launches checked per kernel, profile of 3 steps, and the latents'
@@ -720,10 +737,12 @@ def _rounded_t_tables(params, cfg, timesteps, batch, dtype):
     return precompute_timestep_tables(params, cfg, t / mult, batch, dtype=dtype)
 
 
-def _tiny_inputs(dcfg, size, frames, caption, settings, encode):
+def _tiny_inputs(dcfg, size, frames, caption, settings, encode, avatar=True):
     """Seeded CPU inputs of a 3-step tiny pipeline and its
-    ``GenerationParams``. The negative prompt keeps some keys, so the
-    kernel and plain attention paths compute one function."""
+    ``GenerationParams``: prompts, initial noise and, with ``avatar``, the
+    reference and pose (pixels to encode, or latents). The negative prompt
+    keeps some keys, so the kernel and plain attention paths compute one
+    function."""
     import torch
 
     from avatar_tpu_torch.pipelines.pipeline import GenerationParams
@@ -739,7 +758,9 @@ def _tiny_inputs(dcfg, size, frames, caption, settings, encode):
         negative_prompt_attention_mask=keep,
         init_noise=torch.randn(1, lat_f, lat_hw, lat_hw, ch, generator=g),
     )
-    if encode:
+    if not avatar:
+        pass
+    elif encode:
         inputs.update(
             ref_image=torch.rand(1, 1, size, size, 3, generator=g) * 2 - 1,
             pose_frames=torch.rand(1, frames, size, size, 3, generator=g) * 2 - 1,
@@ -756,11 +777,14 @@ def _tiny_inputs(dcfg, size, frames, caption, settings, encode):
 
 
 def _reference_run(label, models, size, frames, caption, settings, ctor,
-                   expect_kernels, encode=True):
+                   expect_kernels, encode=True, avatar=True, extra=None,
+                   exact_t_tol=None):
     """One tiny pipeline, same weights and noise, four ways: f32 on the CPU
     (the kernels' plain versions) as it is and with t rounded as a bf16 run
     rounds it, bf16 on the card through the CUDA kernels, and bf16 on the
-    card with ``attention_impl="xla"`` (no kernel). Returns the kernel run's
+    card with ``attention_impl="xla"`` (no kernel). ``extra``: more inputs
+    of the call (conditioning inputs and their noise); ``exact_t_tol``
+    replaces EXACT_T_TOL for a schedule of its own. Returns the kernel run's
     errors against the others and its launches."""
     from unittest import mock
 
@@ -770,7 +794,8 @@ def _reference_run(label, models, size, frames, caption, settings, ctor,
     from avatar_tpu_torch.pipelines.pipeline import LTXVideoPipeline
 
     dcfg, dit, vcfg, vae = models
-    inputs, params = _tiny_inputs(dcfg, size, frames, caption, settings, encode)
+    inputs, params = _tiny_inputs(dcfg, size, frames, caption, settings, encode, avatar)
+    inputs.update(extra or {})
     steps, ch = params.num_inference_steps, dcfg.in_channels
     lat_f, lat_hw = (frames - 1) // 8 + 1, size // 32
     schedules = []
@@ -792,7 +817,7 @@ def _reference_run(label, models, size, frames, caption, settings, ctor,
     no_kernel, none = run("cuda", torch.bfloat16, **{**ctor, "attention_impl": "xla"})
     card, launches = run("cuda", torch.bfloat16, **ctor)
     tokens = lat_f * lat_hw * lat_hw
-    exact_t_tol = EXACT_T_TOL["long" if tokens > 1000 else "short"]
+    exact_t_tol = exact_t_tol or EXACT_T_TOL["long" if tokens > 1000 else "short"]
     sigmas = torch.tensor(schedules[0].set_timesteps(
         num_inference_steps=steps,
         samples_shape=(1, ch, lat_f, lat_hw, lat_hw)).sigmas, dtype=torch.float32)
@@ -864,6 +889,62 @@ def check_reference_guided():
             total[name] = total.get(name, 0) + n
     emit({"phase": "reference_guided", "settings": {**GUIDED,
           "skip_layer_strategy": "AttentionValues"}, "runs": results,
+          "rel_rms_tol": REFERENCE_TOL, "vs_no_kernel_tol": KERNEL_PATH_TOL})
+    return total
+
+
+def check_reference_conditioned():
+    """The conditioning inputs in tiny pipelines (guidance 1, no avatar
+    inputs, 3 steps), the four ways of :func:`_reference_run`: a first-frame
+    item resized up from 32 px with ``image_cond_noise_scale`` 0.15 (16
+    tokens); at 128 px an off-centre item (64 px at x = 64, y = 0) beside a
+    17-frame sequence at frame 8 resized down from 160 px, whose two-frame
+    prefix adds 32 tokens (96); ``media_items`` with
+    ``skip_initial_inference_steps`` 1. Every draw (item encodes, prefix,
+    per-step conditioning noise, media encode) is handed to both devices as
+    the same CPU tensor. Each run goes through kernels A and B."""
+    import torch
+
+    from avatar_tpu_torch.pipelines.pipeline import ConditioningItem
+
+    g = torch.Generator().manual_seed(26)
+    ch = 16
+
+    def pixels(frames, size):
+        return torch.rand(1, frames, size, size, 3, generator=g) * 2 - 1
+
+    def noise(*shape):
+        return torch.randn(shape, generator=g)
+
+    # (size, frames, settings, inputs, limit against the f32 run at exact t):
+    # with conditioning items every token's t runs in f32 inside the model,
+    # so bf16 rounds no t (CPU rehearsal 0.006); without them the media run
+    # walks 2 of the 3 steps, t = 628.4 (rounded to 628) and 100, and the
+    # rounding weighs more than in a 3-step walk (CPU rehearsal in bf16:
+    # 0.036 at exact t, 0.006 at the rounded t)
+    runs = {
+        "first_frame_resize_up_noise": (64, 25, dict(image_cond_noise_scale=0.15), dict(
+            conditioning_items=[ConditioningItem(pixels(1, 32))],
+            item_noise=[noise(1, 1, 2, 2, ch)], image_cond_noise=noise(3, 1, 16, ch)),
+            None),
+        "off_centre_and_sequence_at_8": (128, 25, {}, dict(
+            conditioning_items=[ConditioningItem(pixels(1, 64), 0, 1.0, 64, 0),
+                                ConditioningItem(pixels(17, 160), 8, 0.9)],
+            item_noise=[noise(1, 1, 2, 2, ch), noise(1, 3, 4, 4, ch)],
+            prefix_noise=[None, noise(1, 2, 4, 4, ch)]), None),
+        "media_items_skip_initial": (64, 25, dict(skip_initial_inference_steps=1), dict(
+            media_items=pixels(25, 64), media_noise=noise(1, 4, 2, 2, ch)), 0.08),
+    }
+    plain = dict(guidance_scale=1.0, stg_scale=0.0, rescaling_scale=1.0)
+    results, total = {}, {}
+    for label, (size, frames, settings, extra, exact_tol) in runs.items():
+        results[label] = _reference_run(
+            f"reference_conditioned/{label}", _tiny_models(), size, frames, 48,
+            {**plain, **settings}, {}, ("rope_fused_attention", "fused_token_attention"),
+            avatar=False, extra=extra, exact_t_tol=exact_tol)
+        for name, n in results[label]["launches"].items():
+            total[name] = total.get(name, 0) + n
+    emit({"phase": "reference_conditioned", "runs": results,
           "rel_rms_tol": REFERENCE_TOL, "vs_no_kernel_tol": KERNEL_PATH_TOL})
     return total
 
@@ -1167,6 +1248,226 @@ def check_attention_gradients():
         if not all(math.isfinite(e) and e <= GRAD_TOL for e in errs):
             fail(f"gradient of {label} disagrees with its plain version's: {errs}")
     emit({"phase": "attention_gradients", "tol": GRAD_TOL, "results": results})
+
+
+# The dense-bias attention (G) against its plain version, per case: the
+# output within KERNEL_ULPS bf16 ulps of the case's largest plain output and
+# lse within LSE_TOL (the forward's running max against the whole-row max,
+# sums in another order); dQ, dK, dV and dBias within BWD_ULPS bf16 ulps of
+# the case's largest reference gradient (p and dS rounded to bf16 at the
+# same places, f32 sums in another order; dBias sums the heads of a slab in
+# the same order). Two shapes: T5-XXL's self-attention, [2, 64, 256, 64]
+# with a per-head bias built as ``t5_encode`` builds it, and the 2B DiT's
+# long self-attention, [1, 32, 5376, 64] with one shared bias.
+T5_BATCH, T5_HEADS, T5_TOKENS = 2, 64, 256
+# keys kept of the prompt's and the negative prompt's 256 (the t5 phase)
+T5_KEPT = (200, 40)
+DENSE_ROWS = (("flash_dense_forward", 317), ("flash_dense_bwd_dkv", 1328),
+              ("flash_dense_bwd_dq", 1367), ("flash_dense_bwd_db", 1397))
+
+
+def dense_cases(g):
+    """{label: (q, k, v, bias [B, 1|H, Lq, Lk] f32, output gradient, scale,
+    fully masked query row or None)}, bf16 on the card."""
+    import torch
+
+    from avatar_tpu_torch.models.t5 import KEY_PADDING_BIAS, compute_position_bias
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).bfloat16()
+
+    # T5: unscaled logits of O(1) (the scale sits in T5's weights), the
+    # relative-position bias of a seeded [32, 64] table plus -1e9 on the 56
+    # padded keys of 256
+    b, h, n = T5_BATCH, T5_HEADS, T5_TOKENS
+    table = torch.randn(32, h, generator=g, device="cuda") * 0.1
+    t5_bias = compute_position_bias(table, n, n, 32, 128).repeat(b, 1, 1, 1)
+    t5_bias[..., T5_KEPT[0]:] += KEY_PADDING_BIAS
+    t5 = (randn(b, h, n, HEAD_DIM, scale=HEAD_DIM**-0.25),
+          randn(b, h, n, HEAD_DIM, scale=HEAD_DIM**-0.25), randn(b, h, n, HEAD_DIM),
+          t5_bias, randn(b, h, n, HEAD_DIM), 1.0, None)
+    # the DiT's long self-attention: one seeded bias shared by the 32 heads,
+    # -1e30 on a band of keys and on every key of query row 77
+    n = LONG_TOKENS
+    long_bias = torch.randn(1, 1, n, n, generator=g, device="cuda")
+    long_bias[..., 2000:2500] = -1e30
+    long_bias[:, :, 77] = -1e30
+    dit = (rms_rows(randn(1, HEADS, n, HEAD_DIM)), rms_rows(randn(1, HEADS, n, HEAD_DIM)),
+           randn(1, HEADS, n, HEAD_DIM), long_bias, randn(1, HEADS, n, HEAD_DIM),
+           HEAD_DIM**-0.5, 77)
+    return {f"t5 [{b}, {h}, {T5_TOKENS}, {HEAD_DIM}] per-head bias": t5,
+            f"dit [1, {HEADS}, {n}, {HEAD_DIM}] shared bias": dit}
+
+
+def _dense_work(q, k, bias3):
+    """(operations, bytes) of each of G's kernels: 2, 4, 3 and 2 products
+    of 2 * Lq * Lk * D per head (forward s and PV; dK/dV s, dP, dV, dK; dQ
+    s, dP, dQ; dBias s, dP); each input read once and each output written
+    once (the bias f32, lse and delta f32, dBias f32)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    product = 2.0 * b * h * lq * lk * d
+    qo, kv = b * h * lq * d * 2, b * h * lk * d * 2
+    rows, bias_bytes = b * h * lq * 4, bias3.numel() * 4
+    fwd_in = qo + 2 * kv + bias_bytes
+    bwd_in = fwd_in + qo + 2 * rows
+    return {"flash_dense_forward": (2 * product, fwd_in + qo + rows),
+            "flash_dense_bwd_dkv": (4 * product, bwd_in + 2 * kv),
+            "flash_dense_bwd_dq": (3 * product, bwd_in + qo),
+            "flash_dense_bwd_db": (2 * product, bwd_in + bias_bytes)}
+
+
+def check_flash_dense(peaks):
+    """G's four kernels (``csrc/flash_dense.cu``) against their plain
+    versions at the two shapes of :func:`dense_cases`, the backward from the
+    forward kernel's own O and lse; a fully masked query row gives O = 0,
+    lse = 1e30 and zero gradients. Then each kernel's time (CUDA events),
+    its bound, the plain version's (the forward; the whole backward for the
+    three backward rows) and the library's: ``scaled_dot_product_attention``
+    with the bias as its bf16 ``attn_mask``, forward, and its autograd
+    backward (bias included) minus its forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    errors = {name: KernelErrors(name, KERNEL_ULPS if name.endswith("forward") else BWD_ULPS)
+              for name, _ in DENSE_ROWS}
+    lse_errs, timed = {}, {}
+    for label, (q, k, v, bias, gout, scale, masked_row) in dense_cases(g).items():
+        bias3 = fa._dense_bias3(bias)
+        before = dict(fa.launch_counts)
+        out, lse = fa._flash_dense_forward(q, k, v, bias3, scale)
+        dq, dk, dv, db = fa._flash_dense_backward(q, k, v, bias3, out, lse, gout, scale,
+                                                  with_db=True)
+        torch.cuda.synchronize()
+        if any(fa.launch_counts[n] != before[n] + 1 for n, _ in DENSE_ROWS):
+            fail(f"flash_dense {label}: the four kernels were not each launched once")
+        ref, ref_lse = fa._flash_dense_plain(q, k, v, bias3, scale)
+        errors["flash_dense_forward"].add(label, out, ref)
+        live = ref_lse < 1e29
+        lse_errs[label] = (lse - ref_lse)[live].abs().max().item()
+        del ref, ref_lse
+        want = fa._flash_dense_backward_plain(q, k, v, bias3, out, lse, gout, scale)
+        for name, grad, got, ref_grad in (("flash_dense_bwd_dkv", "dk", dk, want[1]),
+                                          ("flash_dense_bwd_dkv", "dv", dv, want[2]),
+                                          ("flash_dense_bwd_dq", "dq", dq, want[0]),
+                                          ("flash_dense_bwd_db", "dbias", db, want[3])):
+            errors[name].add(f"{label}: {grad}", got, ref_grad)
+        del want
+        if masked_row is not None:
+            r = masked_row
+            if not all(bool(x.all()) for x in (
+                    out[:, :, r] == 0, lse[:, :, r] == fa.LSE_MASKED, dq[:, :, r] == 0,
+                    db[:, r] == 0)):
+                fail(f"flash_dense {label}: the fully masked row {r} is not 0 (lse 1e30)")
+        delta = (gout.float() * out.float()).sum(-1)
+        work = _dense_work(q, k, bias3)
+        lib_leaves = [t.detach().requires_grad_() for t in (q, k, v, bias.to(q.dtype))]
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
+                                                  scale=scale)
+
+        lib_fwd_ms = time_ms(lib_fwd)
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_fwd(), lib_leaves, gout)
+                             ) - lib_fwd_ms
+        plain_bwd_ms = time_ms(lambda: fa._flash_dense_backward_plain(
+            q, k, v, bias3, out, lse, gout, scale), reps=2, batches=3)
+        timed[label] = {
+            "flash_dense_forward": (
+                time_ms(lambda: fa._flash_dense_forward(q, k, v, bias3, scale)),
+                time_ms(lambda: fa._flash_dense_plain(q, k, v, bias3, scale), reps=2,
+                        batches=3), lib_fwd_ms),
+            "flash_dense_bwd_dkv": (
+                time_ms(lambda: fa.flash_dense_bwd_dkv(q, k, v, gout, lse, delta, bias3, scale)),
+                plain_bwd_ms, lib_bwd_ms),
+            "flash_dense_bwd_dq": (
+                time_ms(lambda: fa.flash_dense_bwd_dq(q, k, v, gout, lse, delta, bias3, scale)),
+                plain_bwd_ms, lib_bwd_ms),
+            "flash_dense_bwd_db": (
+                time_ms(lambda: fa.flash_dense_bwd_db(q, k, v, gout, lse, delta, bias3, scale)),
+                plain_bwd_ms, lib_bwd_ms),
+        }
+        for name, (ops, nbytes) in work.items():
+            bound_ms, bound_by = bound(ops, nbytes, peaks)
+            ms, plain_ms, lib_ms = timed[label][name]
+            timed[label][name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                  "flops": ops, "bytes": nbytes}
+        del out, lse, dq, dk, dv, db, delta, lib_leaves
+        torch.cuda.empty_cache()
+    checked = {name: err.check() for name, err in errors.items()}
+    lse_err = max(lse_errs.values())
+    if not (math.isfinite(lse_err) and lse_err <= LSE_TOL):
+        fail(f"flash_dense_forward: lse disagrees with its plain version's: {lse_errs}")
+    t5_label, dit_label = list(timed)
+    rows = []
+    for name, line in DENSE_ROWS:
+        err, tol = checked[name]
+        main = timed[t5_label][name]
+        row = {"name": name, "route": "cuda", "source": "avatar_tpu_torch/csrc/flash_dense.cu",
+               "replaces": f"avatar_tpu/ops/flash_attention.py:{line}",
+               "max_abs_err": err, "tol": tol, "ms": main["ms"], "plain_ms": main["plain_ms"],
+               "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+               "library_ms": main["library_ms"], "shape": t5_label,
+               "long_shape": {"shape": dit_label, **{
+                   k: timed[dit_label][name][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
+        if name != "flash_dense_forward":
+            row["plain_and_library_cover"] = "the whole backward (dq, dk, dv, dbias)"
+        rows.append(row)
+        emit({"phase": f"kernel_{name}", "errors": errors[name].errs,
+              "limits": errors[name].tols,
+              **({"lse_errors": lse_errs, "lse_tol": LSE_TOL} if name.endswith("forward")
+                 else {"ulps": BWD_ULPS}),
+              "times": {label: t[name] for label, t in timed.items()}})
+    return rows
+
+
+def check_attention_dense_bias():
+    """G's driven path: autograd through ``scaled_dot_product_attention(q,
+    k, v, mask=<4-D bias requiring grad>, impl="flash")`` in bf16 on the
+    card at both shapes of :func:`dense_cases`, against autograd through the
+    plain forward in f32 on the card from the same inputs: out, dQ, dK, dV
+    and dBias each within GRAD_TOL relative RMS. Each of G's four kernels
+    launches exactly twice (once per shape) and no other kernel runs."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+    from avatar_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    cases = dense_cases(g)
+    results = {}
+    reset_counts()
+    for label, (q, k, v, bias, gout, scale, _) in cases.items():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        out = scaled_dot_product_attention(*leaves[:3], mask=leaves[3], scale=scale,
+                                           impl="flash")
+        got = (out,) + torch.autograd.grad(out, leaves, gout)
+        torch.cuda.synchronize()
+        results[label] = [t.detach() for t in got]
+        del out, got, leaves
+    launches = {k: n for k, n in read_counts().items() if n}
+    for label, (q, k, v, bias, gout, scale, _) in cases.items():
+        leaves32 = [t.detach().float().requires_grad_() for t in (q, k, v, bias)]
+        ref = fa._flash_dense_plain(*leaves32[:3], fa._dense_bias3(leaves32[3]), scale)[0]
+        want = (ref.detach(),) + torch.autograd.grad(ref, leaves32, gout.float())
+        errs = [_rel_rms(a.float(), w) for a, w in zip(results[label], want)]
+        results[label] = dict(zip(("out", "dq", "dk", "dv", "dbias"), errs))
+        del ref, want, leaves32
+        torch.cuda.empty_cache()
+        if not all(math.isfinite(e) and e <= GRAD_TOL for e in errs):
+            fail(f"attention_dense_bias {label}: the card disagrees with the plain "
+                 f"versions in f32: {results[label]}")
+    expect = {name: len(cases) for name, _ in DENSE_ROWS}
+    emit({"phase": "attention_dense_bias", "tol": GRAD_TOL, "rel_rms": results,
+          "launches": launches})
+    if launches != expect:
+        fail(f"attention_dense_bias: launched {launches}, expected {expect}")
+    return launches
 
 
 # Tiny training runs: a DiT of 2 heads of 64 (so the CUDA kernels take it)
@@ -1505,6 +1806,116 @@ def check_train_cli():
     return launches
 
 
+# T5 in bf16 on the card against f32 on the CPU, same (bf16) weights, at a
+# tiny width (2 layers, d_model 256, 4 heads of 64): random-init T5 has
+# unscaled logits of std ~8, so bf16's rounding of q and k moves the softmax;
+# a CPU rehearsal in bf16 read 0.016 relative RMS (0.051 at 4 layers of 512)
+T5_TINY_TOL = 0.05
+
+
+def run_t5():
+    """T5-XXL at full width (``T5Config()``: 24 layers, d_model 4096, 64
+    heads of 64, d_ff 10240, gated-gelu, vocab 32128), seeded random bf16
+    weights on the card: encodes a prompt and a negative prompt as seeded
+    token ids (batch 2 x 256, 200 and 40 kept), checks shape, finite values
+    and that no kernel launched (T5's attention runs the plain path, as in
+    the JAX package); times the encode (medians of CUDA-event batches),
+    peak memory, the same encode with ``quantize_t5_params("w8a8")`` and
+    with the f32 weights the bf16 ones were rounded from (times and
+    relative RMS against bf16: findings, not gates). Then a tiny T5 in bf16
+    on the card against f32 on the CPU (T5_TINY_TOL; and its W8A8 encode,
+    reported). Returns the bf16 embeddings [2, 256, 4096], their mask and
+    the launches."""
+    import torch
+
+    from avatar_tpu_torch.models.t5 import T5Config, init_t5_encoder, t5_encode
+    from avatar_tpu_torch.train.train import tree_leaves
+    from avatar_tpu_torch.utils.quantize import quantize_t5_params
+
+    cfg = T5Config()
+    torch.cuda.synchronize()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = init_t5_encoder(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(25)
+    ids = torch.randint(0, cfg.vocab_size, (2, CAPTION), generator=g, device="cuda",
+                        dtype=torch.int32)
+    mask = torch.zeros(2, CAPTION, device="cuda")
+    for row, kept in enumerate(T5_KEPT):
+        mask[row, :kept] = 1.0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    embeds = t5_encode(params, cfg, ids, mask)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in read_counts().items() if n}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(embeds.shape) != (2, CAPTION, cfg.d_model) or embeds.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(embeds).all()):
+        fail(f"t5: embeddings {embeds.dtype} {tuple(embeds.shape)} not finite or misshaped")
+    if launches:
+        fail(f"t5: the encoder launched {launches}; its attention runs the plain path")
+    ms = time_ms(lambda: t5_encode(params, cfg, ids, mask), reps=5, batches=5)
+    t0 = time.perf_counter()
+    q8 = quantize_t5_params(params, "w8a8")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    reset_counts()
+    embeds8 = t5_encode(q8, cfg, ids, mask)
+    torch.cuda.synchronize()
+    launches8 = {k: n for k, n in read_counts().items() if n}
+    if launches8 or not bool(torch.isfinite(embeds8).all()):
+        fail(f"t5 w8a8: launched {launches8} (expected none: the short route), or not finite")
+    ms8 = time_ms(lambda: t5_encode(q8, cfg, ids, mask), reps=5, batches=5)
+    rel8 = _rel_rms(embeds8.float(), embeds.float())
+    del q8, embeds8
+    torch.cuda.empty_cache()
+    # the same seed draws the f32 weights that the bf16 ones round
+    p32 = init_t5_encoder(cfg, seed=0, device="cuda", dtype=torch.float32)
+    embeds32 = t5_encode(p32, cfg, ids, mask)
+    ms32 = time_ms(lambda: t5_encode(p32, cfg, ids, mask), reps=2, batches=3)
+    rel16 = _rel_rms(embeds.float(), embeds32)
+    del p32, embeds32
+    torch.cuda.empty_cache()
+
+    tiny = T5Config(vocab_size=1000, d_model=256, d_kv=64, d_ff=512, num_layers=2,
+                    num_heads=4)
+    tparams = _tree_to(_tree_to(init_t5_encoder(tiny, 1, device="cpu"), "cpu",
+                                torch.bfloat16), "cpu", torch.float32)
+    tg = torch.Generator().manual_seed(27)
+    tids = torch.randint(0, 1000, (2, 64), generator=tg)
+    tmask = torch.zeros(2, 64)
+    tmask[0, :50] = 1.0
+    tmask[1, :10] = 1.0
+    ref = t5_encode(tparams, tiny, tids, tmask)
+    ref_bf16 = t5_encode(_tree_to(tparams, "cpu", torch.bfloat16), tiny, tids, tmask).float()
+    card_params = _tree_to(tparams, "cuda", torch.bfloat16)
+    card = t5_encode(card_params, tiny, tids.cuda(), tmask.cuda()).float().cpu()
+    tiny_rel = _rel_rms(card, ref)
+    ref8 = t5_encode(quantize_t5_params(tparams, "w8a8"), tiny, tids, tmask)
+    card8 = t5_encode(quantize_t5_params(card_params, "w8a8"), tiny, tids.cuda(),
+                      tmask.cuda()).float().cpu()
+    res = {"config": "T5Config() (t5-v1_1-xxl)", "parameters": n_params,
+           "init_s": init_s, "batch": 2, "tokens": CAPTION, "kept": list(T5_KEPT),
+           "encode_ms": ms, "peak_memory_gib": peak_gib,
+           "memory_before_gib": base_gib, "launches": launches,
+           "w8a8_quantize_s": quant_s, "w8a8_encode_ms": ms8, "w8a8_rel_rms_vs_bf16": rel8,
+           "f32_encode_ms": ms32, "bf16_rel_rms_vs_f32": rel16,
+           "tiny_bf16_card_vs_f32_cpu_rel_rms": tiny_rel,
+           "tiny_bf16_card_vs_bf16_cpu_rel_rms": _rel_rms(card, ref_bf16),
+           "tiny_w8a8_card_vs_f32_cpu_rel_rms": _rel_rms(card8, ref8),
+           "tiny_w8a8_cpu_vs_f32_cpu_rel_rms": _rel_rms(ref8, ref),
+           "tiny_tol": T5_TINY_TOL}
+    emit({"phase": "t5", **res})
+    if not (math.isfinite(tiny_rel) and tiny_rel <= T5_TINY_TOL):
+        fail(f"t5: the card's bf16 encode disagrees with the CPU's f32: {tiny_rel}")
+    return embeds, mask, launches
+
+
 def card_state() -> str:
     """SM clock, power draw and temperature as ``nvidia-smi`` reads them now:
     a card that throttles under a long load shows it here."""
@@ -1534,13 +1945,15 @@ def make_full_pipeline():
 
 
 def run_pipeline(pipe, phase, size, frames, settings, expect, profile_steps,
-                 extra=None):
+                 extra=None, inputs=None):
     """One video through ``LTXVideoPipeline.__call__`` at 40 steps with I420
     output: checks the output's shape and type, finite latents, and that
     each kernel launched exactly ``expect[name]`` times (0 for the rest);
     prints stage seconds, peak memory and a profile of the first steps.
-    Returns the launches, the seconds of the timed video and the latents of
-    a second video from the same seed."""
+    ``inputs`` replaces the default call inputs (a random caption of 200
+    kept tokens, a reference image and pose frames). Returns the launches,
+    the seconds of the timed video and the latents of a second video from
+    the same seed."""
     import torch
 
     from avatar_tpu_torch.ops import flash_attention as fa
@@ -1562,10 +1975,13 @@ def run_pipeline(pipe, phase, size, frames, settings, expect, profile_steps,
             height=size, width=size, num_frames=frames - 1, frame_rate=25.0,
             num_inference_steps=steps, decode_timestep=0.05, **settings)
 
+    if inputs is None:
+        inputs = dict(prompt_embeds=embeds, prompt_attention_mask=mask, ref_image=ref,
+                      pose_frames=pose)
+
     def run(steps, output_type, stage_times=None):
         return pipe(params(steps), torch.Generator(device="cuda").manual_seed(5),
-                    embeds, mask, ref_image=ref, pose_frames=pose,
-                    output_type=output_type, stage_times=stage_times)
+                    output_type=output_type, stage_times=stage_times, **inputs)
 
     t0 = time.perf_counter()
     run(1, "yuv420")  # warm-up: cuBLAS/cuDNN handles and algorithm choice
@@ -1624,8 +2040,8 @@ def profile_denoise(pipe, p, embeds, mask, ref, pose, step_s, steps):
     lat_f = p.num_frames // pipe.video_scale_factor + 1
     lat_hw = p.height // pipe.vae_scale_factor
     shape = (1, lat_f, lat_hw, lat_hw, pipe.dit_cfg.in_channels)
-    tokens, coords = pipe.prepare_conditioning(
-        pipe.prepare_latents(g, shape, torch.bfloat16))
+    tokens, coords, _, _ = pipe.prepare_conditioning(
+        None, pipe.prepare_latents(g, shape, torch.bfloat16))
     coords = coords.float()
     coords[:, 0] /= p.frame_rate
     sched = pipe.schedule.set_timesteps(
@@ -1690,14 +2106,19 @@ def main() -> int:
     rows = [check_rope_kernel(peaks), check_token_kernel(peaks)] + [
         check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS] + check_flash_backward(
         peaks) + [check_w8a8_kernel(peaks)] + check_row_quant_kernels(peaks)
+    rows += check_flash_dense(peaks)
     check_attention_gradients()
     # launches of each kernel on each driven path: the counts are set to 0
     # just before a path and read just after it
-    by_path = {"reference": check_reference(),
+    by_path = {"attention_dense_bias": check_attention_dense_bias(),
+               "reference": check_reference(),
                "reference_guided": check_reference_guided(),
+               "reference_conditioned": check_reference_conditioned(),
                "reference_w8a8": check_reference_w8a8(),
                "reference_train": check_reference_train(),
                "train_cli": check_train_cli()}
+    t5_embeds, t5_mask, by_path["t5"] = run_t5()
+    torch.cuda.empty_cache()
     pipe, init_s = make_full_pipeline()
     emit({"phase": "init", "seconds": init_s})
     every = LAYERS * STEPS
@@ -1711,10 +2132,29 @@ def main() -> int:
     by_path["pipeline_long"], long_s, long_latents = run_pipeline(
         pipe, "pipeline_long", 512, 161, plain,
         {"flash_bounded": every, "fused_token_attention": every}, 3)
-    by_path["pipeline_guided"], _, _ = run_pipeline(
+    by_path["pipeline_guided"], guided_s, _ = run_pipeline(
         pipe, "pipeline_guided", 256, 97, shipped,
         {"rope_fused_attention": every, "fused_token_attention": every}, 0,
         extra={"num_conds": 3, "guidance_1_total_s": plain_s})
+    # image-to-video: the T5-XXL embeddings as prompt and negative prompt,
+    # the shipped guidance, one first-frame item of strength 1 with the
+    # image-conditioning noise
+    from avatar_tpu_torch.pipelines.pipeline import ConditioningItem
+
+    image = torch.rand(1, 1, 256, 256, 3, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(9)) * 2 - 1
+    by_path["pipeline_conditioned"], _, _ = run_pipeline(
+        pipe, "pipeline_conditioned", 256, 97,
+        {**shipped, "image_cond_noise_scale": 0.15},
+        {"rope_fused_attention": every, "fused_token_attention": every}, 0,
+        extra={"num_conds": 3, "guided_total_s": guided_s,
+               "prompt": f"T5-XXL embeddings, {T5_KEPT[0]} and {T5_KEPT[1]} kept tokens",
+               "conditioning": "first frame, strength 1.0"},
+        inputs=dict(prompt_embeds=t5_embeds[:1], prompt_attention_mask=t5_mask[:1],
+                    negative_prompt_embeds=t5_embeds[1:],
+                    negative_prompt_attention_mask=t5_mask[1:],
+                    conditioning_items=[ConditioningItem(image, 0, 1.0)]))
+    del t5_embeds
     # W8A8 from the same raw (unpermuted, bf16) tree: only the int8 copies
     # of the block linears and the permuted q/k are new
     t0 = time.perf_counter()

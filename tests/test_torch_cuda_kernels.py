@@ -87,7 +87,8 @@ def test_flash_kernels_match_plain_with_masked_row(gen, lq, lk, bounded, counter
 
 def test_flash_attention_takes_transposed_views_and_a_bias(gen):
     """The DiT hands in [B, L, H, D] tensors transposed to head-major, and a
-    [B, 1, 1, Lk] bias for its keep-mask."""
+    [B, 1, 1, Lk] bias for its keep-mask; a dense [B, 1, Lq, Lk] bias runs
+    the dense-bias kernel."""
     q = _rows(gen, 1, 1200, HEADS, HD).transpose(1, 2)
     k = _rows(gen, 1, 1200, HEADS, HD).transpose(1, 2)
     v = torch.randn(1, 1200, HEADS, HD, generator=gen, device="cuda"
@@ -98,8 +99,13 @@ def test_flash_attention_takes_transposed_views_and_a_bias(gen):
     ref, _ = fa._flash_plain(q * HD**-0.5, k, v, (bias[:, 0, 0] >= -1.0).float(),
                              1.0, "bounded")
     assert (out.float() - ref.float()).abs().max().item() < TOL
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, bias=torch.zeros(1, 1, 1200, 1200, device="cuda"))
+    dense = torch.zeros(1, 1, 1200, 1200, device="cuda")
+    dense[..., 1000:] = -1e30
+    before = fa.launch_counts["flash_dense_forward"]
+    out = fa.flash_attention(q, k, v, bias=dense)
+    assert fa.launch_counts["flash_dense_forward"] == before + 1
+    ref, _ = fa._flash_dense_plain(q, k, v, dense[:, 0], HD**-0.5)
+    assert (out.float() - ref.float()).abs().max().item() < TOL
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
@@ -198,6 +204,70 @@ def test_attention_gradients_on_the_card(gen):
         # bf16 operands and outputs against f32 throughout
         for got, want in zip(grads["cuda"], grads["cpu"]):
             assert _rel(got.cpu(), want) < 2e-2, name
+
+
+# ---------------------------------------------------------------------------
+# The dense-bias attention (G): forward, dK/dV, dQ, dBias
+# ---------------------------------------------------------------------------
+
+
+def _dense_case(gen, per_head, lq, lk):
+    """bf16 q, k, v, an output gradient and an f32 bias [2, 1|H, Lq, Lk]
+    with a band of masked keys and, in sample 1, a fully masked query row."""
+    q, k = _rows(gen, 2, HEADS, lq, HD), _rows(gen, 2, HEADS, lk, HD)
+    v, g = (torch.randn(2, HEADS, n, HD, generator=gen, device="cuda").bfloat16()
+            for n in (lk, lq))
+    bias = torch.randn(2, HEADS if per_head else 1, lq, lk, generator=gen, device="cuda")
+    bias[..., lk // 3:lk // 2] = -1e30
+    bias[1, :, 5] = -1e30
+    return q, k, v, g, bias
+
+
+@pytest.mark.parametrize("per_head,lq,lk", [(True, 256, 256), (False, 200, 130),
+                                            (False, 150, 333)])
+def test_flash_dense_kernels_match_plain(gen, per_head, lq, lk):
+    """Each of G's four kernels against its plain version from the same
+    inputs (the backward from the forward kernel's O and lse): ragged
+    lengths, masked keys, and a fully masked row (O = 0, lse = 1e30, zero
+    gradients)."""
+    q, k, v, g, bias = _dense_case(gen, per_head, lq, lk)
+    bias3 = fa._dense_bias3(bias)
+    before = dict(fa.launch_counts)
+    out, lse = fa._flash_dense_forward(q, k, v, bias3, HD**-0.5)
+    dq, dk, dv, db = fa._flash_dense_backward(q, k, v, bias3, out, lse, g, HD**-0.5,
+                                              with_db=True)
+    torch.cuda.synchronize()
+    for name in ("forward", "bwd_dkv", "bwd_dq", "bwd_db"):
+        assert fa.launch_counts[f"flash_dense_{name}"] == before[f"flash_dense_{name}"] + 1
+    ref, ref_lse = fa._flash_dense_plain(q, k, v, bias3, HD**-0.5)
+    assert _ulps_ok(out, ref, 2)
+    live = ref_lse < 1e29
+    assert (lse - ref_lse)[live].abs().max().item() < 2e-3
+    assert bool((out[1, :, 5] == 0).all()) and bool((lse[1, :, 5] == fa.LSE_MASKED).all())
+    want = fa._flash_dense_backward_plain(q, k, v, bias3, out, lse, g, HD**-0.5)
+    for got, ref_grad in zip((dq, dk, dv, db), want):
+        assert _ulps_ok(got, ref_grad)
+    assert bool((dq[1, :, 5] == 0).all())
+    assert bool((db.reshape(2, -1, lq, lk)[1, :, 5] == 0).all())
+
+
+def test_flash_dense_gradients_on_the_card(gen):
+    """Autograd through flash_attention(bias=...) in bf16 on the card, the
+    bias requiring a gradient, against the plain versions in f32 on the CPU;
+    one launch of each of G's kernels, none of the keep-mask kernels."""
+    q, k, v, g, bias = _dense_case(gen, False, 256, 192)
+    grads = {}
+    before = dict(fa.launch_counts)
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        leaves = [t.to(device, dtype).requires_grad_() for t in (q, k, v)]
+        b = bias.to(device).requires_grad_()
+        out = fa.flash_attention(*leaves, bias=b)
+        grads[device] = torch.autograd.grad(out, leaves + [b], g.to(device, dtype))
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    assert launched == {"flash_dense_forward": 1, "flash_dense_bwd_dkv": 1,
+                        "flash_dense_bwd_dq": 1, "flash_dense_bwd_db": 1}
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert got.shape == want.shape and _rel(got.cpu(), want) < 2e-2
 
 
 # ---------------------------------------------------------------------------

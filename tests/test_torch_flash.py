@@ -138,8 +138,12 @@ def test_flash_attention_bias_forms():
     # a per-key additive bias becomes a keep-mask (bias >= -1 keeps)
     out = tfa.flash_attention(q, k, v, bias=tattn.mask_to_bias(mask, 4), scale=SCALE)
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="dense"):
-        tfa.flash_attention(q, k, v, bias=torch.zeros(B, 1, 130, 140))
+    # a dense bias takes the dense-bias path (its plain version here): -1e30
+    # on the masked keys gives what the keep-mask path gives
+    dense = torch.where(mask > 0.5, 0.0, -1e30)[:, None, None, :].expand(B, 1, 130, 140)
+    assert tfa.dense_bias_supported(q, k, dense)
+    out = tfa.flash_attention(q, k, v, bias=dense, scale=SCALE)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("impl", ["xla", "flash", "auto"])

@@ -136,15 +136,29 @@ def test_yuv420_output_shape(pipelines, inputs, jax_run):
     dict(latents=True), dict(media_items=True), dict(conditioning_items=True),
 ], ids=lambda s: next(iter(s)))
 def test_unported_settings_raise(pipelines, inputs, setting):
-    """What the port still lacks raises and names it; guidance, STG, Heun
-    and stochastic sampling run (tests/test_torch_guidance.py)."""
+    """Each of these inputs runs now (tests/test_torch_conditioning*.py);
+    what the JAX package rejects for it, the port rejects and names:
+    skipped initial steps without media_items or latents, latents of the
+    wrong shape, latents and media_items together, a conditioning item
+    that is not a ConditioningItem, and (the port's own tensor input)
+    image-conditioning noise of the wrong shape."""
     _, tp = pipelines
-    embeds, mask, _, _ = inputs
+    embeds, mask, _, ref = inputs
     name = next(iter(setting))
-    call_kw = {}
-    if setting[name] is True:  # an unported input, not a GenerationParams field
-        call_kw[name] = [object()] if name == "conditioning_items" else _t(embeds)
-        setting = {}
-    with pytest.raises(NotImplementedError, match=name):
-        tp(tpipe.GenerationParams(**_params(**setting)), torch.Generator(),
+    lat = torch.zeros(1, 2, H // 32, W // 32, 8)
+    call_kw, params = {}, {}
+    if name == "skip_initial_inference_steps":
+        params = setting
+    elif name == "image_cond_noise_scale":
+        params = setting
+        call_kw = dict(conditioning_items=[tpipe.ConditioningItem(_t(ref))],
+                       image_cond_noise=torch.zeros(2, 1, 8, 8))
+    elif name == "latents":
+        call_kw = dict(latents=_t(embeds))
+    elif name == "media_items":
+        call_kw = dict(latents=lat, media_items=torch.zeros(1, FRAMES, H, W, 3))
+    else:
+        call_kw = dict(conditioning_items=[object()])
+    with pytest.raises((ValueError, TypeError), match=name):
+        tp(tpipe.GenerationParams(**_params(**params)), torch.Generator(),
            _t(embeds), _t(mask), dtype=torch.float32, **call_kw)

@@ -149,3 +149,84 @@ def run_guided_walk(pipes, frames, settings, negative=False):
 
 SHIPPED = dict(guidance_scale=3.0, stg_scale=1.0, rescaling_scale=0.7,
                skip_block_list=[1], skip_layer_strategy="AttentionValues")
+
+
+# ---------------------------------------------------------------------------
+# Conditioning inputs (tests/test_torch_conditioning*.py)
+# ---------------------------------------------------------------------------
+
+COND_STEPS, COND_CH, COND_SCALE = STEPS, 8, 32
+
+
+def cond_latent_shape(media_shape):
+    b, f, h, w, _ = media_shape
+    return (b, (f - 1) // 8 + 1, h // COND_SCALE, w // COND_SCALE, COND_CH)
+
+
+def cond_media(seed, frames, size):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1, 1, (1, frames, size, size, 3)).astype(np.float32)
+
+
+def run_conditioned(pipes, size, frames, items=(), settings=None, latents=None,
+                    media_items=None):
+    """Latents of the JAX pipeline and of the port (``guided_pipelines``)
+    with conditioning inputs: ``items`` as (media, frame, strength, x, y),
+    ``latents``, ``media_items``. The port is fed the JAX pipeline's draws,
+    recomputed from its key splits: the initial noise, the media encoder's
+    draw, each item's encoder draw and prefix noise, and the per-step
+    image-conditioning noise."""
+    jp, tp = pipes
+    rng = np.random.default_rng(0)
+    embeds = rng.standard_normal((1, 8, 32)).astype(np.float32)
+    mask = np.ones((1, 8), np.float32)
+    mask[0, 6:] = 0.0
+    settings = dict(settings or {})
+    p = dict(dict(height=size, width=size, num_frames=frames - 1, frame_rate=25.0,
+                  num_inference_steps=COND_STEPS, guidance_scale=1.0, stg_scale=0.0,
+                  rescaling_scale=1.0), **settings)
+    key = jax.random.PRNGKey(3)
+    jitems = [jpipe.ConditioningItem(jnp.asarray(m), f, s, x, y) for m, f, s, x, y in items]
+    ref = jp(jpipe.GenerationParams(**p), key, embeds, mask,
+             conditioning_items=jitems or None,
+             latents=None if latents is None else jnp.asarray(latents),
+             media_items=None if media_items is None else jnp.asarray(media_items),
+             output_type="latent", dtype=jnp.float32)
+
+    # the JAX pipeline's draws, from its key splits
+    _, _, k_lat, k_cond, k_loop, _ = jax.random.split(key, 6)
+    lat_shape = cond_latent_shape((1, frames, size, size, 3))
+    draws = {}
+    if media_items is not None:
+        k_enc, k_lat = jax.random.split(k_lat)
+        draws["media_noise"] = _f32(jax.random.normal(
+            k_enc, cond_latent_shape(media_items.shape)))
+    draws["init_noise"] = _f32(jax.random.normal(jax.random.split(k_lat, 1)[0],
+                                               lat_shape[1:])[None])
+    item_noise, prefix_noise, n_extra = [], [], 0
+    for m, frame_no, _, x, y in items:
+        k_enc, k_noise, k_cond = jax.random.split(k_cond, 3)
+        enc_shape = cond_latent_shape(m.shape if x is not None or y is not None
+                                      else (1, m.shape[1], size, size, 3))
+        item_noise.append(_f32(jax.random.normal(k_enc, enc_shape)))
+        if frame_no:
+            pre = (1, min(enc_shape[1], 2)) + enc_shape[2:]
+            prefix_noise.append(_f32(jax.random.normal(k_noise, pre)))
+            n_extra += int(np.prod(pre[1:4]))
+        else:
+            prefix_noise.append(None)
+    if settings.get("image_cond_noise_scale"):
+        tokens = (1, n_extra + int(np.prod(lat_shape[1:4])), COND_CH)
+        steps = COND_STEPS - settings.get("skip_initial_inference_steps", 0)
+        draws["image_cond_noise"] = torch.stack([
+            _f32(jax.random.normal(jax.random.fold_in(k_loop, 2 * i), tokens))
+            for i in range(steps)])
+    titems = [tpipe.ConditioningItem(_f32(m), f, s, x, y) for m, f, s, x, y in items]
+    out = tp(tpipe.GenerationParams(**p), torch.Generator(), _f32(embeds), _f32(mask),
+             conditioning_items=titems or None,
+             latents=None if latents is None else _f32(latents),
+             media_items=None if media_items is None else _f32(media_items),
+             item_noise=item_noise or None, prefix_noise=prefix_noise or None,
+             output_type="latent", dtype=torch.float32, **draws)
+    assert tuple(out.shape) == tuple(np.asarray(ref).shape) == lat_shape
+    return out.numpy(), np.asarray(ref)
