@@ -1,11 +1,13 @@
-// Self-attention with split-half RoPE applied in-kernel, bf16, head_dim 64.
+// Self-attention with split-half RoPE applied in-kernel. Built per element
+// type and padded head dim (attention_tile.cuh): bf16 or f32, any head dim
+// d % 16 == 0 up to 256, as the reference's `rope_fused_supports`.
 //
 // Replaces the TPU kernel `_rope_token_kernel`
 // (avatar_tpu/ops/flash_attention.py:729, launched by `_rope_fused_impl`
 // through `rope_fused_attention`). q/k arrive [B, L, C] in global split-half
-// channel order: head h reads its halves at columns [h*32, h*32+32) and
-// [C/2 + h*32, ...), and cos/sin [B, L, C/2] at [l, h*32 + i]. v and the
-// output are token-major with head h at columns [h*64, (h+1)*64).
+// channel order: head h reads its halves at columns [h*d/2, (h+1)*d/2) and
+// [C/2 + h*d/2, ...), and cos/sin [B, L, C/2] at [l, h*d/2 + i]. v and the
+// output are token-major with head h at columns [h*d, (h+1)*d).
 //
 // Bound on an H100 SXM (989 TF/s dense bf16, 3.35 TB/s): at the DiT's
 // 1 x 832 tokens x 32 heads it does 4*832^2*2048 = 5.67 GFLOP and must move
@@ -25,51 +27,50 @@ namespace avatar_attn {
 
 template <bool kBounded>
 __global__ void __launch_bounds__(kThreads)
-rope_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ cos_s,
-                      const __nv_bfloat16* __restrict__ sin_s,
-                      __nv_bfloat16* __restrict__ out, int L, int H,
-                      float scale) {
+rope_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ cos_s,
+                      const T* __restrict__ sin_s, T* __restrict__ out, int L,
+                      int H, int d, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int q0 = blockIdx.x * kTileQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int64_t C = (int64_t)H * kHeadDim;
-  const int half = H * (kHeadDim / 2);
+  const int64_t C = (int64_t)H * d;
+  const int half = H * (d / 2);
   const int64_t tok = (int64_t)b * L;
-  const int64_t hcol = (int64_t)h * (kHeadDim / 2);
+  const int64_t hcol = (int64_t)h * (d / 2);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  load_rope_tile(sm.q, q + (tok + q0) * C + hcol,
-                 cos_s + (tok + q0) * half + hcol,
-                 sin_s + (tok + q0) * half + hcol, C, half, min(kTileQ, L - q0));
-  for (int i = threadIdx.x; i < kTileQ * kLdf; i += kThreads) sm.o[i] = 0.0f;
+  load_rope_tile<kTileQ>(sm.q, q + (tok + q0) * C + hcol,
+                         cos_s + (tok + q0) * half + hcol,
+                         sin_s + (tok + q0) * half + hcol, C, half,
+                         min(kTileQ, L - q0), d);
+  for (int i = threadIdx.x; i < kTileQ * kLdo; i += kThreads) sm.o[i] = 0.0f;
 
   float m = -INFINITY, l = 0.0f;
   for (int k0 = 0; k0 < L; k0 += kTileK) {
     const int rows = min(kTileK, L - k0);
     __syncthreads();
-    load_rope_tile(sm.k, k + (tok + k0) * C + hcol,
-                   cos_s + (tok + k0) * half + hcol,
-                   sin_s + (tok + k0) * half + hcol, C, half, rows);
-    load_tile(sm.v, v + (tok + k0) * C + (int64_t)h * kHeadDim, C, rows);
-    if (threadIdx.x < kTileK) sm.keep[threadIdx.x] = threadIdx.x < rows ? 1.0f : -1.0f;
+    load_rope_tile<kTileK>(sm.k, k + (tok + k0) * C + hcol,
+                           cos_s + (tok + k0) * half + hcol,
+                           sin_s + (tok + k0) * half + hcol, C, half, rows, d);
+    load_tile<kTileK>(sm.v, v + (tok + k0) * C + (int64_t)h * d, C, rows, d);
+    load_keep<kTileK>(sm.keep, nullptr, k0, rows);
     __syncthreads();
     attend_tile<kBounded>(sm, warp, lane, scale, m, l);
   }
-  store_rows(sm, warp, lane, l, out + (tok + q0) * C + (int64_t)h * kHeadDim, C,
-             min(kTileQ, L - q0));
+  store_rows(sm, warp, lane, l, out + (tok + q0) * C + (int64_t)h * d, C,
+             min(kTileQ, L - q0), d);
 }
 
 template <bool kBounded>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           const void* cos_s, const void* sin_s, void* out,
-                          int B, int L, int H, float scale,
+                          int B, int L, int H, int d, float scale,
                           cudaStream_t stream) {
+  if (d % 16 != 0 || d > kHeadDim) return cudaErrorInvalidValue;
   auto kernel = rope_attention_kernel<kBounded>;
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
@@ -77,23 +78,23 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   dim3 grid((L + kTileQ - 1) / kTileQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(cos_s),
-      static_cast<const __nv_bfloat16*>(sin_s), static_cast<__nv_bfloat16*>(out),
-      L, H, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(cos_s), static_cast<const T*>(sin_s), static_cast<T*>(out),
+      L, H, d, scale);
   return cudaGetLastError();
 }
 
 }  // namespace avatar_attn
 
-// C entry for ctypes. Returns the cudaError_t of the launch (0 = success).
-extern "C" int rope_attention_bf16(const void* q, const void* k, const void* v,
-                                   const void* cos_s, const void* sin_s,
-                                   void* out, int B, int L, int H, float scale,
-                                   int bounded, void* stream) {
+// C entry for ctypes (rope_attention_bf16 or _f32). Returns the cudaError_t
+// of the launch (0 = success).
+extern "C" int ATTN_ENTRY(rope_attention)(const void* q, const void* k, const void* v,
+                                          const void* cos_s, const void* sin_s,
+                                          void* out, int B, int L, int H, int d,
+                                          float scale, int bounded, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      bounded ? avatar_attn::launch<true>(q, k, v, cos_s, sin_s, out, B, L, H, scale, s)
-              : avatar_attn::launch<false>(q, k, v, cos_s, sin_s, out, B, L, H, scale, s);
+      bounded ? avatar_attn::launch<true>(q, k, v, cos_s, sin_s, out, B, L, H, d, scale, s)
+              : avatar_attn::launch<false>(q, k, v, cos_s, sin_s, out, B, L, H, d, scale, s);
   return static_cast<int>(err);
 }

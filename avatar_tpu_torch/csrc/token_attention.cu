@@ -1,10 +1,11 @@
-// Token-major attention with an optional [B, Lk] keep-mask, bf16,
-// head_dim 64.
+// Token-major attention with an optional [B, Lk] keep-mask. Built per
+// element type and padded head dim (attention_tile.cuh): bf16 or f32, any
+// head dim d % 8 == 0 up to 256, as the reference's `fused_supports`.
 //
 // Replaces the TPU kernel `_token_major_kernel` (and its `_nomask`
 // variant, avatar_tpu/ops/flash_attention.py:611/653, launched by
 // `_fused_fwd_impl` through `fused_token_attention`). q/o are [B, Lq, C],
-// k/v [B, Lk, C], head h at columns [h*64, (h+1)*64). Masked keys get
+// k/v [B, Lk, C], head h at columns [h*d, (h+1)*d). Masked keys get
 // p = 0 and a row whose keys are all masked returns 0. Lk need not be a
 // multiple of the 64-key tile: the ragged edge is masked.
 //
@@ -24,43 +25,44 @@ namespace avatar_attn {
 
 template <bool kBounded>
 __global__ void __launch_bounds__(kThreads)
-token_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const float* __restrict__ mask,
-                       __nv_bfloat16* __restrict__ out, int Lq, int Lk, int H,
+token_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const float* __restrict__ mask,
+                       T* __restrict__ out, int Lq, int Lk, int H, int d,
                        float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int q0 = blockIdx.x * kTileQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int64_t C = (int64_t)H * kHeadDim;
-  const int64_t hcol = (int64_t)h * kHeadDim;
+  const int64_t C = (int64_t)H * d;
+  const int64_t hcol = (int64_t)h * d;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  load_tile(sm.q, q + ((int64_t)b * Lq + q0) * C + hcol, C, min(kTileQ, Lq - q0));
-  for (int i = threadIdx.x; i < kTileQ * kLdf; i += kThreads) sm.o[i] = 0.0f;
+  load_tile<kTileQ>(sm.q, q + ((int64_t)b * Lq + q0) * C + hcol, C,
+                    min(kTileQ, Lq - q0), d);
+  for (int i = threadIdx.x; i < kTileQ * kLdo; i += kThreads) sm.o[i] = 0.0f;
 
   float m = -INFINITY, l = 0.0f;
   for (int k0 = 0; k0 < Lk; k0 += kTileK) {
     const int rows = min(kTileK, Lk - k0);
     __syncthreads();
-    load_tile(sm.k, k + ((int64_t)b * Lk + k0) * C + hcol, C, rows);
-    load_tile(sm.v, v + ((int64_t)b * Lk + k0) * C + hcol, C, rows);
-    load_keep(sm.keep, mask == nullptr ? nullptr : mask + (int64_t)b * Lk, k0, rows);
+    load_tile<kTileK>(sm.k, k + ((int64_t)b * Lk + k0) * C + hcol, C, rows, d);
+    load_tile<kTileK>(sm.v, v + ((int64_t)b * Lk + k0) * C + hcol, C, rows, d);
+    load_keep<kTileK>(sm.keep, mask == nullptr ? nullptr : mask + (int64_t)b * Lk,
+                      k0, rows);
     __syncthreads();
     attend_tile<kBounded>(sm, warp, lane, scale, m, l);
   }
   store_rows(sm, warp, lane, l, out + ((int64_t)b * Lq + q0) * C + hcol, C,
-             min(kTileQ, Lq - q0));
+             min(kTileQ, Lq - q0), d);
 }
 
 template <bool kBounded>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           const void* mask, void* out, int B, int Lq, int Lk,
-                          int H, float scale, cudaStream_t stream) {
+                          int H, int d, float scale, cudaStream_t stream) {
+  if (d % 8 != 0 || d > kHeadDim) return cudaErrorInvalidValue;
   auto kernel = token_attention_kernel<kBounded>;
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
@@ -68,23 +70,22 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + kTileQ - 1) / kTileQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(mask),
-      static_cast<__nv_bfloat16*>(out), Lq, Lk, H, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(mask), static_cast<T*>(out), Lq, Lk, H, d, scale);
   return cudaGetLastError();
 }
 
 }  // namespace avatar_attn
 
-// C entry for ctypes. `mask` may be null (no mask). Returns the
-// cudaError_t of the launch (0 = success).
-extern "C" int token_attention_bf16(const void* q, const void* k, const void* v,
-                                    const void* mask, void* out, int B, int Lq,
-                                    int Lk, int H, float scale, int bounded,
-                                    void* stream) {
+// C entry for ctypes (token_attention_bf16 or _f32). `mask` may be null (no
+// mask). Returns the cudaError_t of the launch (0 = success).
+extern "C" int ATTN_ENTRY(token_attention)(const void* q, const void* k, const void* v,
+                                           const void* mask, void* out, int B, int Lq,
+                                           int Lk, int H, int d, float scale,
+                                           int bounded, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      bounded ? avatar_attn::launch<true>(q, k, v, mask, out, B, Lq, Lk, H, scale, s)
-              : avatar_attn::launch<false>(q, k, v, mask, out, B, Lq, Lk, H, scale, s);
+      bounded ? avatar_attn::launch<true>(q, k, v, mask, out, B, Lq, Lk, H, d, scale, s)
+              : avatar_attn::launch<false>(q, k, v, mask, out, B, Lq, Lk, H, d, scale, s);
   return static_cast<int>(err);
 }

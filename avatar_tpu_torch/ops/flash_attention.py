@@ -22,11 +22,22 @@ Head-major, [B, H, L, head_dim]:
   gradient ``_bwd_dkv_kernel_bias``, ``_bwd_dq_kernel_bias`` and
   ``_bwd_db_kernel`` (dBias summed over the heads that share a slab).
 
-On a CUDA tensor a wrapper launches its kernel (bf16, head_dim 64) or
-raises; on a CPU tensor it runs the plain PyTorch version beside it, which
-computes the same function with the kernel's masking: masked keys get
-p = 0 and a row with every key masked returns 0. ``bounded`` (qk-normed
-logits) drops the softmax max pass: p = exp(min(s, 80)).
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
+it runs the plain PyTorch version beside it, which computes the same
+function with the kernel's masking: masked keys get p = 0 and a row with
+every key masked returns 0. ``bounded`` (qk-normed logits) drops the
+softmax max pass: p = exp(min(s, 80)).
+
+The kernels take bf16 and f32 and every head dim that the reference's
+predicate for their path admits: a multiple of 8 up to 512 for the
+head-major kernels (a multiple of 16 for A, up to 256 for A and B); fp16
+reaches no path of either package and raises. The route is chosen from the
+dtype and the head dim before the launch (:func:`forward_impl`): the
+bounded (C) and online (D) kernels at bf16 with head dim 64 or 128 run the
+Hopper kernel (``csrc/flash_forward_sm90.cu``: TMA and wgmma, and strided
+q/k/v read in place); every other case runs the WMMA tile code built for
+its (dtype, padded head dim) variant (:func:`kernel_variant`). Neither is a
+fallback of the other: each (dtype, head dim) has exactly one route.
 
 Gradients follow the JAX package's custom VJPs. Where an input requires a
 gradient, each of the three attention entries runs as a
@@ -60,15 +71,23 @@ from avatar_tpu_torch.ops.rope import apply_rotary_emb_split
 BOUNDED_LOGIT_CLAMP = 80.0
 NEG_INF = -1e30
 LSE_MASKED = 1e30  # lse of a row with no kept key
-KERNEL_HEAD_DIM = 64
+# padded head dims of the WMMA kernels' variants (zero columns fill the pad)
+PADDED_HEAD_DIMS = (64, 128, 256, 512)
+# head dims of the Hopper forward kernel (bf16 only)
+SM90_HEAD_DIMS = (64, 128)
+DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # the reference's largest single block: up to this length (after rounding
 # up to 128) for both q and kv, _flash_forward takes the whole-row kernel
 SINGLE_BLOCK_MAX = 1024
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
+# flash_bounded / flash_online count the mode (C, D) whatever the route;
+# the _sm90 and _wmma counters split them by implementation.
 launch_counts: Dict[str, int] = {
     "rope_fused_attention": 0, "fused_token_attention": 0,
     "flash_bounded": 0, "flash_online": 0, "flash_single": 0,
+    "flash_bounded_sm90": 0, "flash_online_sm90": 0,
+    "flash_bounded_wmma": 0, "flash_online_wmma": 0,
     "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
     "flash_dense_forward": 0, "flash_dense_bwd_dkv": 0, "flash_dense_bwd_dq": 0,
     "flash_dense_bwd_db": 0,
@@ -308,30 +327,73 @@ def _flash_dense_backward_plain(q, k, v, bias3, out, lse, g, scale, with_db=True
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16):
+def padded_head_dim(d: int) -> int:
+    """The WMMA variant's head dim for ``d``: the smallest of
+    :data:`PADDED_HEAD_DIMS` that holds it."""
+    return next(p for p in PADDED_HEAD_DIMS if p >= d)
+
+
+def kernel_variant(dtype: torch.dtype, d: int) -> Tuple[str, Tuple[str, ...]]:
+    """(C entry suffix, ``nvcc`` defines) of the WMMA attention kernels'
+    build for ``dtype`` and head dim ``d``: ``("bf16", ())`` is the default
+    bf16 / 64 build; f32 adds ``ATTN_F32=1``, a larger padded head dim
+    ``ATTN_D=<dim>``."""
+    defines = ("ATTN_F32=1",) if dtype == torch.float32 else ()
+    kd = padded_head_dim(d)
+    if kd != 64:
+        defines += (f"ATTN_D={kd}",)
+    return DTYPE_NAMES[dtype], defines
+
+
+def forward_impl(mode: str, dtype: torch.dtype, d: int) -> str:
+    """Which implementation runs a ``_flash_forward`` mode on the card:
+    "sm90" (the Hopper kernel) for the bounded and online modes at bf16
+    with head dim 64 or 128, else "wmma"."""
+    if mode in ("bounded", "online") and dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
+        return "sm90"
+    return "wmma"
+
+
+def check_kernel_args(kernel: str, dtype: torch.dtype, d: int, max_d: int,
+                      multiple: int = 8) -> None:
+    """Raise where the reference's predicate for this kernel's path refuses:
+    a dtype other than bf16 or f32 (fp16 reaches no path of either
+    package), a head dim that is not a multiple of ``multiple`` or above
+    ``max_d``."""
+    if dtype not in DTYPE_NAMES:
+        raise ValueError(f"{kernel}: the CUDA kernels take bf16 or f32, got {dtype}")
+    if d < multiple or d % multiple or d > max_d:
+        raise ValueError(f"{kernel}: head_dim must be a multiple of {multiple} up to "
+                         f"{max_d}, got {d}")
+
+
+def _check_cuda(name: str, t: torch.Tensor, shape, dtype, contiguous: bool = True):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if (contiguous and not t.is_contiguous()) or t.data_ptr() % 16:
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
-def _check_heads(c: int, heads: int):
-    if c % heads or c // heads != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"CUDA attention kernels take head_dim {KERNEL_HEAD_DIM}; "
-            f"got width {c} over {heads} heads"
-        )
+def _split_heads(kernel: str, c: int, heads: int, dtype, multiple: int) -> int:
+    """Head dim of a token-major width ``c`` over ``heads``, checked
+    against the token-major kernels' limits (up to 256)."""
+    if c % heads:
+        raise ValueError(f"{kernel}: width {c} does not split over {heads} heads")
+    d = c // heads
+    check_kernel_args(kernel, dtype, d, 256, multiple)
+    return d
 
 
 def _c_entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int,
-             bounded_flag: bool = True):
+             bounded_flag: bool = True, defines: Tuple[str, ...] = ()):
     """The C entry ``fn_name(ptr * n_ptrs, int * n_ints, float scale,
-    [int bounded,] void* stream) -> cudaError_t`` of ``csrc/<lib_name>.cu``."""
-    fn = getattr(load(lib_name), fn_name)
+    [int bounded,] void* stream) -> cudaError_t`` of ``csrc/<lib_name>.cu``
+    built with ``defines``."""
+    fn = getattr(load(lib_name, defines), fn_name)
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
@@ -361,19 +423,20 @@ def _rope_forward(q, k, v, cos_s, sin_s, heads, scale, bounded):
     if _wrapper_device(q) == "cpu":
         return _rope_attention_plain(q, k, v, cos_s, sin_s, heads, scale, bounded)
     b, l, c = q.shape
-    _check_heads(c, heads)
+    d = _split_heads("rope_fused_attention", c, heads, q.dtype, 16)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda(name, t, (b, l, c))
+        _check_cuda(name, t, (b, l, c), q.dtype)
     for name, t in (("cos", cos_s), ("sin", sin_s)):
-        _check_cuda(name, t, (b, l, c // 2))
+        _check_cuda(name, t, (b, l, c // 2), q.dtype)
     out = torch.empty_like(q)
-    fn = _c_entry("rope_attention", "rope_attention_bf16", 6, 3)
+    suffix, defines = kernel_variant(q.dtype, d)
+    fn = _c_entry("rope_attention", f"rope_attention_{suffix}", 6, 4, defines=defines)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_s.data_ptr(),
-        sin_s.data_ptr(), out.data_ptr(), b, l, heads, float(scale),
+        sin_s.data_ptr(), out.data_ptr(), b, l, heads, d, float(scale),
         int(bool(bounded)), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, "rope_attention_bf16")
+    _raise_on(err, f"rope_attention_{suffix}")
     launch_counts["rope_fused_attention"] += 1
     return out
 
@@ -383,22 +446,23 @@ def _token_forward(q, k, v, kv_mask, heads, scale, bounded):
         return _token_attention_plain(q, k, v, kv_mask, heads, scale, bounded)
     b, lq, c = q.shape
     lk = k.shape[1]
-    _check_heads(c, heads)
-    _check_cuda("q", q, (b, lq, c))
-    _check_cuda("k", k, (b, lk, c))
-    _check_cuda("v", v, (b, lk, c))
+    d = _split_heads("fused_token_attention", c, heads, q.dtype, 8)
+    _check_cuda("q", q, (b, lq, c), q.dtype)
+    _check_cuda("k", k, (b, lk, c), q.dtype)
+    _check_cuda("v", v, (b, lk, c), q.dtype)
     mask_ptr = None
     if kv_mask is not None:
-        _check_cuda("kv_mask", kv_mask, (b, lk), dtype=torch.float32)
+        _check_cuda("kv_mask", kv_mask, (b, lk), torch.float32)
         mask_ptr = kv_mask.data_ptr()
     out = torch.empty_like(q)
-    fn = _c_entry("token_attention", "token_attention_bf16", 5, 4)
+    suffix, defines = kernel_variant(q.dtype, d)
+    fn = _c_entry("token_attention", f"token_attention_{suffix}", 5, 5, defines=defines)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        b, lq, lk, heads, float(scale), int(bool(bounded)),
+        b, lq, lk, heads, d, float(scale), int(bool(bounded)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, "token_attention_bf16")
+    _raise_on(err, f"token_attention_{suffix}")
     launch_counts["fused_token_attention"] += 1
     return out
 
@@ -534,91 +598,153 @@ def flash_mode(lq: int, lk: int, bounded: bool) -> str:
     return "bounded" if bounded else "online"
 
 
+def fold_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
+    """(q, scale) as ``_flash_forward`` hands them to its kernel: a
+    power-of-two scale is folded into q, as the reference does: exact (an
+    exponent shift; head_dim 64 gives 0.125), so the logits and the saved
+    lse are the same bits either way. Any other scale stays, to multiply
+    the f32 logits (folding it would round q)."""
+    if scale > 0.0 and math.frexp(scale)[0] == 0.5 and scale != 1.0:
+        return q * scale, 1.0
+    return q, scale
+
+
+def _tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """Element strides (batch, head, row) of a head-major [B, H, L, D] bf16
+    tensor that the Hopper kernel's tensor maps can read in place (last
+    stride 1, the others multiples of 8 elements, a 16-byte aligned base),
+    else None. A dimension of size 1 gets a stride that TMA accepts."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    b, h, l, d = t.shape
+    sb, sh, sl = t.stride(0), t.stride(1), t.stride(2)
+    if l == 1:
+        sl = d
+    if h == 1:
+        sh = l * sl
+    if b == 1:
+        sb = h * sh
+    if any(x % 8 for x in (sb, sh, sl)):
+        return None
+    return sb, sh, sl
+
+
+def _flash_sm90_call(q, k, v, kv_mask, out, lse, mode, scale):
+    """Launch ``flash_sm90_bf16`` (``csrc/flash_forward_sm90.cu``, the
+    ``ATTN_D=128`` build at head dim 128) on tensors whose strides
+    :func:`_tma_strides` takes."""
+    b, heads, lq, d = q.shape
+    lk = k.shape[2]
+    defines = () if d == 64 else (f"ATTN_D={d}",)
+    fn = getattr(load("flash_forward_sm90", defines), "flash_sm90_bf16")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    strides = [x for t in (q, k, v, out) for x in _tma_strides(t)]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), b, heads, lq, lk, d, *strides, float(scale),
+             int(mode == "bounded"), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "flash_sm90_bf16")
+
+
 def _flash_forward(q, k, v, kv_mask, scale: float, bounded: bool
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) through the kernel that :func:`flash_mode` names."""
+    """(out, lse) through the kernel that :func:`flash_mode` names, by the
+    route that :func:`forward_impl` names. The Hopper route reads q, k and
+    v in place where their strides allow (the DiT's head-major views of
+    token-major tensors) and writes O in q's layout; the WMMA route reads
+    and writes contiguous tensors."""
     b, heads, lq, d = q.shape
     lk = k.shape[2]
     mode = flash_mode(lq, lk, bounded)
-    # A power-of-two scale is folded into q, as the reference does: exact
-    # in bf16 (an exponent shift; head_dim 64 gives 0.125), so the logits
-    # and the saved lse are the same bits either way. Any other scale
-    # multiplies the f32 logits.
-    if scale > 0.0 and math.frexp(scale)[0] == 0.5 and scale != 1.0:
-        q = q * scale
-        scale = 1.0
+    q, scale = fold_scale(q, scale)
     if _wrapper_device(q) == "cpu":
         return _flash_plain(q, k, v, kv_mask, scale, mode)
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"CUDA attention kernels take head_dim {KERNEL_HEAD_DIM}; got {d}")
-    # the head-major relayout of the caller's transposed views lands here
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check_cuda("q", q, (b, heads, lq, d))
-    _check_cuda("k", k, (b, heads, lk, d))
-    _check_cuda("v", v, (b, heads, lk, d))
+    check_kernel_args("flash_attention", q.dtype, d, 512)
+    impl = forward_impl(mode, q.dtype, d)
+    if impl == "sm90":
+        # a layout the tensor maps cannot read is copied, as on the WMMA route
+        q, k, v = (t if _tma_strides(t) is not None else t.contiguous()
+                   for t in (q, k, v))
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, t, n in (("q", q, lq), ("k", k, lk), ("v", v, lk)):
+        _check_cuda(name, t, (b, heads, n, d), q.dtype, contiguous=impl == "wmma")
     mask_ptr = None
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.float32).contiguous()
-        _check_cuda("kv_mask", kv_mask, (b, lk), dtype=torch.float32)
+        _check_cuda("kv_mask", kv_mask, (b, lk), torch.float32)
         mask_ptr = kv_mask.data_ptr()
+    # empty_like keeps q's layout: a token-major view gets a token-major O
     out = torch.empty_like(q)
     lse = torch.empty((b, heads, lq), device=q.device, dtype=torch.float32)
     name = f"flash_{mode}"
-    fn = _c_entry("flash_forward", f"{name}_bf16", 6, 4, bounded_flag=False)
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        lse.data_ptr(), b, heads, lq, lk, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(err, f"{name}_bf16")
+    if impl == "sm90":
+        _flash_sm90_call(q, k, v, kv_mask, out, lse, mode, scale)
+    else:
+        suffix, defines = kernel_variant(q.dtype, d)
+        fn = _c_entry("flash_forward", f"{name}_{suffix}", 6, 5, bounded_flag=False,
+                      defines=defines)
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+            lse.data_ptr(), b, heads, lq, lk, d, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _raise_on(err, f"{name}_{suffix}")
     launch_counts[name] += 1
+    if mode != "single":
+        launch_counts[f"{name}_{impl}"] += 1
     return out, lse
 
 
 def _check_backward_inputs(q, k, v, g, lse, delta, kv_mask):
     b, heads, lq, d = q.shape
     lk = k.shape[2]
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"CUDA attention kernels take head_dim {KERNEL_HEAD_DIM}; got {d}")
+    check_kernel_args("flash_attention backward", q.dtype, d, 512)
     for name, t, n in (("q", q, lq), ("k", k, lk), ("v", v, lk), ("g", g, lq)):
-        _check_cuda(name, t, (b, heads, n, d))
+        _check_cuda(name, t, (b, heads, n, d), q.dtype)
     for name, t in (("lse", lse), ("delta", delta)):
-        _check_cuda(name, t, (b, heads, lq), dtype=torch.float32)
+        _check_cuda(name, t, (b, heads, lq), torch.float32)
     if kv_mask is not None:
-        _check_cuda("kv_mask", kv_mask, (b, lk), dtype=torch.float32)
-    return b, heads, lq, lk
+        _check_cuda("kv_mask", kv_mask, (b, lk), torch.float32)
+    return b, heads, lq, lk, d
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask, scale: float):
-    """Kernel ``flash_bwd_dkv_bf16`` (``_bwd_dkv_kernel``): (dk, dv) of
-    head-major bf16 attention from contiguous q, k, v, the output gradient
-    g, lse and delta = rowsum(g * O) [B, H, Lq] f32, with the caller's
-    scale. CUDA tensors only."""
-    b, heads, lq, lk = _check_backward_inputs(q, k, v, g, lse, delta, kv_mask)
+    """Kernel ``flash_bwd_dkv_<dtype>`` (``_bwd_dkv_kernel``): (dk, dv) of
+    head-major attention from contiguous q, k, v, the output gradient g,
+    lse and delta = rowsum(g * O) [B, H, Lq] f32, with the caller's scale.
+    CUDA tensors only."""
+    b, heads, lq, lk, d = _check_backward_inputs(q, k, v, g, lse, delta, kv_mask)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _c_entry("flash_backward", "flash_bwd_dkv_bf16", 9, 4, bounded_flag=False)
+    suffix, defines = kernel_variant(q.dtype, d)
+    fn = _c_entry("flash_backward", f"flash_bwd_dkv_{suffix}", 9, 5,
+                  bounded_flag=False, defines=defines)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), b, heads, lq, lk, float(scale),
+             dk.data_ptr(), dv.data_ptr(), b, heads, lq, lk, d, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "flash_bwd_dkv_bf16")
+    _raise_on(err, f"flash_bwd_dkv_{suffix}")
     launch_counts["flash_bwd_dkv"] += 1
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask, scale: float):
-    """Kernel ``flash_bwd_dq_bf16`` (``_bwd_dq_kernel``): dq, with the
+    """Kernel ``flash_bwd_dq_<dtype>`` (``_bwd_dq_kernel``): dq, with the
     arguments of :func:`flash_bwd_dkv`. CUDA tensors only."""
-    b, heads, lq, lk = _check_backward_inputs(q, k, v, g, lse, delta, kv_mask)
+    b, heads, lq, lk, d = _check_backward_inputs(q, k, v, g, lse, delta, kv_mask)
     dq = torch.empty_like(q)
-    fn = _c_entry("flash_backward", "flash_bwd_dq_bf16", 8, 4, bounded_flag=False)
+    suffix, defines = kernel_variant(q.dtype, d)
+    fn = _c_entry("flash_backward", f"flash_bwd_dq_{suffix}", 8, 5,
+                  bounded_flag=False, defines=defines)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
-             dq.data_ptr(), b, heads, lq, lk, float(scale),
+             dq.data_ptr(), b, heads, lq, lk, d, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "flash_bwd_dq_bf16")
+    _raise_on(err, f"flash_bwd_dq_{suffix}")
     launch_counts["flash_bwd_dq"] += 1
     return dq
 
@@ -659,56 +785,58 @@ class _FlashFn(torch.autograd.Function):
 
 def _check_dense_inputs(q, k, v, bias3, tensors=()):
     """Shapes of the dense-bias kernels' operands; returns (b, heads, lq,
-    lk, heads_group)."""
+    lk, heads_group, d)."""
     b, heads, lq, d = q.shape
     lk = k.shape[2]
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"CUDA attention kernels take head_dim {KERNEL_HEAD_DIM}; got {d}")
+    check_kernel_args("flash_attention(bias=...)", q.dtype, d, 512)
     bb = bias3.shape[0]
     if bb not in (b, b * heads):
         raise ValueError(f"bias slabs {bb}: expected {b} or {b * heads}")
     for name, t, n in (("q", q, lq), ("k", k, lk), ("v", v, lk)) + tuple(tensors):
-        _check_cuda(name, t, (b, heads, n, d))
-    _check_cuda("bias", bias3, (bb, lq, lk), dtype=torch.float32)
-    return b, heads, lq, lk, b * heads // bb
+        _check_cuda(name, t, (b, heads, n, d), q.dtype)
+    _check_cuda("bias", bias3, (bb, lq, lk), torch.float32)
+    return b, heads, lq, lk, b * heads // bb, d
 
 
 def _flash_dense_forward(q, k, v, bias3, scale: float):
-    """(out, lse) of the dense-bias forward: kernel ``flash_dense_fwd_bf16``
+    """(out, lse) of the dense-bias forward: kernel ``flash_dense_fwd_<dtype>``
     on the card, its plain version on the CPU."""
     if _wrapper_device(q) == "cpu":
         return _flash_dense_plain(q, k, v, bias3, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    b, heads, lq, lk, group = _check_dense_inputs(q, k, v, bias3)
+    b, heads, lq, lk, group, d = _check_dense_inputs(q, k, v, bias3)
     out = torch.empty_like(q)
     lse = torch.empty((b, heads, lq), device=q.device, dtype=torch.float32)
-    fn = _c_entry("flash_dense", "flash_dense_fwd_bf16", 6, 5, bounded_flag=False)
+    suffix, defines = kernel_variant(q.dtype, d)
+    fn = _c_entry("flash_dense", f"flash_dense_fwd_{suffix}", 6, 6, bounded_flag=False,
+                  defines=defines)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias3.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), b, heads, lq, lk, group, float(scale),
+             lse.data_ptr(), b, heads, lq, lk, group, d, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "flash_dense_fwd_bf16")
+    _raise_on(err, f"flash_dense_fwd_{suffix}")
     launch_counts["flash_dense_forward"] += 1
     return out, lse
 
 
 def _dense_backward_call(name, n_ptrs, q, k, v, g, lse, delta, bias3, outs, scale):
-    b, heads, lq, lk, group = _check_dense_inputs(q, k, v, bias3,
-                                                  (("g", g, q.shape[2]),))
+    b, heads, lq, lk, group, d = _check_dense_inputs(q, k, v, bias3,
+                                                     (("g", g, q.shape[2]),))
     for label, t in (("lse", lse), ("delta", delta)):
-        _check_cuda(label, t, (b, heads, lq), dtype=torch.float32)
-    fn = _c_entry("flash_dense", f"{name}_bf16", n_ptrs, 5, bounded_flag=False)
+        _check_cuda(label, t, (b, heads, lq), torch.float32)
+    suffix, defines = kernel_variant(q.dtype, d)
+    fn = _c_entry("flash_dense", f"{name}_{suffix}", n_ptrs, 6, bounded_flag=False,
+                  defines=defines)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), bias3.data_ptr(), *(t.data_ptr() for t in outs),
-             b, heads, lq, lk, group, float(scale),
+             b, heads, lq, lk, group, d, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, f"{name}_bf16")
+    _raise_on(err, f"{name}_{suffix}")
     launch_counts[name] += 1
 
 
 def flash_dense_bwd_dkv(q, k, v, g, lse, delta, bias3, scale: float):
-    """Kernel ``flash_dense_bwd_dkv_bf16`` (``_bwd_dkv_kernel_bias``): (dk,
-    dv) of head-major bf16 attention with the f32 bias slabs ``bias3``
+    """Kernel ``flash_dense_bwd_dkv_<dtype>`` (``_bwd_dkv_kernel_bias``): (dk,
+    dv) of head-major attention with the f32 bias slabs ``bias3``
     [B or B*H, Lq, Lk], from contiguous q, k, v, the output gradient g, lse
     and delta = rowsum(g * O) [B, H, Lq] f32. CUDA tensors only."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -718,7 +846,7 @@ def flash_dense_bwd_dkv(q, k, v, g, lse, delta, bias3, scale: float):
 
 
 def flash_dense_bwd_dq(q, k, v, g, lse, delta, bias3, scale: float):
-    """Kernel ``flash_dense_bwd_dq_bf16`` (``_bwd_dq_kernel_bias``): dq, with
+    """Kernel ``flash_dense_bwd_dq_<dtype>`` (``_bwd_dq_kernel_bias``): dq, with
     the arguments of :func:`flash_dense_bwd_dkv`. CUDA tensors only."""
     dq = torch.empty_like(q)
     _dense_backward_call("flash_dense_bwd_dq", 8, q, k, v, g, lse, delta, bias3,
@@ -727,7 +855,7 @@ def flash_dense_bwd_dq(q, k, v, g, lse, delta, bias3, scale: float):
 
 
 def flash_dense_bwd_db(q, k, v, g, lse, delta, bias3, scale: float):
-    """Kernel ``flash_dense_bwd_db_bf16`` (``_bwd_db_kernel``): dBias
+    """Kernel ``flash_dense_bwd_db_<dtype>`` (``_bwd_db_kernel``): dBias
     [B or B*H, Lq, Lk] f32, each slab summed over the heads that share it,
     with the arguments of :func:`flash_dense_bwd_dkv`. CUDA tensors only."""
     db = torch.empty_like(bias3)

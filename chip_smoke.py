@@ -7,12 +7,18 @@ Phases, each printing one JSON line as soon as it has its numbers:
 
 1. card: name and power limit (``nvidia-smi``), TF32 settings;
 2. build: compiles the CUDA kernels of ``avatar_tpu_torch/csrc`` with
-   ``nvcc`` (one process per source, in parallel);
+   ``nvcc`` (one process per library, in parallel): every source's bf16 /
+   head dim 64 build and the Hopper kernel at head dim 128; the bf16 and
+   f32 variants at other head dims that kernel_generality needs build
+   meanwhile in the background;
 3. kernels (``kernel_*`` lines): each of the five attention kernels against
    its plain PyTorch version (bf16) at every shape a driven path gives it
    (832 and 5376 tokens, 256 caption keys, batch 1 and 3): bounded and
    unbounded, masked, a fully masked row, ragged lengths, and for the
-   head-major kernels the row log-sum-exp; the int8 product (exact int32
+   head-major kernels the row log-sum-exp; the bounded (C) and online (D)
+   kernels are the Hopper kernel (``flash_*_sm90``), also at head dim 128
+   and on transposed views, timed beside the WMMA kernel they replace, and their
+   WMMA route (``flash_*_wmma``) at f32; the int8 product (exact int32
    sums; the dequant at the DiT's three W8A8 shapes, 832 and a ragged 5000
    rows) and the three row-quant kernels (at most one int8 level apart on a
    stated fraction, scales at rtol 1e-6); the flash backward's two kernels
@@ -30,13 +36,19 @@ Phases, each printing one JSON line as soon as it has its numbers:
    (``attention_dense_bias``: autograd through
    ``scaled_dot_product_attention(mask=<4-D bias>, impl="flash")`` at both
    shapes, out and every gradient, bias included, against f32);
+   kernel_generality: every attention family (A, B, C, D, E, F, G) at
+   small ragged shapes, bf16 at head dims 32, 80, 128, 256 (and 512 for
+   C-G) and f32 at 64 and 128, against the plain versions, with the
+   variants' build seconds and C's and D's times at 5376 tokens;
 4. reference: a tiny pipeline at guidance 1 in bf16 on the card against the
    same pipeline in f32 on the CPU (plain kernel versions), once as it is
    and once with the timestep rounded as a bf16 run rounds it, and in bf16
    on the card without the kernels, same weights and noise;
 5. reference_guided: the same with CFG 3 + STG 1 + rescale 0.7 + Heun, on
    the default path and with ``attention_impl="flash", rope_split=False``
-   at shapes that reach each head-major kernel inside a pipeline;
+   at shapes that reach each head-major kernel inside a pipeline, and each
+   of these also in f32 on the card against f32 on the CPU (the f32
+   variants; ``reference_guided_f32``);
    reference_conditioned: conditioning items (first frame resized up with
    the image-conditioning noise; off-centre beside a sequence at frame 8
    with its prefix tokens) and ``media_items`` with skipped initial steps,
@@ -56,7 +68,8 @@ Phases, each printing one JSON line as soon as it has its numbers:
    28 x 40 times; then a profile (device time by kernel over 5 steps,
    torch.profiler) and the device's idle share of an unprofiled step;
 8. pipeline_long: the same models at 161 frames and 512 px (5376 tokens),
-   where self-attention goes through the head-major max-free kernel and
+   where self-attention goes through the head-major max-free kernel (the
+   Hopper kernel, 28 x 40 launches, none of the WMMA one) and
    cross-attention through the token-major one; profile of 3 steps;
 9. pipeline_guided: 97 frames at 256 px with the shipped guided settings
    (CFG 3, STG 1 on block 19 with AttentionValues, rescale 0.7): three
@@ -93,6 +106,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 TOKENS, CAPTION, HEADS, HEAD_DIM = 832, 256, 32, 64
 WIDTH = HEADS * HEAD_DIM
@@ -125,6 +139,11 @@ REFERENCE_TOL = 0.02
 # 12- and 16-token runs round t = 628.2 and 628.4 to 628 (0.021 to 0.026
 # measured), the 1280-token runs round t = 673.8 to 672 (0.110 and 0.111).
 EXACT_T_TOL = {"short": 0.04, "long": 0.14}
+# The same tiny pipelines in f32 on the card (the kernels' f32 variants)
+# against f32 on the CPU at the same t: both keep f32 throughout, the
+# kernels' 3xTF32 products hold about 2^-22 relative, and sums run in
+# another order, so the relative RMS should sit near 1e-6.
+F32_REFERENCE_TOL = 1e-4
 # The kernels' path against plain attention (``attention_impl="xla"``), both
 # bf16 on the card: the kernels round p and o at other places (0.005 to
 # 0.011 measured, CFG 3 + STG 1 + Heun included).
@@ -142,6 +161,17 @@ PEAKS = {"H200": (989e12, 4.8e12, 1979e12, 67e12),
 # boundary).
 SCALE_RTOL = 1e-6
 LEVEL_FRACTION = 1e-3
+# The f32 variants of the attention kernels against their plain versions in
+# f32 (TF32 off): within 1e-5 of the case's largest output. The kernels
+# multiply through a 3xTF32 split (about 2^-22 relative per product, sums
+# in f32 in another order); one-pass TF32 (2^-11) would miss it by far.
+F32_REL_TOL = 1e-5
+# and their lse (values of O(10), f32 sums in another order)
+LSE_TOL_F32 = 1e-4
+# The Hopper kernel (csrc/flash_forward_sm90.cu) replaces C and D at bf16
+# with these head dims; every other (type, head dim) runs the WMMA tile code
+SM90_SOURCE = "avatar_tpu_torch/csrc/flash_forward_sm90.cu"
+WMMA_SOURCE = "avatar_tpu_torch/csrc/flash_forward.cu"
 
 
 def emit(obj) -> None:
@@ -214,15 +244,17 @@ def bound(flops: float, nbytes: float, peaks, op_rate=None):
 class KernelErrors:
     """Max abs error of a kernel's output against its plain version's, case
     by case, each held to ``KERNEL_ULPS`` bf16 ulps of the case's largest
-    reference output."""
+    reference output, or to ``rel`` times it where given (f32 variants:
+    ``F32_REL_TOL``)."""
 
-    def __init__(self, kernel, ulps=KERNEL_ULPS):
-        self.kernel, self.ulps, self.errs, self.tols = kernel, ulps, {}, {}
+    def __init__(self, kernel, ulps=KERNEL_ULPS, rel=None):
+        self.kernel, self.errs, self.tols = kernel, {}, {}
+        self.rel = rel if rel is not None else ulps * 2.0**-7
 
     def add(self, label, out, ref):
         ref = ref.float()
         self.errs[label] = (out.float() - ref).abs().max().item()
-        self.tols[label] = self.ulps * 2.0**-7 * ref.abs().max().item()
+        self.tols[label] = self.rel * ref.abs().max().item()
 
     def check(self):
         """Fails on a case above its limit; else the largest error and that
@@ -412,38 +444,87 @@ def check_token_kernel(peaks):
 
 
 FLASH_KERNELS = {
-    # mode: (wrapper's counter, TPU kernel it replaces, bounded_logits)
-    "bounded": ("flash_bounded", "avatar_tpu/ops/flash_attention.py:241", True),
-    "online": ("flash_online", "avatar_tpu/ops/flash_attention.py:140", False),
-    "single": ("flash_single", "avatar_tpu/ops/flash_attention.py:387", False),
+    # mode: (row name and implementation counter, TPU kernel it replaces,
+    # bounded_logits, source)
+    "bounded": ("flash_bounded_sm90", "avatar_tpu/ops/flash_attention.py:241", True,
+                SM90_SOURCE),
+    "online": ("flash_online_sm90", "avatar_tpu/ops/flash_attention.py:140", False,
+               SM90_SOURCE),
+    "single": ("flash_single", "avatar_tpu/ops/flash_attention.py:387", False,
+               WMMA_SOURCE),
 }
 
 
+def _attention_work(b, h, lq, lk, d, itemsize=2):
+    """(operations, bytes) of a head-major attention forward: QK^T and PV,
+    q, k, v and o once each in ``itemsize`` bytes and the f32 lse."""
+    return 4.0 * b * h * lq * lk * d, (2 * lq + 2 * lk) * b * h * d * itemsize + b * h * lq * 4
+
+
+def plain_forward(q, k, v, mask, scale, mode):
+    """The plain version of a ``_flash_forward`` mode, fed q and the scale
+    as the wrapper feeds its kernel (``fold_scale``)."""
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    q, scale = fa.fold_scale(q, scale)
+    return fa._flash_plain(q, k, v, mask, scale, mode)
+
+
+def _wmma_entry(mode):
+    """The bf16 / 64 WMMA kernel of csrc/flash_forward.cu called directly
+    (no counter): to time it at the shapes the Hopper kernel took over from
+    it."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    fn = fa._c_entry("flash_forward", f"flash_{mode}_bf16", 6, 5, bounded_flag=False)
+
+    def call(q, k, v, out, lse):
+        b, h, lq, d = q.shape
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+                 lse.data_ptr(), b, h, lq, k.shape[2], d, 1.0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"flash_{mode}_bf16 (WMMA) failed with {err}")
+    return call
+
+
 def check_flash_kernel(mode, peaks):
-    """One kernel of ``csrc/flash_forward.cu`` (head-major, O and lse)
-    against its plain version: unmasked, masked, a fully masked batch row
-    and ragged lengths; then the times at its main-path shape."""
+    """One forward kernel (head-major, O and lse) against its plain version:
+    unmasked, masked (a tail and a band of keys), a fully masked batch row
+    and ragged lengths; for the bounded and online modes (the Hopper kernel)
+    also at head dim 128 and with q, k, v as head-major views of token-major
+    tensors (read in place). Then the times at its main-path shape: the
+    kernel with contiguous and with transposed-view inputs, at head dim 128,
+    the WMMA kernel it replaces on the same inputs, the plain version and
+    ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
 
     from avatar_tpu_torch.ops import flash_attention as fa
 
-    counter, replaces, bounded = FLASH_KERNELS[mode]
+    row_name, replaces, bounded, source = FLASH_KERNELS[mode]
     g = torch.Generator(device="cuda").manual_seed(7)
-    scale = HEAD_DIM**-0.5
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
 
-    def qkv(b, lq, lk):
+    def qkv(b, lq, lk, d=HEAD_DIM, token_major=False):
         # per-head rms-normed rows: logits of O(1), as after the qk-norm
-        return (rms_rows(randn(b, HEADS, lq, HEAD_DIM)),
-                rms_rows(randn(b, HEADS, lk, HEAD_DIM)),
-                randn(b, HEADS, lk, HEAD_DIM))
+        heads = WIDTH // d
+        if token_major:
+            return (rms_rows(randn(b, lq, heads, d)).transpose(1, 2),
+                    rms_rows(randn(b, lk, heads, d)).transpose(1, 2),
+                    randn(b, lk, heads, d).transpose(1, 2))
+        return (rms_rows(randn(b, heads, lq, d)), rms_rows(randn(b, heads, lk, d)),
+                randn(b, heads, lk, d))
 
-    def keep_mask(b, lk, kept, empty_row=None):
+    def keep_mask(b, lk, kept, empty_row=None, band=None):
         m = torch.ones(b, lk, device="cuda")
         m[0, kept:] = 0.0
+        if band is not None:
+            m[:, band[0]:band[1]] = 0.0
         if empty_row is not None:
             m[empty_row] = 0.0
         return m
@@ -460,24 +541,34 @@ def check_flash_kernel(mode, peaks):
         }
     else:
         main = qkv(1, long_len, long_len)
+        main128 = qkv(1, long_len, long_len, 128)
+        views = qkv(1, long_len, long_len, token_major=True)
         cases = {
             f"{long_len}x{long_len}": (main, None, None),
-            f"{long_len}x{long_len} masked": (
-                main, keep_mask(1, long_len, 5000), None),
+            f"{long_len}x{long_len} masked tail and band": (
+                main, keep_mask(1, long_len, 5000, band=(2000, 2500)), None),
+            f"{long_len}x{long_len} transposed views": (views, None, None),
             "5000x333 ragged, masked row": (
                 qkv(2, 5000, 333), keep_mask(2, 333, 300, 1), 1),
+            f"d=128 {long_len}x{long_len}": (main128, None, None),
+            "d=128 5000x333 ragged, band, masked row": (
+                qkv(2, 5000, 333, 128), keep_mask(2, 333, 300, 1, (40, 90)), 1),
         }
     errors, lse_errs = KernelErrors(f"flash {mode}"), {}
+    mode_counter = f"flash_{mode}"
     for label, ((q, k, v), mask, empty_row) in cases.items():
+        d = q.shape[-1]
+        scale = d**-0.5
         if fa.flash_mode(q.shape[2], k.shape[2], bounded) != mode:
             fail(f"{label}: dispatch would not reach the {mode} kernel")
-        before = fa.launch_counts[counter]
+        before = dict(fa.launch_counts)
         out, lse = fa.flash_attention(q, k, v, kv_mask=mask, scale=scale,
                                       bounded_logits=bounded, with_lse=True)
         torch.cuda.synchronize()
-        if fa.launch_counts[counter] != before + 1:
-            fail(f"{label}: {counter} was not launched")
-        ref, ref_lse = fa._flash_plain(q * scale, k, v, mask, 1.0, mode)
+        launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+        if launched != {mode_counter: 1, row_name: 1}:
+            fail(f"{label}: launched {launched}, expected {row_name}")
+        ref, ref_lse = plain_forward(q, k, v, mask, scale, mode)
         errors.add(label, out, ref)
         live = ref_lse < 1e29
         lse_errs[label] = (lse - ref_lse)[live].abs().max().item()
@@ -486,38 +577,332 @@ def check_flash_kernel(mode, peaks):
         if empty_row is not None and not (
                 bool((out[empty_row] == 0).all()) and not bool(live[empty_row].any())):
             fail(f"{label}: a fully masked batch row is not O = 0, lse = 1e30")
+        del out, lse, ref, ref_lse
     (err, tol), lse_err = errors.check(), max(lse_errs.values())
     if not (math.isfinite(lse_err) and lse_err <= LSE_TOL):
         fail(f"flash {mode}: lse disagrees with its plain version's: {lse_errs}")
 
     q, k, v = main
-    lq = q.shape[2]
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, scale=scale,
-                                            bounded_logits=bounded))
+    b, h, lq, d = q.shape
+    scale = d**-0.5
+
+    def kernel_ms(q_, k_, v_):
+        return time_ms(lambda: fa.flash_attention(q_, k_, v_, scale=q_.shape[-1]**-0.5,
+                                                  bounded_logits=bounded))
+
+    ms = kernel_ms(q, k, v)
     plain_ms = time_ms(lambda: fa._flash_plain(q * scale, k, v, None, 1.0, mode),
                        reps=5, batches=3)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    flops = 4.0 * lq * lq * WIDTH
-    nbytes = 4 * lq * WIDTH * 2 + HEADS * lq * 4
+    flops, nbytes = _attention_work(b, h, lq, lq, d)
     bound_ms, bound_by = bound(flops, nbytes, peaks)
     extra = {}
+    if mode != "single":
+        # the same inputs through the WMMA kernel it replaces (scale folded)
+        qs, out = q * scale, torch.empty_like(q)
+        lse = torch.empty(b, h, lq, device="cuda")
+        wmma = _wmma_entry(mode)
+        q128, k128, v128 = main128
+        lib128 = time_ms(lambda: F.scaled_dot_product_attention(q128, k128, v128))
+        # the copies the WMMA route makes per call on the DiT's views: q,
+        # k, v to contiguous head-major, and O back to token-major
+        o_head_major = torch.empty(views[0].shape, device="cuda", dtype=torch.bfloat16)
+        extra = {
+            "ms_transposed_views": kernel_ms(*views),
+            "relayout_copies_ms_avoided_per_call": time_ms(lambda: [
+                t.contiguous() for t in views] + [o_head_major.transpose(1, 2).contiguous()]),
+            "ms_d128": kernel_ms(q128, k128, v128),
+            "library_ms_d128": lib128,
+            "bound_ms_d128": bound(*_attention_work(*q128.shape[:3], lq, 128), peaks)[0],
+            "wmma_ms_same_inputs": time_ms(lambda: wmma(qs, k, v, out, lse), reps=5, batches=3),
+            "fraction_of_bound": bound_ms / ms,
+        }
+        del qs, out, lse
     if mode == "bounded":
         # the same self-attention through kernel A (RoPE inside, token-major),
         # which the reference's 6 MiB cap keeps away from this length
         rq, rk, rv, cos, sin = rope_inputs(g, 1, long_len, LONG_GRID)
         extra["rope_fused_attention_ms_same_length"] = time_ms(
             lambda: fa.rope_fused_attention(rq, rk, rv, cos, sin, HEADS, scale, True))
-    row = {"name": counter, "route": "cuda",
-           "source": "avatar_tpu_torch/csrc/flash_forward.cu", "replaces": replaces,
+    row = {"name": row_name, "route": "cuda", "source": source, "replaces": replaces,
            "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
            "lse_tol": LSE_TOL, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": lib_ms}
-    emit({"phase": f"kernel_{counter}", "shape": list(q.shape), "errors": errors.errs,
+    emit({"phase": f"kernel_{row_name}", "shape": list(q.shape), "errors": errors.errs,
           "limits": errors.tols, "lse_errors": lse_errs, "lse_tol": LSE_TOL, "ms": ms,
           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_us": bound_ms * 1e3,
           "bound_by": bound_by, "flops": flops, "bytes": nbytes, **extra})
     return row
+
+
+WMMA_ROWS = {"bounded": ("flash_bounded_wmma", "avatar_tpu/ops/flash_attention.py:241"),
+             "online": ("flash_online_wmma", "avatar_tpu/ops/flash_attention.py:140")}
+# dense TF32 tensor-core peak (NVIDIA data sheet, SXM); the f32 variants
+# multiply through 3xTF32, three TF32 products per product
+TF32_PEAK = 495e12
+
+
+def check_wmma_rows(peaks):
+    """C and D on the WMMA route, which the f32 variants and the bf16 head
+    dims other than 64 and 128 take: at f32 [1, 32, 5376, 64] against the
+    plain version in f32 (F32_REL_TOL, lse within LSE_TOL_F32), then the
+    kernel's time, the plain version's, ``scaled_dot_product_attention``'s
+    in f32 and the bound (the algorithm's operations as three TF32
+    products each at the TF32 peak, f32 bytes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(3, 1, HEADS, LONG_TOKENS, HEAD_DIM, generator=g, device="cuda")
+    q, k, v = x * (x.pow(2).mean(-1, keepdim=True) + 1e-6).rsqrt()
+    v = torch.randn(v.shape, generator=g, device="cuda")
+    del x
+    scale = HEAD_DIM**-0.5
+    flops, nbytes = _attention_work(1, HEADS, LONG_TOKENS, LONG_TOKENS, HEAD_DIM, 4)
+    bound_ms, bound_by = bound(3 * flops, nbytes, peaks, op_rate=TF32_PEAK)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=5, batches=3)
+    rows = []
+    for mode, (name, replaces) in WMMA_ROWS.items():
+        before = dict(fa.launch_counts)
+        out, lse = fa.flash_attention(q, k, v, scale=scale, bounded_logits=mode == "bounded",
+                                      with_lse=True)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+        if launched != {f"flash_{mode}": 1, name: 1}:
+            fail(f"{name}: launched {launched}")
+        ref, ref_lse = fa._flash_plain(q * scale, k, v, None, 1.0, mode)
+        errors = KernelErrors(name, rel=F32_REL_TOL)
+        errors.add(f"f32 {LONG_TOKENS}", out, ref)
+        err, tol = errors.check()
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= LSE_TOL_F32:
+            fail(f"{name}: lse error {lse_err} above {LSE_TOL_F32}")
+        del out, lse, ref, ref_lse
+        ms = time_ms(lambda m=mode: fa.flash_attention(q, k, v, scale=scale,
+                                                       bounded_logits=m == "bounded"),
+                     reps=5, batches=3)
+        plain_ms = time_ms(lambda m=mode: fa._flash_plain(q * scale, k, v, None, 1.0, m),
+                           reps=2, batches=3)
+        row = {"name": name, "route": "cuda", "source": WMMA_SOURCE, "replaces": replaces,
+               "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+               "lse_tol": LSE_TOL_F32, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+               "shape": f"f32 [1, {HEADS}, {LONG_TOKENS}, {HEAD_DIM}]"}
+        emit({"phase": f"kernel_{name}", **row, "flops": flops, "bytes": nbytes})
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Every attention family at every (type, head dim) the reference admits
+# ---------------------------------------------------------------------------
+
+# sampled head dims of kernel_generality: bf16 (512 only for the head-major
+# kernels C-G, whose reference predicates admit it) and f32
+GENERALITY_DIMS = {"bf16": (32, 80, 128, 256, 512), "f32": (64, 128)}
+ATTENTION_SOURCES = ("rope_attention", "token_attention", "flash_forward",
+                     "flash_backward", "flash_dense")
+
+
+def generality_specs():
+    """The ``(source, defines)`` libraries that kernel_generality needs
+    beyond the default build: one per (source, type, padded head dim)."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    specs = []
+    for dtype_name, dims in GENERALITY_DIMS.items():
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+        for d in dims:
+            for source in ATTENTION_SOURCES:
+                if d > 256 and source in ("rope_attention", "token_attention"):
+                    continue
+                _, defines = fa.kernel_variant(dtype, d)
+                specs.append((source, defines))
+            if dtype == torch.bfloat16 and d in fa.SM90_HEAD_DIMS and d != 64:
+                specs.append(("flash_forward_sm90", (f"ATTN_D={d}",)))
+    return [spec for spec in dict.fromkeys(specs) if spec[1]]
+
+
+def check_kernel_generality(builds, peaks):
+    """Every attention family (A, B, C, D, E, F's dK/dV and dQ, G's four)
+    at small ragged shapes with masks and a fully masked row, at bf16 with
+    head dims 32, 80, 128, 256 (and 512 for C-G) and f32 with 64 and 128,
+    each against its plain version: bf16 within the kernels' ulp gates, f32
+    within F32_REL_TOL of the largest output. Each call must launch its
+    kernel on the route :func:`forward_impl` names. ``builds`` is the
+    future of the background build of :func:`generality_specs`; its
+    libraries and seconds are printed. Then C and D at a DiT-like shape
+    ([1, 2048 / d, 5376, d]) for each variant, one time each."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+    from avatar_tpu_torch.ops import kernel_build
+
+    t0 = time.perf_counter()
+    builds.result()
+    wait_s = time.perf_counter() - t0
+    built = {kernel_build.label(*spec): kernel_build.build_seconds.get(kernel_build.label(*spec))
+             for spec in generality_specs()}
+    g = torch.Generator(device="cuda").manual_seed(31)
+    results, times = {}, {}
+    for dtype_name, dims in GENERALITY_DIMS.items():
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+        for d in dims:
+            label = f"{dtype_name} d={d}"
+            results[label] = _generality_case(g, fa, dtype, d)
+            times[label] = _generality_times(g, fa, dtype, d)
+    emit({"phase": "kernel_generality", "built_seconds": built,
+          "build_wait_s": wait_s, "f32_rel_tol": F32_REL_TOL,
+          "bf16_forward_ulps": KERNEL_ULPS, "bf16_backward_ulps": BWD_ULPS,
+          "results": results, "times_ms_at_5376": times})
+
+
+def _generality_case(g, fa, dtype, d):
+    """Each family at one (dtype, head dim): returns {kernel: (max error,
+    limit)}; fails on any case above its limit or a launch on another
+    route."""
+    import torch
+
+    f32 = dtype == torch.float32
+    heads = 2
+    scale = d**-0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def rows(*shape):
+        x = torch.randn(shape, generator=g, device="cuda")
+        return (x * (x.pow(2).mean(-1, keepdim=True) + 1e-6).rsqrt()).to(dtype)
+
+    def errors(name, ulps=KERNEL_ULPS):
+        return KernelErrors(f"{name} ({dtype}, d={d})", ulps,
+                            rel=F32_REL_TOL if f32 else None)
+
+    def launched_by(fn, *args, **kw):
+        before = dict(fa.launch_counts)
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+
+    found = {}
+    c = heads * d
+    if d <= 256:
+        if d % 16 == 0:
+            # A: rope inside, ragged L = 80
+            err = errors("rope_fused_attention")
+            q, k, v = rows(2, 80, c), rows(2, 80, c), randn(2, 80, c)
+            ang = torch.rand(2, 80, c // 2, generator=g, device="cuda") * 6.3
+            cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+            for bounded in (True, False):
+                out, got = launched_by(fa.rope_fused_attention, q, k, v, cos, sin, heads,
+                                       scale, bounded)
+                if got != {"rope_fused_attention": 1}:
+                    fail(f"rope_fused_attention {dtype} d={d}: launched {got}")
+                err.add(f"bounded={bounded}", out, fa._rope_attention_plain(
+                    q, k, v, cos, sin, heads, scale, bounded))
+            found["rope_fused_attention"] = err.check()
+        # B: ragged Lk = 77, a partly and a fully masked sample
+        err = errors("fused_token_attention")
+        q, k, v = rows(3, 100, c), rows(3, 77, c), randn(3, 77, c)
+        mask = torch.ones(3, 77, device="cuda")
+        mask[1, 30:60] = 0.0
+        mask[2] = 0.0
+        for bounded in (True, False):
+            out, got = launched_by(fa.fused_token_attention, q, k, v, mask, heads, scale,
+                                   bounded)
+            if got != {"fused_token_attention": 1} or not bool((out[2] == 0).all()):
+                fail(f"fused_token_attention {dtype} d={d}: launched {got} or a masked "
+                     "row is not 0")
+            err.add(f"bounded={bounded}", out, fa._token_attention_plain(
+                q, k, v, mask, heads, scale, bounded))
+        found["fused_token_attention"] = err.check()
+    # C, D and E with O and lse, then F from D's O and lse
+    for mode, (lq, lk) in (("bounded", (1030, 150)), ("online", (1030, 150)),
+                           ("single", (100, 77))):
+        err = errors(f"flash_{mode}")
+        q, k, v = rows(2, heads, lq, d), rows(2, heads, lk, d), randn(2, heads, lk, d)
+        mask = torch.ones(2, lk, device="cuda")
+        mask[0, lk // 3: lk // 2] = 0.0
+        mask[1] = 0.0
+        (out, lse), got = launched_by(fa.flash_attention, q, k, v, kv_mask=mask,
+                                      scale=scale, bounded_logits=mode == "bounded",
+                                      with_lse=True)
+        want = {f"flash_{mode}": 1}
+        if mode != "single":
+            want[f"flash_{mode}_{fa.forward_impl(mode, dtype, d)}"] = 1
+        if got != want:
+            fail(f"flash_{mode} {dtype} d={d}: launched {got}, expected {want}")
+        ref, ref_lse = plain_forward(q, k, v, mask, scale, mode)
+        err.add("O", out, ref)
+        lse_err = (lse[0] - ref_lse[0]).abs().max().item()
+        if not (lse_err <= (LSE_TOL_F32 if f32 else LSE_TOL)
+                and bool((lse[1] == fa.LSE_MASKED).all()) and bool((out[1] == 0).all())):
+            fail(f"flash_{mode} {dtype} d={d}: lse error {lse_err}, or a fully masked "
+                 "row is not O = 0, lse = 1e30")
+        name = f"flash_{mode}" + ("" if mode == "single" else
+                                  f"_{fa.forward_impl(mode, dtype, d)}")
+        found[name] = err.check() + (lse_err,)
+        if mode == "online":
+            gout = randn(2, heads, lq, d)
+            (dq, dk, dv), got = launched_by(fa._flash_backward, q, k, v, mask, out, lse,
+                                            gout, scale)
+            if got != {"flash_bwd_dkv": 1, "flash_bwd_dq": 1}:
+                fail(f"flash backward {dtype} d={d}: launched {got}")
+            rq, rk, rv = fa._flash_backward_plain(q, k, v, mask, out, lse, gout, scale)
+            dkv, dqe = errors("flash_bwd_dkv", BWD_ULPS), errors("flash_bwd_dq", BWD_ULPS)
+            dkv.add("dk", dk, rk)
+            dkv.add("dv", dv, rv)
+            dqe.add("dq", dq, rq)
+            found["flash_bwd_dkv"], found["flash_bwd_dq"] = dkv.check(), dqe.check()
+    # G: a shared bias with a masked band and a fully masked query row
+    lq, lk = 160, 140
+    q, k, v = rows(2, heads, lq, d), rows(2, heads, lk, d), randn(2, heads, lk, d)
+    bias = torch.randn(2, 1, lq, lk, generator=g, device="cuda")
+    bias[..., 50:70] = -1e30
+    bias[:, :, 7] = -1e30
+    bias3 = fa._dense_bias3(bias)
+    (out, lse), got = launched_by(fa._flash_dense_forward, q, k, v, bias3, scale)
+    ref, ref_lse = fa._flash_dense_plain(q, k, v, bias3, scale)
+    err = errors("flash_dense_forward")
+    err.add("O", out, ref)
+    found["flash_dense_forward"] = err.check()
+    gout = randn(2, heads, lq, d)
+    (dq, dk, dv, db), got2 = launched_by(fa._flash_dense_backward, q, k, v, bias3, out,
+                                         lse, gout, scale, True)
+    got = {n: got.get(n, 0) + got2.get(n, 0) for n in set(got) | set(got2)}
+    if got != {name: 1 for name, _ in DENSE_ROWS}:
+        fail(f"flash_dense {dtype} d={d}: launched {got}")
+    rq, rk, rv, rdb = fa._flash_dense_backward_plain(q, k, v, bias3, out, lse, gout, scale)
+    for name, pairs in (("flash_dense_bwd_dkv", (("dk", dk, rk), ("dv", dv, rv))),
+                        ("flash_dense_bwd_dq", (("dq", dq, rq),)),
+                        ("flash_dense_bwd_db", (("db", db, rdb),))):
+        err = errors(name, BWD_ULPS)
+        for lbl, a, b in pairs:
+            err.add(lbl, a, b)
+        found[name] = err.check()
+    return found
+
+
+def _generality_times(g, fa, dtype, d):
+    """C and D (by their route at this type and head dim) at [1, 2048 / d,
+    5376, d], one time each (CUDA events)."""
+    import torch
+
+    heads = max(1, WIDTH // d)
+    x = torch.randn(3, 1, heads, LONG_TOKENS, d, generator=g, device="cuda")
+    q, k, v = (x * (x.pow(2).mean(-1, keepdim=True) + 1e-6).rsqrt()).to(dtype)
+    out = {}
+    for mode in ("bounded", "online"):
+        out[f"flash_{mode}_{fa.forward_impl(mode, dtype, d)}"] = time_ms(
+            lambda m=mode: fa.flash_attention(q, k, v, bounded_logits=m == "bounded"),
+            reps=3, batches=3)
+    out["shape"] = [1, heads, LONG_TOKENS, d]
+    return out
 
 
 # The DiT's W8A8 products per block at the long operating point: (K, N) of
@@ -778,14 +1163,17 @@ def _tiny_inputs(dcfg, size, frames, caption, settings, encode, avatar=True):
 
 def _reference_run(label, models, size, frames, caption, settings, ctor,
                    expect_kernels, encode=True, avatar=True, extra=None,
-                   exact_t_tol=None):
+                   exact_t_tol=None, expect_f32=None):
     """One tiny pipeline, same weights and noise, four ways: f32 on the CPU
     (the kernels' plain versions) as it is and with t rounded as a bf16 run
     rounds it, bf16 on the card through the CUDA kernels, and bf16 on the
     card with ``attention_impl="xla"`` (no kernel). ``extra``: more inputs
     of the call (conditioning inputs and their noise); ``exact_t_tol``
-    replaces EXACT_T_TOL for a schedule of its own. Returns the kernel run's
-    errors against the others and its launches."""
+    replaces EXACT_T_TOL for a schedule of its own. With ``expect_f32``
+    (the kernels an f32 run must launch) a fifth way: f32 on the card
+    through the kernels' f32 variants, held to F32_REFERENCE_TOL of the f32
+    CPU run; its launches are ``res["f32_launches"]``. Returns the kernel
+    run's errors against the others and its launches."""
     from unittest import mock
 
     import torch
@@ -816,6 +1204,18 @@ def _reference_run(label, models, size, frames, caption, settings, ctor,
         cpu, _ = run("cpu", torch.float32, **ctor)
     no_kernel, none = run("cuda", torch.bfloat16, **{**ctor, "attention_impl": "xla"})
     card, launches = run("cuda", torch.bfloat16, **ctor)
+    f32_res = {}
+    if expect_f32 is not None:
+        card32, launches32 = run("cuda", torch.float32, **ctor)
+        f32_res = {"f32_rel_rms_err": _rel_rms(card32, cpu_exact_t),
+                   "f32_max_abs_err": (card32 - cpu_exact_t).abs().max().item(),
+                   "f32_tol": F32_REFERENCE_TOL, "f32_launches": launches32}
+        if set(launches32) != set(expect_f32):
+            fail(f"{label}: the f32 run launched {launches32}, expected exactly "
+                 f"{expect_f32}")
+        if not f32_res["f32_rel_rms_err"] <= F32_REFERENCE_TOL:
+            fail(f"{label}: the card's f32 kernel path disagrees with the f32 CPU "
+                 f"run: {f32_res}")
     tokens = lat_f * lat_hw * lat_hw
     exact_t_tol = exact_t_tol or EXACT_T_TOL["long" if tokens > 1000 else "short"]
     sigmas = torch.tensor(schedules[0].set_timesteps(
@@ -831,7 +1231,7 @@ def _reference_run(label, models, size, frames, caption, settings, ctor,
            "rel_rms_vs_no_kernel": _rel_rms(card, no_kernel),
            "exact_t_rel_rms_err": _rel_rms(card, cpu_exact_t),
            "exact_t_tol": exact_t_tol,
-           "launches": launches}
+           "launches": launches, **f32_res}
     if not all(math.isfinite(res[k]) for k in res if k.endswith("err")):
         fail(f"{label}: not finite: {res}")
     if none or set(launches) != set(expect_kernels):
@@ -865,32 +1265,43 @@ def check_reference_guided():
     pipelines: once on the default path (token-major kernels at batch 3),
     and with ``attention_impl="flash", rope_split=False`` at shapes that
     reach each head-major kernel: 12 tokens (the whole-row kernel), 1280
-    tokens with q/k norm (the max-free kernel) and without (the online
-    kernel)."""
+    tokens with q/k norm (the max-free kernel: the Hopper kernel in bf16)
+    and without (the online kernel). Each also runs in f32 on the card
+    (the f32 variants: WMMA C and D, A, B, E). Returns the launches of the
+    bf16 runs and of the f32 runs."""
     from avatar_tpu_torch.models.dit import SkipLayerStrategy
 
     settings = dict(GUIDED, skip_layer_strategy=SkipLayerStrategy.AttentionValues)
     flash = dict(attention_impl="flash", rope_split=False)
+    token_major = ("rope_fused_attention", "fused_token_attention")
+    # in f32 the reference's sublane of 8 (16 in bf16) lets the 40-key
+    # caption take the token-major kernel B at 1280 queries
     runs = {
-        "token_major": (_tiny_models(), 64, 25, 48, {}, True,
-                        ("rope_fused_attention", "fused_token_attention")),
-        "flash_single": (_tiny_models(), 64, 17, 40, flash, True, ("flash_single",)),
+        "token_major": (_tiny_models(), 64, 25, 48, {}, True, token_major, token_major),
+        "flash_single": (_tiny_models(), 64, 17, 40, flash, True, ("flash_single",),
+                         ("flash_single",)),
         "flash_bounded": (_tiny_models(), 256, 153, 40, flash, False,
-                          ("flash_bounded",)),
+                          ("flash_bounded", "flash_bounded_sm90"),
+                          ("flash_bounded", "flash_bounded_wmma", "fused_token_attention")),
         "flash_online": (_tiny_models(qk_norm=None), 256, 153, 40, flash, False,
-                         ("flash_online",)),
+                         ("flash_online", "flash_online_sm90"),
+                         ("flash_online", "flash_online_wmma", "fused_token_attention")),
     }
-    results, total = {}, {}
-    for label, (models, size, frames, caption, ctor, encode, kernels) in runs.items():
+    results, total, total32 = {}, {}, {}
+    for label, (models, size, frames, caption, ctor, encode, kernels,
+                kernels32) in runs.items():
         results[label] = _reference_run(
             f"reference_guided/{label}", models, size, frames, caption, settings,
-            ctor, kernels, encode)
+            ctor, kernels, encode, expect_f32=kernels32)
         for name, n in results[label]["launches"].items():
             total[name] = total.get(name, 0) + n
+        for name, n in results[label]["f32_launches"].items():
+            total32[name] = total32.get(name, 0) + n
     emit({"phase": "reference_guided", "settings": {**GUIDED,
           "skip_layer_strategy": "AttentionValues"}, "runs": results,
-          "rel_rms_tol": REFERENCE_TOL, "vs_no_kernel_tol": KERNEL_PATH_TOL})
-    return total
+          "rel_rms_tol": REFERENCE_TOL, "vs_no_kernel_tol": KERNEL_PATH_TOL,
+          "f32_tol": F32_REFERENCE_TOL})
+    return total, total32
 
 
 def check_reference_conditioned():
@@ -986,7 +1397,8 @@ def check_reference_w8a8():
         "kernel_route": (_tiny_models(), 512, 129, "w8a8", False, {
             "w8a8_matmul": 8 * per_video, "quantize_rows": 3 * per_video,
             "rms_mod_quant": 2 * per_video, "act_quant": per_video,
-            "flash_bounded": per_video, "fused_token_attention": per_video}),
+            "flash_bounded": per_video, "flash_bounded_sm90": per_video,
+            "fused_token_attention": per_video}),
         "short_route": (_tiny_models(), 64, 25, "w8a8", True, token_major),
         "w8": (_tiny_models(heads=8), 64, 25, "w8", True, token_major),
     }
@@ -2096,27 +2508,41 @@ def main() -> int:
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
+    # the default build: every source's bf16 / 64 library and the Hopper
+    # kernel at head dim 128, one nvcc each, all in parallel
     t0 = time.perf_counter()
-    kernel_build.build_all()
+    kernel_build.build_all(list(kernel_build.KERNEL_SOURCES)
+                           + [("flash_forward_sm90", ("ATTN_D=128",))])
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in kernel_build.build_logs.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "seconds_by_library": dict(kernel_build.build_seconds), "ptxas": ptxas})
+    # the variants kernel_generality needs build meanwhile, in the background
+    builder = ThreadPoolExecutor(max_workers=1)
+    builds = builder.submit(kernel_build.build_all, generality_specs())
 
     rows = [check_rope_kernel(peaks), check_token_kernel(peaks)] + [
         check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS] + check_flash_backward(
-        peaks) + [check_w8a8_kernel(peaks)] + check_row_quant_kernels(peaks)
-    rows += check_flash_dense(peaks)
+        peaks) + [check_w8a8_kernel(peaks)]
+    rows += check_row_quant_kernels(peaks) + check_flash_dense(peaks)
     check_attention_gradients()
+    # the f32 variants come from the background build
+    rows += check_wmma_rows(peaks)
+    check_kernel_generality(builds, peaks)
+    builder.shutdown()
+    emit({"phase": "build_variants", "ptxas": {
+        n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        for n, log in kernel_build.build_logs.items() if n not in ptxas}})
     # launches of each kernel on each driven path: the counts are set to 0
     # just before a path and read just after it
     by_path = {"attention_dense_bias": check_attention_dense_bias(),
-               "reference": check_reference(),
-               "reference_guided": check_reference_guided(),
-               "reference_conditioned": check_reference_conditioned(),
+               "reference": check_reference()}
+    by_path["reference_guided"], by_path["reference_guided_f32"] = check_reference_guided()
+    by_path.update({"reference_conditioned": check_reference_conditioned(),
                "reference_w8a8": check_reference_w8a8(),
                "reference_train": check_reference_train(),
-               "train_cli": check_train_cli()}
+               "train_cli": check_train_cli()})
     t5_embeds, t5_mask, by_path["t5"] = run_t5()
     torch.cuda.empty_cache()
     pipe, init_s = make_full_pipeline()
@@ -2129,9 +2555,12 @@ def main() -> int:
     by_path["pipeline"], plain_s, _ = run_pipeline(
         pipe, "pipeline", 256, 97, plain,
         {"rope_fused_attention": every, "fused_token_attention": every}, 5)
+    # the long path's self-attention: every launch on the Hopper kernel,
+    # none on the WMMA one (run_pipeline holds every other counter to 0)
+    long_attention = {"flash_bounded": every, "flash_bounded_sm90": every,
+                      "fused_token_attention": every}
     by_path["pipeline_long"], long_s, long_latents = run_pipeline(
-        pipe, "pipeline_long", 512, 161, plain,
-        {"flash_bounded": every, "fused_token_attention": every}, 3)
+        pipe, "pipeline_long", 512, 161, plain, long_attention, 3)
     by_path["pipeline_guided"], guided_s, _ = run_pipeline(
         pipe, "pipeline_guided", 256, 97, shipped,
         {"rope_fused_attention": every, "fused_token_attention": every}, 0,
@@ -2165,8 +2594,7 @@ def main() -> int:
     by_path["pipeline_long_w8a8"], _, w8a8_latents = run_pipeline(
         pipe_w8a8, "pipeline_long_w8a8", 512, 161, plain,
         {"w8a8_matmul": 8 * every, "quantize_rows": 3 * every,
-         "rms_mod_quant": 2 * every, "act_quant": every,
-         "flash_bounded": every, "fused_token_attention": every}, 3,
+         "rms_mod_quant": 2 * every, "act_quant": every, **long_attention}, 3,
         extra={"bf16_total_s": long_s})
     # a finding, not a gate: how far int8 moves the 2B latents from bf16's
     emit({"phase": "pipeline_long_w8a8_vs_bf16",

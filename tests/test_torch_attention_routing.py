@@ -1,0 +1,113 @@
+"""Which CUDA attention kernel and which build variant each (dtype, head
+dim) takes, on the CPU (the decisions are Python, made before a launch):
+the Hopper kernel for C and D at bf16 with head dim 64 or 128, the WMMA
+tile code built per (dtype, padded head dim) for everything else; and the
+head dims and dtypes the wrappers accept on the card are exactly those the
+reference's predicates admit, fp16 excepted (it reaches no path of either
+package)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avatar_tpu.ops import flash_attention as jfa
+from avatar_tpu_torch.ops import flash_attention as tfa
+
+HEAD_DIMS = (8, 12, 16, 24, 32, 40, 64, 72, 80, 96, 120, 128, 136, 200, 256, 264, 384,
+             504, 512, 520, 1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["bounded", "online", "single"])
+def test_forward_implementation_by_dtype_and_head_dim(mode, dtype):
+    for d in (8, 32, 64, 80, 128, 256, 512):
+        hopper = mode != "single" and dtype == torch.bfloat16 and d in (64, 128)
+        assert tfa.forward_impl(mode, dtype, d) == ("sm90" if hopper else "wmma"), d
+
+
+@pytest.mark.parametrize("d,padded", [(8, 64), (32, 64), (64, 64), (72, 128),
+                                      (128, 128), (136, 256), (256, 256), (264, 512),
+                                      (512, 512)])
+def test_wmma_variant_of_each_head_dim(d, padded):
+    assert tfa.padded_head_dim(d) == padded
+    extra = () if padded == 64 else (f"ATTN_D={padded}",)
+    assert tfa.kernel_variant(torch.bfloat16, d) == ("bf16", extra)
+    assert tfa.kernel_variant(torch.float32, d) == ("f32", ("ATTN_F32=1",) + extra)
+
+
+def _accepts(check):
+    try:
+        check()
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.bfloat16, jnp.bfloat16),
+                                          (torch.float32, jnp.float32)])
+def test_head_major_kernels_accept_what_supports_admits(dtype, jdtype):
+    """C-G: the port's check against ``supports`` / ``dense_bias_supported``
+    at lengths they take (256 x 256)."""
+    for d in HEAD_DIMS:
+        q = np.zeros((1, 1, 256, d), np.float32)
+        want = jfa.supports(q, q, q)
+        assert want == jfa.dense_bias_supported(q, q, np.zeros((1, 1, 256, 256)))
+        assert _accepts(lambda: tfa.check_kernel_args("flash", dtype, d, 512)) == want, d
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.bfloat16, jnp.bfloat16),
+                                          (torch.float32, jnp.float32)])
+def test_token_major_kernels_accept_what_their_predicates_admit(dtype, jdtype):
+    """A and B: ``rope_fused_supports`` / ``fused_supports`` with one head
+    and aligned lengths, so that only the head dim and dtype decide."""
+    for d in HEAD_DIMS:
+        want_b = jfa.fused_supports(64, 64, 1, d, jdtype)
+        want_a = jfa.rope_fused_supports(64, 1, d, jdtype)
+        assert _accepts(lambda: tfa._split_heads("B", d, 1, dtype, 8)) == want_b, d
+        assert _accepts(lambda: tfa._split_heads("A", d, 1, dtype, 16)) == want_a, d
+
+
+def test_fp16_and_other_dtypes_raise():
+    for dtype in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(ValueError, match="bf16 or f32"):
+            tfa.check_kernel_args("flash", dtype, 64, 512)
+        with pytest.raises(ValueError, match="bf16 or f32"):
+            tfa._split_heads("B", 128, 2, dtype, 8)
+
+
+def test_widths_that_do_not_split_over_the_heads_raise():
+    with pytest.raises(ValueError, match="split"):
+        tfa._split_heads("B", 100, 3, torch.bfloat16, 8)
+
+
+@pytest.mark.parametrize("shape,perm,readable", [
+    # contiguous head-major
+    ((2, 4, 100, 64), None, True),
+    # a head-major view of token-major [B, L, H, d]: read in place
+    ((2, 100, 4, 64), (0, 2, 1, 3), True),
+    # the last dim not contiguous
+    ((2, 4, 64, 100), (0, 1, 3, 2), False),
+    # a row stride of 36 elements (72 bytes): not a multiple of 16 bytes
+    ((2, 4, 100, 36), None, False),
+])
+def test_tma_strides(shape, perm, readable):
+    """The Hopper kernel's tensor maps read a view in place when its last
+    stride is 1 and the others are multiples of 8 elements (16 bytes);
+    other layouts are copied first."""
+    t = torch.zeros(shape, dtype=torch.bfloat16)
+    if perm is not None:
+        t = t.permute(*perm)
+    got = tfa._tma_strides(t)
+    assert (got is not None) == readable
+    if readable:
+        assert got == (t.stride(0), t.stride(1), t.stride(2))
+
+
+def test_a_size_one_dimension_gets_a_stride_tma_accepts():
+    """A view whose size-1 dims carry strides TMA refuses (here 1 and 3
+    elements) still maps: those strides are never stepped."""
+    t = torch.zeros(1, 3, 64, dtype=torch.bfloat16).unsqueeze(2)
+    t = t.as_strided((1, 3, 1, 64), (3, 64, 1, 1))
+    sb, sh, sl = tfa._tma_strides(t)
+    assert (sb, sh, sl) == (3 * 64, 64, 64)

@@ -109,11 +109,24 @@ def test_flash_attention_takes_transposed_views_and_a_bias(gen):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    """The wrappers raise on the card exactly where the reference's
+    predicates refuse: fp16 (no path of either package), a head dim that is
+    not a multiple of 8 (16 for A), above 256 (A, B) or above 512 (C-G); and
+    on layouts the token-major kernels cannot read (not contiguous, a bool
+    mask)."""
     q = _rows(gen, 1, 64, HEADS * HD)
-    with pytest.raises(ValueError):
-        fa.fused_token_attention(q.float(), q.float(), q.float(), None, HEADS, 0.1)
-    with pytest.raises(ValueError):  # head_dim 32
-        fa.fused_token_attention(q, q, q, None, 2 * HEADS, 0.1)
+    with pytest.raises(ValueError):  # fp16
+        fa.fused_token_attention(q.half(), q.half(), q.half(), None, HEADS, 0.1)
+    with pytest.raises(ValueError):  # head_dim 12
+        q48 = _rows(gen, 1, 64, 48)
+        fa.fused_token_attention(q48, q48, q48, None, 4, 0.1)
+    with pytest.raises(ValueError):  # head_dim 264 > 256
+        q264 = _rows(gen, 1, 64, 264)
+        fa.fused_token_attention(q264, q264, q264, None, 1, 0.1)
+    with pytest.raises(ValueError):  # RoPE head_dim 24 (not a multiple of 16)
+        q24 = _rows(gen, 1, 64, 48)
+        cs = torch.ones(1, 64, 24, device="cuda").bfloat16()
+        fa.rope_fused_attention(q24, q24, q24, cs, cs, 2, 0.1)
     with pytest.raises(ValueError):  # not contiguous
         qt = q.transpose(1, 2).contiguous().transpose(1, 2)
         fa.fused_token_attention(qt, qt, qt, None, HEADS, 0.1)
@@ -121,11 +134,152 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         fa.fused_token_attention(q, q, q, torch.ones(1, 64, device="cuda",
                                                      dtype=torch.bool), HEADS, 0.1)
     qh = q.reshape(1, 64, HEADS, HD).transpose(1, 2)
-    with pytest.raises(ValueError):  # f32 head-major
-        fa.flash_attention(qh.float(), qh.float(), qh.float())
-    with pytest.raises(ValueError):  # head_dim 32
-        q32 = q.reshape(1, 64, 2 * HEADS, HD // 2).transpose(1, 2)
-        fa.flash_attention(q32, q32, q32)
+    with pytest.raises(ValueError):  # fp16 head-major
+        fa.flash_attention(qh.half(), qh.half(), qh.half())
+    with pytest.raises(ValueError):  # head_dim 36
+        q36 = _rows(gen, 1, 2, 200, 36)
+        fa.flash_attention(q36, q36, q36)
+    with pytest.raises(ValueError):  # head_dim 520 > 512
+        q520 = _rows(gen, 1, 1, 200, 520)
+        fa.flash_attention(q520, q520, q520)
+
+
+# ---------------------------------------------------------------------------
+# Every (dtype, head dim) the reference admits, and the Hopper C and D
+# ---------------------------------------------------------------------------
+
+# f32 variants against their plain versions in f32 (TF32 off): 3xTF32
+# products, f32 sums in another order (see chip_smoke.py's F32_REL_TOL)
+F32_REL = 1e-5
+
+
+def _close(out, ref, dtype, ulps=2):
+    ref = ref.float()
+    rel = F32_REL if dtype == torch.float32 else ulps * 2.0**-7
+    return (out.float() - ref).abs().max().item() <= rel * ref.abs().max().item()
+
+
+def _qkv(gen, dtype, b, h, lq, lk, d):
+    q, k = (_rows(gen, b, h, n, d).to(dtype) for n in (lq, lk))
+    v = torch.randn(b, h, lk, d, generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def _plain_forward(q, k, v, mask, scale, mode):
+    """The plain version fed q and the scale as the wrapper feeds its
+    kernel: a power-of-two scale folded into q, any other applied to the
+    f32 logits."""
+    q, scale = fa.fold_scale(q, scale)
+    return fa._flash_plain(q, k, v, mask, scale, mode)
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain versions in full f32 on the card."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 32), (torch.bfloat16, 128)])
+def test_token_major_kernels_take_f32_and_other_head_dims(gen, no_tf32, dtype, d):
+    """A and B at f32 and at head dims 32 / 128 against their plain
+    versions, B with a fully masked sample."""
+    c = 2 * d
+    q, k = _rows(gen, 2, 80, c).to(dtype), _rows(gen, 2, 80, c).to(dtype)
+    v = torch.randn(2, 80, c, generator=gen, device="cuda").to(dtype)
+    ang = torch.rand(2, 80, c // 2, generator=gen, device="cuda") * 6.3
+    cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
+    out = fa.rope_fused_attention(q, k, v, cos, sin, 2, d**-0.5, True)
+    assert out.dtype == dtype
+    assert _close(out, fa._rope_attention_plain(q, k, v, cos, sin, 2, d**-0.5, True), dtype)
+    mask = torch.ones(2, 80, device="cuda")
+    mask[1] = 0.0
+    out = fa.fused_token_attention(q, k, v, mask, 2, d**-0.5, False)
+    assert _close(out, fa._token_attention_plain(q, k, v, mask, 2, d**-0.5, False), dtype)
+    assert bool((out[1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 32), (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256)])
+@pytest.mark.parametrize("mode", ["bounded", "online", "single"])
+def test_head_major_kernels_take_f32_and_other_head_dims(gen, no_tf32, dtype, d, mode):
+    """C, D and E (O and lse) and the backward F from their output, at f32
+    and at head dims 32 / 128 / 256, with a fully masked sample; C and D on
+    the route forward_impl names (Hopper at bf16 and 128, else WMMA)."""
+    lq, lk = (1030, 150) if mode != "single" else (100, 77)
+    q, k, v = _qkv(gen, dtype, 2, 2, lq, lk, d)
+    mask = torch.ones(2, lk, device="cuda")
+    mask[0, 20:40] = 0.0
+    mask[1] = 0.0
+    before = dict(fa.launch_counts)
+    out, lse = fa.flash_attention(q, k, v, kv_mask=mask, bounded_logits=mode == "bounded",
+                                  with_lse=True)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    want = {f"flash_{mode}": 1}
+    if mode != "single":
+        want[f"flash_{mode}_{fa.forward_impl(mode, dtype, d)}"] = 1
+    assert launched == want
+    ref, ref_lse = _plain_forward(q, k, v, mask, d**-0.5, mode)
+    assert _close(out, ref, dtype)
+    assert (lse[0] - ref_lse[0]).abs().max().item() < (1e-4 if dtype == torch.float32
+                                                       else 2e-3)
+    assert bool((out[1] == 0).all()) and bool((lse[1] == fa.LSE_MASKED).all())
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    got = fa._flash_backward(q, k, v, mask, out, lse, g, d**-0.5)
+    want_grads = fa._flash_backward_plain(q, k, v, mask, out, lse, g, d**-0.5)
+    for a, b in zip(got, want_grads):
+        assert _close(a, b, dtype, ulps=4)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 32),
+                                     (torch.bfloat16, 512)])
+def test_dense_bias_kernels_take_f32_and_other_head_dims(gen, no_tf32, dtype, d):
+    """G's four kernels at f32 and at head dims 32 / 512."""
+    q, k, v = _qkv(gen, dtype, 2, 2, 150, 133, d)
+    bias = torch.randn(2, 1, 150, 133, generator=gen, device="cuda")
+    bias[..., 40:60] = -1e30
+    bias3 = fa._dense_bias3(bias)
+    out, lse = fa._flash_dense_forward(q, k, v, bias3, d**-0.5)
+    assert _close(out, fa._flash_dense_plain(q, k, v, bias3, d**-0.5)[0], dtype)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    got = fa._flash_dense_backward(q, k, v, bias3, out, lse, g, d**-0.5, True)
+    want = fa._flash_dense_backward_plain(q, k, v, bias3, out, lse, g, d**-0.5)
+    for a, b in zip(got, want):
+        assert _close(a, b, dtype, ulps=4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", ["bounded", "online"])
+@pytest.mark.parametrize("views", [False, True])
+def test_hopper_kernel_matches_plain(gen, d, mode, views):
+    """The Hopper C and D (bf16, head dim 64 / 128) against their plain
+    versions: ragged lengths, a masked band, a fully masked sample, and q,
+    k, v given as head-major views of token-major tensors (read in place;
+    O comes back in the same layout)."""
+    lq, lk = 1100, 1333
+    if views:
+        q, k = (_rows(gen, 2, n, 3, d).transpose(1, 2) for n in (lq, lk))
+        v = torch.randn(2, lk, 3, d, generator=gen, device="cuda").bfloat16().transpose(1, 2)
+    else:
+        q, k, v = _qkv(gen, torch.bfloat16, 2, 3, lq, lk, d)
+    mask = torch.ones(2, lk, device="cuda")
+    mask[0, 300:700] = 0.0
+    mask[1] = 0.0
+    before = fa.launch_counts[f"flash_{mode}_sm90"]
+    out, lse = fa.flash_attention(q, k, v, kv_mask=mask, bounded_logits=mode == "bounded",
+                                  with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[f"flash_{mode}_sm90"] == before + 1
+    assert out.stride() == q.stride()
+    ref, ref_lse = _plain_forward(q, k, v, mask, d**-0.5, mode)
+    assert _close(out, ref, torch.bfloat16)
+    assert (lse[0] - ref_lse[0]).abs().max().item() < 2e-3
+    assert bool((out[1] == 0).all()) and bool((lse[1] == fa.LSE_MASKED).all())
 
 
 # ---------------------------------------------------------------------------

@@ -172,10 +172,12 @@ def run_conditioned(pipes, size, frames, items=(), settings=None, latents=None,
                     media_items=None):
     """Latents of the JAX pipeline and of the port (``guided_pipelines``)
     with conditioning inputs: ``items`` as (media, frame, strength, x, y),
-    ``latents``, ``media_items``. The port is fed the JAX pipeline's draws,
-    recomputed from its key splits: the initial noise, the media encoder's
-    draw, each item's encoder draw and prefix noise, and the per-step
-    image-conditioning noise."""
+    ``latents``, ``media_items``; ``settings`` may name a
+    ``skip_layer_strategy`` by its name. The port is fed the JAX pipeline's
+    draws, recomputed from its key splits: the initial noise, the media
+    encoder's draw, each item's encoder draw and prefix noise, the per-step
+    image-conditioning noise and, with ``stochastic_sampling``, the per-step
+    sampling noise."""
     jp, tp = pipes
     rng = np.random.default_rng(0)
     embeds = rng.standard_normal((1, 8, 32)).astype(np.float32)
@@ -185,9 +187,13 @@ def run_conditioned(pipes, size, frames, items=(), settings=None, latents=None,
     p = dict(dict(height=size, width=size, num_frames=frames - 1, frame_rate=25.0,
                   num_inference_steps=COND_STEPS, guidance_scale=1.0, stg_scale=0.0,
                   rescaling_scale=1.0), **settings)
+    jp_kw, tp_kw = dict(p), dict(p)
+    if p.get("skip_layer_strategy"):
+        jp_kw["skip_layer_strategy"] = jdit.SkipLayerStrategy[p["skip_layer_strategy"]]
+        tp_kw["skip_layer_strategy"] = tdit.SkipLayerStrategy[p["skip_layer_strategy"]]
     key = jax.random.PRNGKey(3)
     jitems = [jpipe.ConditioningItem(jnp.asarray(m), f, s, x, y) for m, f, s, x, y in items]
-    ref = jp(jpipe.GenerationParams(**p), key, embeds, mask,
+    ref = jp(jpipe.GenerationParams(**jp_kw), key, embeds, mask,
              conditioning_items=jitems or None,
              latents=None if latents is None else jnp.asarray(latents),
              media_items=None if media_items is None else jnp.asarray(media_items),
@@ -215,14 +221,18 @@ def run_conditioned(pipes, size, frames, items=(), settings=None, latents=None,
             n_extra += int(np.prod(pre[1:4]))
         else:
             prefix_noise.append(None)
+    tokens = (1, n_extra + int(np.prod(lat_shape[1:4])), COND_CH)
+    steps = COND_STEPS - settings.get("skip_initial_inference_steps", 0)
     if settings.get("image_cond_noise_scale"):
-        tokens = (1, n_extra + int(np.prod(lat_shape[1:4])), COND_CH)
-        steps = COND_STEPS - settings.get("skip_initial_inference_steps", 0)
         draws["image_cond_noise"] = torch.stack([
             _f32(jax.random.normal(jax.random.fold_in(k_loop, 2 * i), tokens))
             for i in range(steps)])
+    if settings.get("stochastic_sampling"):
+        draws["step_noise"] = torch.stack([
+            _f32(jax.random.normal(jax.random.fold_in(k_loop, 2 * i + 1), tokens))
+            for i in range(steps)])
     titems = [tpipe.ConditioningItem(_f32(m), f, s, x, y) for m, f, s, x, y in items]
-    out = tp(tpipe.GenerationParams(**p), torch.Generator(), _f32(embeds), _f32(mask),
+    out = tp(tpipe.GenerationParams(**tp_kw), torch.Generator(), _f32(embeds), _f32(mask),
              conditioning_items=titems or None,
              latents=None if latents is None else _f32(latents),
              media_items=None if media_items is None else _f32(media_items),
