@@ -15,9 +15,9 @@ Head-major, [B, H, L, head_dim]:
   (``csrc/flash_forward.cu``): the max-free ``_fwd_kernel_bounded``, the
   online-softmax ``_fwd_kernel`` and the whole-row ``_fwd_kernel_single``,
   each also returning the row log-sum-exp; its gradient runs the two
-  kernels of ``_flash_backward`` (``csrc/flash_backward.cu``):
-  ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``. With a dense additive bias
-  [B, 1|H, Lq, Lk] it runs the four kernels of the dense-bias path
+  kernels of ``_flash_backward``: ``_bwd_dkv_kernel`` and
+  ``_bwd_dq_kernel``. With a dense additive bias [B, 1|H, Lq, Lk] it runs
+  the four kernels of the dense-bias path
   (``csrc/flash_dense.cu``): ``_fwd_kernel_dense_bias``, and for the
   gradient ``_bwd_dkv_kernel_bias``, ``_bwd_dq_kernel_bias`` and
   ``_bwd_db_kernel`` (dBias summed over the heads that share a slab).
@@ -36,8 +36,11 @@ dtype and the head dim before the launch (:func:`forward_impl`): the
 bounded (C) and online (D) kernels at bf16 with head dim 64 or 128 run the
 Hopper kernel (``csrc/flash_forward_sm90.cu``: TMA and wgmma, and strided
 q/k/v read in place); every other case runs the WMMA tile code built for
-its (dtype, padded head dim) variant (:func:`kernel_variant`). Neither is a
-fallback of the other: each (dtype, head dim) has exactly one route.
+its (dtype, padded head dim) variant (:func:`kernel_variant`). The flash
+backward (F) routes the same way (:func:`backward_impl`): bf16 at head dim
+64 or 128 runs ``csrc/flash_backward_sm90.cu`` (TMA and wgmma, P and dS in
+registers), every other case ``csrc/flash_backward.cu`` (WMMA). Neither
+route is a fallback of the other: each (dtype, head dim) has exactly one.
 
 Gradients follow the JAX package's custom VJPs. Where an input requires a
 gradient, each of the three attention entries runs as a
@@ -73,7 +76,7 @@ NEG_INF = -1e30
 LSE_MASKED = 1e30  # lse of a row with no kept key
 # padded head dims of the WMMA kernels' variants (zero columns fill the pad)
 PADDED_HEAD_DIMS = (64, 128, 256, 512)
-# head dims of the Hopper forward kernel (bf16 only)
+# head dims of the Hopper kernels, forward and backward (bf16 only)
 SM90_HEAD_DIMS = (64, 128)
 DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # the reference's largest single block: up to this length (after rounding
@@ -81,14 +84,17 @@ DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 SINGLE_BLOCK_MAX = 1024
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
-# flash_bounded / flash_online count the mode (C, D) whatever the route;
-# the _sm90 and _wmma counters split them by implementation.
+# flash_bounded / flash_online (C, D) and flash_bwd_dkv / flash_bwd_dq (F)
+# count every launch whatever the route; the _sm90 and _wmma counters split
+# them by implementation.
 launch_counts: Dict[str, int] = {
     "rope_fused_attention": 0, "fused_token_attention": 0,
     "flash_bounded": 0, "flash_online": 0, "flash_single": 0,
     "flash_bounded_sm90": 0, "flash_online_sm90": 0,
     "flash_bounded_wmma": 0, "flash_online_wmma": 0,
     "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+    "flash_bwd_dkv_sm90": 0, "flash_bwd_dq_sm90": 0,
+    "flash_bwd_dkv_wmma": 0, "flash_bwd_dq_wmma": 0,
     "flash_dense_forward": 0, "flash_dense_bwd_dkv": 0, "flash_dense_bwd_dq": 0,
     "flash_dense_bwd_db": 0,
 }
@@ -352,6 +358,19 @@ def forward_impl(mode: str, dtype: torch.dtype, d: int) -> str:
     if mode in ("bounded", "online") and dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
         return "sm90"
     return "wmma"
+
+
+def backward_impl(dtype: torch.dtype, d: int) -> str:
+    """Which implementation runs the flash backward (F) on the card:
+    "sm90" (``csrc/flash_backward_sm90.cu``) at bf16 with head dim 64 or
+    128, else "wmma" (``csrc/flash_backward.cu``)."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "wmma"
+
+
+def sm90_defines(d: int) -> Tuple[str, ...]:
+    """``nvcc`` defines of a Hopper kernel's build for head dim ``d``: none
+    at 64, ``ATTN_D=128`` at 128."""
+    return () if d == 64 else (f"ATTN_D={d}",)
 
 
 def check_kernel_args(kernel: str, dtype: torch.dtype, d: int, max_d: int,
@@ -635,8 +654,7 @@ def _flash_sm90_call(q, k, v, kv_mask, out, lse, mode, scale):
     :func:`_tma_strides` takes."""
     b, heads, lq, d = q.shape
     lk = k.shape[2]
-    defines = () if d == 64 else (f"ATTN_D={d}",)
-    fn = getattr(load("flash_forward_sm90", defines), "flash_sm90_bf16")
+    fn = getattr(load("flash_forward_sm90", sm90_defines(d)), "flash_sm90_bf16")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 12
@@ -713,39 +731,50 @@ def _check_backward_inputs(q, k, v, g, lse, delta, kv_mask):
     return b, heads, lq, lk, d
 
 
+def _backward_entry(kernel: str, dtype: torch.dtype, d: int, n_ptrs: int):
+    """(route, C entry name, entry) of F's ``kernel`` ("dkv" or "dq") by the
+    route :func:`backward_impl` names."""
+    impl = backward_impl(dtype, d)
+    if impl == "sm90":
+        lib, suffix, defines = "flash_backward_sm90", "sm90_bf16", sm90_defines(d)
+    else:
+        lib = "flash_backward"
+        suffix, defines = kernel_variant(dtype, d)
+    name = f"flash_bwd_{kernel}_{suffix}"
+    return impl, name, _c_entry(lib, name, n_ptrs, 5, bounded_flag=False, defines=defines)
+
+
 def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask, scale: float):
-    """Kernel ``flash_bwd_dkv_<dtype>`` (``_bwd_dkv_kernel``): (dk, dv) of
-    head-major attention from contiguous q, k, v, the output gradient g,
-    lse and delta = rowsum(g * O) [B, H, Lq] f32, with the caller's scale.
-    CUDA tensors only."""
+    """Kernel F dK/dV (``_bwd_dkv_kernel``): (dk, dv) of head-major
+    attention from contiguous q, k, v, the output gradient g, lse and
+    delta = rowsum(g * O) [B, H, Lq] f32, with the caller's scale, by the
+    route :func:`backward_impl` names. CUDA tensors only."""
     b, heads, lq, lk, d = _check_backward_inputs(q, k, v, g, lse, delta, kv_mask)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    suffix, defines = kernel_variant(q.dtype, d)
-    fn = _c_entry("flash_backward", f"flash_bwd_dkv_{suffix}", 9, 5,
-                  bounded_flag=False, defines=defines)
+    impl, name, fn = _backward_entry("dkv", q.dtype, d, 9)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, heads, lq, lk, d, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, f"flash_bwd_dkv_{suffix}")
+    _raise_on(err, name)
     launch_counts["flash_bwd_dkv"] += 1
+    launch_counts[f"flash_bwd_dkv_{impl}"] += 1
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask, scale: float):
-    """Kernel ``flash_bwd_dq_<dtype>`` (``_bwd_dq_kernel``): dq, with the
-    arguments of :func:`flash_bwd_dkv`. CUDA tensors only."""
+    """Kernel F dQ (``_bwd_dq_kernel``): dq, with the arguments and the
+    route of :func:`flash_bwd_dkv`. CUDA tensors only."""
     b, heads, lq, lk, d = _check_backward_inputs(q, k, v, g, lse, delta, kv_mask)
     dq = torch.empty_like(q)
-    suffix, defines = kernel_variant(q.dtype, d)
-    fn = _c_entry("flash_backward", f"flash_bwd_dq_{suffix}", 8, 5,
-                  bounded_flag=False, defines=defines)
+    impl, name, fn = _backward_entry("dq", q.dtype, d, 8)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
              dq.data_ptr(), b, heads, lq, lk, d, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, f"flash_bwd_dq_{suffix}")
+    _raise_on(err, name)
     launch_counts["flash_bwd_dq"] += 1
+    launch_counts[f"flash_bwd_dq_{impl}"] += 1
     return dq
 
 

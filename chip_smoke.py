@@ -22,9 +22,10 @@ Phases, each printing one JSON line as soon as it has its numbers:
    sums; the dequant at the DiT's three W8A8 shapes, 832 and a ragged 5000
    rows) and the three row-quant kernels (at most one int8 level apart on a
    stated fraction, scales at rtol 1e-6); the flash backward's two kernels
-   (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) at the training
-   shapes, at 5376 tokens with lse from kernel C and from D, and ragged
-   with a fully masked sample; the dense-bias attention's four kernels
+   (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) on the Hopper
+   kernels (``flash_bwd_*_sm90``) at the training shapes, at 5376 tokens
+   with lse from kernel C and from D, ragged with a fully masked sample and
+   at head dim 128, timed beside the WMMA kernels they replace; the dense-bias attention's four kernels
    (``kernel_flash_dense_*``: forward, dK/dV, dQ, dBias) at T5-XXL's shape
    with a per-head position-and-padding bias and at 5376 tokens with one
    shared bias, a band of masked keys and a fully masked row;
@@ -89,8 +90,9 @@ Phases, each printing one JSON line as soon as it has its numbers:
    directory;
 12. train: the full-width 2B DiT trained in "lora_audio" mode at the
    training point (batch 8, 480 tokens, caption 256, accumulation 2, 3
-   optimizer steps): losses, launches per micro-step, seconds per step,
-   peak memory and a profile of one micro-step.
+   optimizer steps): losses, launches per micro-step (F on the Hopper
+   kernels only), seconds per step, peak memory and a profile of one
+   micro-step with F's device ms.
 
 The launch counts are set to 0 just before each driven path and read just
 after it. Then the kernel summary line, the ``nvidia-smi`` line, and as
@@ -172,6 +174,8 @@ LSE_TOL_F32 = 1e-4
 # with these head dims; every other (type, head dim) runs the WMMA tile code
 SM90_SOURCE = "avatar_tpu_torch/csrc/flash_forward_sm90.cu"
 WMMA_SOURCE = "avatar_tpu_torch/csrc/flash_forward.cu"
+# ... and csrc/flash_backward_sm90.cu the flash backward's two kernels (F)
+SM90_BWD_SOURCE = "avatar_tpu_torch/csrc/flash_backward_sm90.cu"
 
 
 def emit(obj) -> None:
@@ -724,7 +728,8 @@ def generality_specs():
                 _, defines = fa.kernel_variant(dtype, d)
                 specs.append((source, defines))
             if dtype == torch.bfloat16 and d in fa.SM90_HEAD_DIMS and d != 64:
-                specs.append(("flash_forward_sm90", (f"ATTN_D={d}",)))
+                specs += [(source, fa.sm90_defines(d))
+                          for source in ("flash_forward_sm90", "flash_backward_sm90")]
     return [spec for spec in dict.fromkeys(specs) if spec[1]]
 
 
@@ -851,14 +856,20 @@ def _generality_case(g, fa, dtype, d):
             gout = randn(2, heads, lq, d)
             (dq, dk, dv), got = launched_by(fa._flash_backward, q, k, v, mask, out, lse,
                                             gout, scale)
-            if got != {"flash_bwd_dkv": 1, "flash_bwd_dq": 1}:
-                fail(f"flash backward {dtype} d={d}: launched {got}")
+            # the Hopper kernels take bf16 at head dim 64 and 128 only
+            impl = "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "wmma"
+            want = {"flash_bwd_dkv": 1, "flash_bwd_dq": 1, f"flash_bwd_dkv_{impl}": 1,
+                    f"flash_bwd_dq_{impl}": 1}
+            if got != want or fa.backward_impl(dtype, d) != impl:
+                fail(f"flash backward {dtype} d={d}: launched {got}, expected {want}")
             rq, rk, rv = fa._flash_backward_plain(q, k, v, mask, out, lse, gout, scale)
-            dkv, dqe = errors("flash_bwd_dkv", BWD_ULPS), errors("flash_bwd_dq", BWD_ULPS)
+            dkv = errors(f"flash_bwd_dkv_{impl}", BWD_ULPS)
+            dqe = errors(f"flash_bwd_dq_{impl}", BWD_ULPS)
             dkv.add("dk", dk, rk)
             dkv.add("dv", dv, rv)
             dqe.add("dq", dq, rq)
-            found["flash_bwd_dkv"], found["flash_bwd_dq"] = dkv.check(), dqe.check()
+            found[f"flash_bwd_dkv_{impl}"], found[f"flash_bwd_dq_{impl}"] = (
+                dkv.check(), dqe.check())
     # G: a shared bias with a masked band and a fully masked query row
     lq, lk = 160, 140
     q, k, v = rows(2, heads, lq, d), rows(2, heads, lk, d), randn(2, heads, lk, d)
@@ -1463,10 +1474,11 @@ TRAIN_BATCH, TRAIN_GRID, TRAIN_TOKENS = 8, (8, 6, 10), 480
 TRAIN_ACCUM, TRAIN_STEPS = 2, 3
 
 
-def _bwd_case(g, b, lq, lk, kept=None, empty_row=False, bounded=False):
-    """bf16 head-major q, k, v, the output gradient, an optional keep-mask
-    (``kept`` keys of each sample; the last sample fully masked with
-    ``empty_row``) and the forward's O and lse from the kernel path."""
+def _bwd_case(g, b, lq, lk, kept=None, empty_row=False, bounded=False, d=HEAD_DIM):
+    """bf16 head-major q, k, v (WIDTH / d heads of d), the output gradient,
+    an optional keep-mask (``kept`` keys of each sample; the last sample
+    fully masked with ``empty_row``) and the forward's O and lse from the
+    kernel path."""
     import torch
 
     from avatar_tpu_torch.ops import flash_attention as fa
@@ -1474,8 +1486,9 @@ def _bwd_case(g, b, lq, lk, kept=None, empty_row=False, bounded=False):
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
 
-    q, k = rms_rows(randn(b, HEADS, lq, HEAD_DIM)), rms_rows(randn(b, HEADS, lk, HEAD_DIM))
-    v, gout = randn(b, HEADS, lk, HEAD_DIM), randn(b, HEADS, lq, HEAD_DIM)
+    h = WIDTH // d
+    q, k = rms_rows(randn(b, h, lq, d)), rms_rows(randn(b, h, lk, d))
+    v, gout = randn(b, h, lk, d), randn(b, h, lq, d)
     mask = None
     if kept is not None:
         mask = torch.ones(b, lk, device="cuda")
@@ -1501,16 +1514,42 @@ def _bwd_work(q, k, mask):
     return 4 * product, 3 * product, reads + 2 * b * h * lk * d * 2, reads + b * h * lq * d * 2
 
 
+def _wmma_backward_entries():
+    """F's bf16 / 64 WMMA kernels of csrc/flash_backward.cu called directly
+    (no counter): to time them at the shapes the Hopper kernels took over
+    from them."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    dkv = fa._c_entry("flash_backward", "flash_bwd_dkv_bf16", 9, 5, bounded_flag=False)
+    dq = fa._c_entry("flash_backward", "flash_bwd_dq_bf16", 8, 5, bounded_flag=False)
+
+    def call(kernel, q, k, v, gout, lse, delta, mask, scale, outs):
+        b, h, lq, d = q.shape
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), gout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), None if mask is None else mask.data_ptr()]
+        args += [t.data_ptr() for t in outs] + [b, h, lq, k.shape[2], d, float(scale),
+                                                torch.cuda.current_stream().cuda_stream]
+        err = (dkv if kernel == "dkv" else dq)(*args)
+        if err:
+            fail(f"flash_bwd_{kernel}_bf16 (WMMA) failed with {err}")
+    return call
+
+
 def check_flash_backward(peaks):
-    """Kernels flash_bwd_dkv and flash_bwd_dq against the plain version, bf16:
-    at the training shapes (self-attention [8, 32, 480, 64] with lse from
-    the whole-row kernel E; cross-attention 480 x 256 with 200 keys kept and
-    one sample fully masked), at 5376 tokens with lse from the max-free
-    kernel C and from the online kernel D, and ragged 477 x 250 with a
-    mask. Then times at the three main shapes: each kernel (CUDA events),
-    the whole plain backward, the backward of the library attention
-    (``scaled_dot_product_attention`` through ``torch.autograd.grad``,
-    minus its forward), and each kernel's bound."""
+    """Kernels flash_bwd_dkv and flash_bwd_dq on the Hopper route
+    (``flash_backward_sm90.cu``) against the plain version, bf16: at the
+    training shapes (self-attention [8, 32, 480, 64] with lse from the
+    whole-row kernel E; cross-attention 480 x 256 with 200 keys kept and one
+    sample fully masked), at 5376 tokens with lse from the max-free kernel C
+    and from the online kernel D, ragged 477 x 250 with a mask, and at head
+    dim 128 ([1, 16, 5376, 128]). Then times at the three main shapes: each
+    Hopper kernel and the WMMA kernel it replaced on the same inputs (CUDA
+    events), the whole plain backward, the backward of the library
+    attention (``scaled_dot_product_attention`` through
+    ``torch.autograd.grad``, minus its forward), and each kernel's bound;
+    the Hopper kernels also at head dim 128."""
     import torch
     import torch.nn.functional as F
 
@@ -1526,16 +1565,21 @@ def check_flash_backward(peaks):
         f"{LONG_TOKENS}, lse of C": _bwd_case(g, 1, LONG_TOKENS, LONG_TOKENS, bounded=True),
         f"{LONG_TOKENS}, lse of D": _bwd_case(g, 1, LONG_TOKENS, LONG_TOKENS),
         "ragged 2x477x250, masked": _bwd_case(g, 2, 477, 250, kept=190),
+        f"d=128 {LONG_TOKENS}, lse of C": _bwd_case(g, 1, LONG_TOKENS, LONG_TOKENS,
+                                                    bounded=True, d=128),
     }
-    dkv_err = KernelErrors("flash_bwd_dkv", BWD_ULPS)
-    dq_err = KernelErrors("flash_bwd_dq", BWD_ULPS)
+    dkv_err = KernelErrors("flash_bwd_dkv_sm90", BWD_ULPS)
+    dq_err = KernelErrors("flash_bwd_dq_sm90", BWD_ULPS)
+    want = {"flash_bwd_dkv": 1, "flash_bwd_dq": 1, "flash_bwd_dkv_sm90": 1,
+            "flash_bwd_dq_sm90": 1}
     for label, (q, k, v, gout, mask, out, lse) in cases.items():
+        scale = q.shape[-1]**-0.5
         before = dict(fa.launch_counts)
         dq, dk, dv = fa._flash_backward(q, k, v, mask, out, lse, gout, scale)
         torch.cuda.synchronize()
-        if (fa.launch_counts["flash_bwd_dkv"] != before["flash_bwd_dkv"] + 1
-                or fa.launch_counts["flash_bwd_dq"] != before["flash_bwd_dq"] + 1):
-            fail(f"flash backward {label}: the kernels were not launched")
+        launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+        if launched != want:
+            fail(f"flash backward {label}: launched {launched}, expected {want}")
         ref_dq, ref_dk, ref_dv = fa._flash_backward_plain(q, k, v, mask, out, lse, gout, scale)
         dkv_err.add(f"{label}: dk", dk, ref_dk)
         dkv_err.add(f"{label}: dv", dv, ref_dv)
@@ -1546,6 +1590,8 @@ def check_flash_backward(peaks):
         del ref_dq, ref_dk, ref_dv
     (dkv_e, dkv_tol), (dq_e, dq_tol) = dkv_err.check(), dq_err.check()
 
+    wmma = _wmma_backward_entries()
+    scale = HEAD_DIM**-0.5
     timed = {}
     for label in (f"self {b}x{TRAIN_TOKENS}", f"cross {b}x{TRAIN_TOKENS}x{CAPTION}, "
                   "masked row", f"{LONG_TOKENS}, lse of C"):
@@ -1554,6 +1600,7 @@ def check_flash_backward(peaks):
         dkv_ops, dq_ops, dkv_bytes, dq_bytes = _bwd_work(q, k, mask)
         keep = None if mask is None else (mask > 0.5)[:, None, None, :]
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        outs = (torch.empty_like(k), torch.empty_like(v), torch.empty_like(q))
 
         def lib_fwd():
             return F.scaled_dot_product_attention(*leaves, attn_mask=keep)
@@ -1564,6 +1611,10 @@ def check_flash_backward(peaks):
                                                        scale)),
             "dq_ms": time_ms(lambda: fa.flash_bwd_dq(q, k, v, gout, lse, delta, mask,
                                                      scale)),
+            "dkv_wmma_ms": time_ms(lambda: wmma("dkv", q, k, v, gout, lse, delta, mask,
+                                                scale, outs[:2])),
+            "dq_wmma_ms": time_ms(lambda: wmma("dq", q, k, v, gout, lse, delta, mask,
+                                               scale, outs[2:])),
             "plain_ms": time_ms(lambda: fa._flash_backward_plain(
                 q, k, v, mask, out, lse, gout, scale), reps=2, batches=3),
             "library_backward_ms": time_ms(lambda: torch.autograd.grad(
@@ -1572,29 +1623,45 @@ def check_flash_backward(peaks):
             "dq_bound": bound(dq_ops, dq_bytes, peaks),
             "dkv_flops": dkv_ops, "dq_flops": dq_ops,
         }
+        del outs
+    q, k, v, gout, mask, out, lse = cases[f"d=128 {LONG_TOKENS}, lse of C"]
+    delta = (gout.float() * out.float()).sum(-1)
+    dkv_ops, dq_ops, dkv_bytes, dq_bytes = _bwd_work(q, k, mask)
+    d128 = {"shape": list(q.shape),
+            "dkv_ms": time_ms(lambda: fa.flash_bwd_dkv(q, k, v, gout, lse, delta, mask,
+                                                       128**-0.5)),
+            "dq_ms": time_ms(lambda: fa.flash_bwd_dq(q, k, v, gout, lse, delta, mask,
+                                                     128**-0.5)),
+            "dkv_bound_ms": bound(dkv_ops, dkv_bytes, peaks)[0],
+            "dq_bound_ms": bound(dq_ops, dq_bytes, peaks)[0]}
     main = timed[f"self {b}x{TRAIN_TOKENS}"]
     rows = []
-    for name, err, tol, line in (("flash_bwd_dkv", dkv_e, dkv_tol, 996),
-                                 ("flash_bwd_dq", dq_e, dq_tol, 1058)):
-        short = name.split("_")[-1]
-        rows.append({"name": name, "route": "cuda",
-                     "source": "avatar_tpu_torch/csrc/flash_backward.cu",
+    for name, err, tol, line in (("flash_bwd_dkv_sm90", dkv_e, dkv_tol, 996),
+                                 ("flash_bwd_dq_sm90", dq_e, dq_tol, 1058)):
+        short = name.split("_")[2]
+        rows.append({"name": name, "route": "cuda", "source": SM90_BWD_SOURCE,
                      "replaces": f"avatar_tpu/ops/flash_attention.py:{line}",
                      "max_abs_err": err, "tol": tol, "ms": main[f"{short}_ms"],
+                     "wmma_ms": main[f"{short}_wmma_ms"],
                      "plain_ms": main["plain_ms"], "bound_ms": main[f"{short}_bound"][0],
                      "bound_by": main[f"{short}_bound"][1],
                      "library_ms": main["library_backward_ms"],
                      "shape": f"[{b}, {HEADS}, {TRAIN_TOKENS}, {HEAD_DIM}] self-attention",
                      "plain_and_library_cover": "the whole backward (dq, dk, dv)"})
     for short, err in (("dkv", dkv_err), ("dq", dq_err)):
-        emit({"phase": f"kernel_flash_bwd_{short}", "errors": err.errs,
+        emit({"phase": f"kernel_flash_bwd_{short}", "route": "sm90", "errors": err.errs,
               "limits": err.tols, "ulps": BWD_ULPS,
-              "times": {label: {"ms": t[f"{short}_ms"], "plain_ms": t["plain_ms"],
+              "times": {label: {"ms": t[f"{short}_ms"], "wmma_ms": t[f"{short}_wmma_ms"],
+                                "speedup_over_wmma": t[f"{short}_wmma_ms"] / t[f"{short}_ms"],
+                                "plain_ms": t["plain_ms"],
                                 "library_backward_ms": t["library_backward_ms"],
                                 "bound_us": t[f"{short}_bound"][0] * 1e3,
                                 "bound_by": t[f"{short}_bound"][1],
+                                "fraction_of_bound": t[f"{short}_bound"][0] / t[f"{short}_ms"],
                                 "flops": t[f"{short}_flops"]}
-                        for label, t in timed.items()}})
+                        for label, t in timed.items()},
+              "d128": {"shape": d128["shape"], "ms": d128[f"{short}_ms"],
+                       "bound_us": d128[f"{short}_bound_ms"] * 1e3}})
     return rows
 
 
@@ -1650,9 +1717,10 @@ def check_attention_gradients():
         got = torch.autograd.grad(kernel(*leaves), leaves, gout)
         torch.cuda.synchronize()
         launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
-        if not (launched.get(forward) and launched.get("flash_bwd_dkv")
-                and launched.get("flash_bwd_dq")):
-            fail(f"gradient of {label}: launched {launched}")
+        if not (launched.get(forward) and launched.get("flash_bwd_dkv_sm90")
+                and launched.get("flash_bwd_dq_sm90") and not launched.get("flash_bwd_dkv_wmma")
+                and not launched.get("flash_bwd_dq_wmma")):
+            fail(f"gradient of {label}: launched {launched}, expected the Hopper backward")
         leaves32 = [t.detach().float().requires_grad_() for t in inputs]
         want = torch.autograd.grad(plain(*leaves32), leaves32, gout.float())
         errs = [_rel_rms(a.float(), w) for a, w in zip(got, want)]
@@ -2016,7 +2084,8 @@ def check_reference_train():
         _, xla, xla_losses, none = _tiny_train_run(setup, mode, "cuda", torch.bfloat16, "xla")
         _, card, losses, launches = _tiny_train_run(setup, mode, "cuda", torch.bfloat16)
         expect = {k: n * micro_steps for k, n in per_micro[mode].items()}
-        for name in ("flash_single", "flash_bwd_dkv", "flash_bwd_dq"):
+        for name in ("flash_single", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_dkv_sm90",
+                     "flash_bwd_dq_sm90"):
             expect[name] = backward_recomputes(mode, layers) * micro_steps
         res = {"losses": losses, "cpu_losses": cpu_losses, "xla_losses": xla_losses,
                "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)),
@@ -2038,9 +2107,11 @@ def check_reference_train():
     return total
 
 
-def profile_train_step(step, args, step_s):
+def profile_train_step(step, args, step_s, sums=None):
     """Device time by kernel over one call of ``step`` (torch.profiler), and
-    the device's idle share of an unprofiled call of ``step_s`` seconds."""
+    the device's idle share of an unprofiled call of ``step_s`` seconds;
+    ``sums`` maps a label to a kernel-name substring whose device ms and
+    launches are summed over every matching kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -2061,6 +2132,10 @@ def profile_train_step(step, args, step_s):
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels_ms": {e.key[:90]: e.self_device_time_total / 1e3 for e in top},
         "top_kernels_launches": {e.key[:90]: e.count for e in top},
+        "summed_ms": {label: sum(e.self_device_time_total for e in kernels if part in e.key)
+                      / 1e3 for label, part in (sums or {}).items()},
+        "summed_launches": {label: sum(e.count for e in kernels if part in e.key)
+                            for label, part in (sums or {}).items()},
     }
 
 
@@ -2116,9 +2191,11 @@ def run_train(pipe):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     micro_steps = TRAIN_STEPS * TRAIN_ACCUM
     backwards = backward_recomputes("lora_audio", LAYERS)
+    # F on the Hopper kernels only: any WMMA backward launch fails below
     per_micro = {"rope_fused_attention": LAYERS, "fused_token_attention": LAYERS,
                  "flash_single": backwards, "flash_bwd_dkv": backwards,
-                 "flash_bwd_dq": backwards}
+                 "flash_bwd_dq": backwards, "flash_bwd_dkv_sm90": backwards,
+                 "flash_bwd_dq_sm90": backwards}
     for name, n in launches.items():
         if n != per_micro.get(name, 0) * micro_steps:
             fail(f"train: {name} launched {n} times in {micro_steps} micro-steps, "
@@ -2146,7 +2223,9 @@ def run_train(pipe):
           "max_memory_allocated_gib": peak_gib, "launches": launches,
           "launches_per_micro_step": {k: n / micro_steps for k, n in launches.items() if n},
           "clock_max_clock_power_temperature_after": card_state()})
-    emit({"phase": "profile_train_micro_step", **profile_train_step(one, args, micro_s)})
+    emit({"phase": "profile_train_micro_step", **profile_train_step(
+        one, args, micro_s, {"flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
+                             "flash_bwd_dq": "flash_bwd_dq_sm90_kernel"})})
     return launches
 
 
@@ -2212,8 +2291,8 @@ def check_train_cli():
     if not (first_step == 4 and second_step == 6 and logged == [1, 2, 3, 4, 5, 6]
             and len(exports) == 2 and len(exports_after) == 3):
         fail(f"train_cli: expected steps 4 then 6, two exports then three: {res}")
-    if not {"rope_fused_attention", "fused_token_attention", "flash_bwd_dkv",
-            "flash_bwd_dq"} <= set(launches):
+    if not {"rope_fused_attention", "fused_token_attention", "flash_bwd_dkv_sm90",
+            "flash_bwd_dq_sm90"} <= set(launches):
         fail(f"train_cli: the training path did not launch the kernels: {launches}")
     return launches
 
@@ -2509,10 +2588,11 @@ def main() -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     # the default build: every source's bf16 / 64 library and the Hopper
-    # kernel at head dim 128, one nvcc each, all in parallel
+    # kernels at head dim 128, one nvcc each, all in parallel
     t0 = time.perf_counter()
     kernel_build.build_all(list(kernel_build.KERNEL_SOURCES)
-                           + [("flash_forward_sm90", ("ATTN_D=128",))])
+                           + [("flash_forward_sm90", ("ATTN_D=128",)),
+                              ("flash_backward_sm90", ("ATTN_D=128",))])
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in kernel_build.build_logs.items()}

@@ -1,10 +1,10 @@
 """Which CUDA attention kernel and which build variant each (dtype, head
 dim) takes, on the CPU (the decisions are Python, made before a launch):
-the Hopper kernel for C and D at bf16 with head dim 64 or 128, the WMMA
-tile code built per (dtype, padded head dim) for everything else; and the
-head dims and dtypes the wrappers accept on the card are exactly those the
-reference's predicates admit, fp16 excepted (it reaches no path of either
-package)."""
+the Hopper kernels for C and D and for the backward F at bf16 with head
+dim 64 or 128, the WMMA tile code built per (dtype, padded head dim) for
+everything else; and the head dims and dtypes the wrappers accept on the
+card are exactly those the reference's predicates admit, fp16 excepted (it
+reaches no path of either package)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +24,15 @@ def test_forward_implementation_by_dtype_and_head_dim(mode, dtype):
     for d in (8, 32, 64, 80, 128, 256, 512):
         hopper = mode != "single" and dtype == torch.bfloat16 and d in (64, 128)
         assert tfa.forward_impl(mode, dtype, d) == ("sm90" if hopper else "wmma"), d
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256, 512])
+def test_backward_implementation_by_dtype_and_head_dim(dtype, d):
+    """The flash backward (F): the Hopper kernels at bf16 with head dim 64
+    or 128, the WMMA variants for f32 and every other head dim."""
+    hopper = dtype == torch.bfloat16 and d in (64, 128)
+    assert tfa.backward_impl(dtype, d) == ("sm90" if hopper else "wmma")
 
 
 @pytest.mark.parametrize("d,padded", [(8, 64), (32, 64), (64, 64), (72, 128),

@@ -294,30 +294,77 @@ def _ulps_ok(out, ref, ulps=4):
     return (out.float() - ref).abs().max().item() <= ulps * 2.0**-8 * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("lq,lk,masked", [(150, 150, False), (96, 77, True)])
-def test_flash_backward_kernels_match_plain(gen, lq, lk, masked):
-    """dK/dV and dQ against the plain version, from the forward kernel's
-    own O and lse; ragged lengths and, with the mask, a fully masked batch
-    row (zero gradients)."""
-    q, k = _rows(gen, 2, HEADS, lq, HD), _rows(gen, 2, HEADS, lk, HD)
-    v = torch.randn(2, HEADS, lk, HD, generator=gen, device="cuda").bfloat16()
-    g = torch.randn(2, HEADS, lq, HD, generator=gen, device="cuda").bfloat16()
+def _bwd_inputs(gen, dtype, d, lq, lk, masked):
+    """q, k, v, an output gradient and, with ``masked``, a keep-mask with
+    sample 0 half masked and sample 1 fully masked; then O and lse from the
+    forward kernel."""
+    q, k = _rows(gen, 2, HEADS, lq, d).to(dtype), _rows(gen, 2, HEADS, lk, d).to(dtype)
+    v = torch.randn(2, HEADS, lk, d, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(2, HEADS, lq, d, generator=gen, device="cuda").to(dtype)
     mask = None
     if masked:
         mask = torch.ones(2, lk, device="cuda")
         mask[0, lk // 2:] = 0.0
         mask[1] = 0.0
     out, lse = fa.flash_attention(q, k, v, kv_mask=mask, with_lse=True)
+    return q, k, v, g, mask, out, lse
+
+
+# the backward's routes: the Hopper kernels (bf16, head dim 64 / 128) and
+# the WMMA variants (every other dtype and head dim)
+BWD_ROUTES = [("sm90", torch.bfloat16, 64), ("sm90", torch.bfloat16, 128),
+              ("wmma", torch.bfloat16, 32), ("wmma", torch.float32, 64)]
+# self-attention, cross-attention with a fully masked sample, ragged
+BWD_SHAPES = [(150, 150, False), (96, 77, True), (477, 250, True)]
+
+
+@pytest.mark.parametrize("route,dtype,d", BWD_ROUTES)
+@pytest.mark.parametrize("lq,lk,masked", BWD_SHAPES)
+def test_flash_backward_kernels_match_plain(gen, route, dtype, d, lq, lk, masked):
+    """dK/dV and dQ against the plain version, from the forward kernel's
+    own O and lse, on the route that :func:`backward_impl` names; ragged
+    lengths and, with the mask, a fully masked batch row (zero
+    gradients)."""
+    assert fa.backward_impl(dtype, d) == route
+    q, k, v, g, mask, out, lse = _bwd_inputs(gen, dtype, d, lq, lk, masked)
     before = dict(fa.launch_counts)
-    dq, dk, dv = fa._flash_backward(q, k, v, mask, out, lse, g, HD**-0.5)
+    dq, dk, dv = fa._flash_backward(q, k, v, mask, out, lse, g, d**-0.5)
     torch.cuda.synchronize()
-    assert fa.launch_counts["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
-    assert fa.launch_counts["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
-    ref = fa._flash_backward_plain(q, k, v, mask, out, lse, g, HD**-0.5)
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    assert launched == {"flash_bwd_dkv": 1, "flash_bwd_dq": 1, f"flash_bwd_dkv_{route}": 1,
+                        f"flash_bwd_dq_{route}": 1}
+    ref = fa._flash_backward_plain(q, k, v, mask, out, lse, g, d**-0.5)
     for got, want in zip((dq, dk, dv), ref):
-        assert _ulps_ok(got, want)
+        if dtype == torch.float32:
+            # 3xTF32 products, f32 sums in another order
+            assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        else:
+            assert _ulps_ok(got, want)
     if masked:
         assert all(bool((x[1] == 0).all()) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("lq,lk,masked", BWD_SHAPES)
+def test_hopper_backward_matches_the_wmma_kernels(gen, d, lq, lk, masked):
+    """The Hopper dK/dV and dQ against the WMMA kernels they replaced,
+    called directly on the same bf16 inputs: both round p and dS to bf16 at
+    the same places and sum in f32 in other orders."""
+    q, k, v, g, mask, out, lse = _bwd_inputs(gen, torch.bfloat16, d, lq, lk, masked)
+    dq, dk, dv = fa._flash_backward(q, k, v, mask, out, lse, g, d**-0.5)
+    delta = (g.float() * out.float()).sum(-1)
+    suffix, defines = fa.kernel_variant(torch.bfloat16, d)
+    wdk, wdv, wdq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if mask is None else mask.data_ptr()]
+    tail = [2, HEADS, lq, lk, d, d**-0.5, torch.cuda.current_stream().cuda_stream]
+    for kernel, outs in (("dkv", (wdk, wdv)), ("dq", (wdq,))):
+        fn = fa._c_entry("flash_backward", f"flash_bwd_{kernel}_{suffix}", 7 + len(outs), 5,
+                         bounded_flag=False, defines=defines)
+        assert fn(*head, *(t.data_ptr() for t in outs), *tail) == 0
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv), (wdq, wdk, wdv)):
+        assert _ulps_ok(got, want)
 
 
 def _rel(a, b):
@@ -354,7 +401,8 @@ def test_attention_gradients_on_the_card(gen):
             out = fn(*leaves, mask.to(device))
             grads[device] = torch.autograd.grad(out, leaves, g.to(device, dtype))
         launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
-        assert launched.get("flash_bwd_dkv") == 1 and launched.get("flash_bwd_dq") == 1, name
+        assert launched.get("flash_bwd_dkv_sm90") == 1, name
+        assert launched.get("flash_bwd_dq_sm90") == 1, name
         # bf16 operands and outputs against f32 throughout
         for got, want in zip(grads["cuda"], grads["cpu"]):
             assert _rel(got.cpu(), want) < 2e-2, name
