@@ -2,9 +2,9 @@
 // [B, H, Lq, d], k/v [B, H, Lk, d] contiguous, optional [B, Lk] f32
 // keep-mask (> 0.5 keeps), lse [B, H, Lq] f32. Built per element type and
 // padded head dim (attention_tile.cuh): bf16 or f32, any d % 8 == 0 up to
-// 512. At bf16 and d = 64 or 128 the bounded and online modes run the
-// Hopper kernel of flash_forward_sm90.cu instead; these entries serve every
-// other (type, head dim), and the whole-row mode at all of them.
+// 512. At bf16 and d = 64 or 128 all three modes run the Hopper kernel of
+// flash_forward_sm90.cu instead; these entries serve every other (type,
+// head dim).
 //
 // Replaces the three TPU kernels that `_flash_forward`
 // (avatar_tpu/ops/flash_attention.py:452) launches:

@@ -1,6 +1,8 @@
 // Self-attention with split-half RoPE applied in-kernel. Built per element
 // type and padded head dim (attention_tile.cuh): bf16 or f32, any head dim
-// d % 16 == 0 up to 256, as the reference's `rope_fused_supports`.
+// d % 16 == 0 up to 256, as the reference's `rope_fused_supports`. At bf16
+// and d = 64 or 128 the Hopper kernel of rope_attention_sm90.cu runs
+// instead; this one serves every other (type, head dim).
 //
 // Replaces the TPU kernel `_rope_token_kernel`
 // (avatar_tpu/ops/flash_attention.py:729, launched by `_rope_fused_impl`
@@ -19,8 +21,8 @@
 // shared-memory loads of the q tile and of each k tile, so no rotated copy
 // of q/k ever reaches device memory. The products run on the tensor cores
 // through WMMA; the logits never leave shared memory. Each block re-reads
-// the head's k/v (13 tiles), which the 50 MB L2 absorbs. wgmma, TMA and a
-// register-resident accumulator are left for a later, faster version.
+// the head's k/v (13 tiles), which the 50 MB L2 absorbs. The wgmma / TMA
+// version with a register-resident accumulator is rope_attention_sm90.cu.
 #include "attention_tile.cuh"
 
 namespace avatar_attn {

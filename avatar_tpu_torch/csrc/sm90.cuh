@@ -1,5 +1,6 @@
 // Pieces shared by the Hopper (sm_90a) attention kernels
-// (flash_forward_sm90.cu, flash_backward_sm90.cu): mbarriers, 4-D TMA loads
+// (flash_forward_sm90.cu, rope_attention_sm90.cu, flash_backward_sm90.cu;
+// the forward's consumer side is attention_fwd_sm90.cuh): mbarriers, 4-D TMA loads
 // and stores, 128-byte-swizzled shared-memory descriptors, the wgmma forms
 // the kernels issue, and the host-side tensor maps.
 //
@@ -285,20 +286,21 @@ static EncodeTiledFn encode_fn() {
 }
 
 // Tensor map of a [B, H, L, d] bf16 tensor with element strides (sb, sh, sl)
-// and d contiguous: dims (d, L, H, B), boxes of 64 columns x `rows` rows,
-// 128-byte swizzle; a box past a head's last row reads zeros and a store
-// there is clipped.
+// and d contiguous: dims (d, L, H, B), boxes of `cols` columns x `rows`
+// rows, 128-byte swizzle by default (64-column boxes, the wgmma panels);
+// a box past a head's last row reads zeros and a store there is clipped.
 static int make_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int d,
-                    long long sb, long long sh, long long sl, int rows) {
+                    long long sb, long long sh, long long sl, int rows, int cols = 64,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn encode = encode_fn();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
   cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

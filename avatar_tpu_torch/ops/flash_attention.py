@@ -4,8 +4,8 @@
 Token-major, [B, L, heads*head_dim]:
 
 - :func:`rope_fused_attention`: self-attention over split-half RoPE-layout
-  q/k with the rotation done inside the kernel (``csrc/rope_attention.cu``,
-  replacing ``_rope_token_kernel``).
+  q/k with the rotation done inside the kernel (``csrc/rope_attention_sm90.cu``
+  and ``csrc/rope_attention.cu``, replacing ``_rope_token_kernel``).
 - :func:`fused_token_attention`: attention with an optional [B, Lk]
   keep-mask (``csrc/token_attention.cu``, replacing ``_token_major_kernel``).
 
@@ -32,15 +32,18 @@ The kernels take bf16 and f32 and every head dim that the reference's
 predicate for their path admits: a multiple of 8 up to 512 for the
 head-major kernels (a multiple of 16 for A, up to 256 for A and B); fp16
 reaches no path of either package and raises. The route is chosen from the
-dtype and the head dim before the launch (:func:`forward_impl`): the
-bounded (C) and online (D) kernels at bf16 with head dim 64 or 128 run the
-Hopper kernel (``csrc/flash_forward_sm90.cu``: TMA and wgmma, and strided
-q/k/v read in place); every other case runs the WMMA tile code built for
-its (dtype, padded head dim) variant (:func:`kernel_variant`). The flash
-backward (F) routes the same way (:func:`backward_impl`): bf16 at head dim
-64 or 128 runs ``csrc/flash_backward_sm90.cu`` (TMA and wgmma, P and dS in
-registers), every other case ``csrc/flash_backward.cu`` (WMMA). Neither
-route is a fallback of the other: each (dtype, head dim) has exactly one.
+dtype and the head dim before the launch (:func:`forward_impl`,
+:func:`rope_impl`): the three head-major forward kernels (C, D, E) at bf16
+with head dim 64 or 128 run the Hopper kernel (``csrc/flash_forward_sm90.cu``:
+TMA and wgmma, and strided q/k/v read in place), and so does A
+(``csrc/rope_attention_sm90.cu``: the rotation written into the wgmma
+operand layout in shared memory); every other case runs the WMMA tile code
+built for its (dtype, padded head dim) variant (:func:`kernel_variant`).
+The flash backward (F) routes the same way (:func:`backward_impl`): bf16
+at head dim 64 or 128 runs ``csrc/flash_backward_sm90.cu`` (TMA and wgmma,
+P and dS in registers), every other case ``csrc/flash_backward.cu``
+(WMMA). Neither route is a fallback of the other: each (dtype, head dim)
+has exactly one.
 
 Gradients follow the JAX package's custom VJPs. Where an input requires a
 gradient, each of the three attention entries runs as a
@@ -76,7 +79,7 @@ NEG_INF = -1e30
 LSE_MASKED = 1e30  # lse of a row with no kept key
 # padded head dims of the WMMA kernels' variants (zero columns fill the pad)
 PADDED_HEAD_DIMS = (64, 128, 256, 512)
-# head dims of the Hopper kernels, forward and backward (bf16 only)
+# head dims of the Hopper kernels, A, C-E and F (bf16 only)
 SM90_HEAD_DIMS = (64, 128)
 DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # the reference's largest single block: up to this length (after rounding
@@ -84,14 +87,15 @@ DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 SINGLE_BLOCK_MAX = 1024
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
-# flash_bounded / flash_online (C, D) and flash_bwd_dkv / flash_bwd_dq (F)
-# count every launch whatever the route; the _sm90 and _wmma counters split
-# them by implementation.
+# rope_fused_attention (A), flash_bounded / flash_online / flash_single (C,
+# D, E) and flash_bwd_dkv / flash_bwd_dq (F) count every launch whatever the
+# route; the _sm90 and _wmma counters split them by implementation.
 launch_counts: Dict[str, int] = {
     "rope_fused_attention": 0, "fused_token_attention": 0,
+    "rope_fused_attention_sm90": 0, "rope_fused_attention_wmma": 0,
     "flash_bounded": 0, "flash_online": 0, "flash_single": 0,
-    "flash_bounded_sm90": 0, "flash_online_sm90": 0,
-    "flash_bounded_wmma": 0, "flash_online_wmma": 0,
+    "flash_bounded_sm90": 0, "flash_online_sm90": 0, "flash_single_sm90": 0,
+    "flash_bounded_wmma": 0, "flash_online_wmma": 0, "flash_single_wmma": 0,
     "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
     "flash_bwd_dkv_sm90": 0, "flash_bwd_dq_sm90": 0,
     "flash_bwd_dkv_wmma": 0, "flash_bwd_dq_wmma": 0,
@@ -351,20 +355,29 @@ def kernel_variant(dtype: torch.dtype, d: int) -> Tuple[str, Tuple[str, ...]]:
     return DTYPE_NAMES[dtype], defines
 
 
+def _route(dtype: torch.dtype, d: int) -> str:
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "wmma"
+
+
 def forward_impl(mode: str, dtype: torch.dtype, d: int) -> str:
-    """Which implementation runs a ``_flash_forward`` mode on the card:
-    "sm90" (the Hopper kernel) for the bounded and online modes at bf16
-    with head dim 64 or 128, else "wmma"."""
-    if mode in ("bounded", "online") and dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
-        return "sm90"
-    return "wmma"
+    """Which implementation runs a ``_flash_forward`` mode (C, D or E; all
+    three route alike) on the card: "sm90" (``csrc/flash_forward_sm90.cu``)
+    at bf16 with head dim 64 or 128, else "wmma" (``csrc/flash_forward.cu``)."""
+    return _route(dtype, d)
+
+
+def rope_impl(dtype: torch.dtype, d: int) -> str:
+    """Which implementation runs A on the card: "sm90"
+    (``csrc/rope_attention_sm90.cu``) at bf16 with head dim 64 or 128, else
+    "wmma" (``csrc/rope_attention.cu``)."""
+    return _route(dtype, d)
 
 
 def backward_impl(dtype: torch.dtype, d: int) -> str:
     """Which implementation runs the flash backward (F) on the card:
     "sm90" (``csrc/flash_backward_sm90.cu``) at bf16 with head dim 64 or
     128, else "wmma" (``csrc/flash_backward.cu``)."""
-    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "wmma"
+    return _route(dtype, d)
 
 
 def sm90_defines(d: int) -> Tuple[str, ...]:
@@ -448,15 +461,21 @@ def _rope_forward(q, k, v, cos_s, sin_s, heads, scale, bounded):
     for name, t in (("cos", cos_s), ("sin", sin_s)):
         _check_cuda(name, t, (b, l, c // 2), q.dtype)
     out = torch.empty_like(q)
-    suffix, defines = kernel_variant(q.dtype, d)
-    fn = _c_entry("rope_attention", f"rope_attention_{suffix}", 6, 4, defines=defines)
+    impl = rope_impl(q.dtype, d)
+    if impl == "sm90":
+        lib, name, defines = "rope_attention_sm90", "rope_attention_sm90_bf16", sm90_defines(d)
+    else:
+        suffix, defines = kernel_variant(q.dtype, d)
+        lib, name = "rope_attention", f"rope_attention_{suffix}"
+    fn = _c_entry(lib, name, 6, 4, defines=defines)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_s.data_ptr(),
         sin_s.data_ptr(), out.data_ptr(), b, l, heads, d, float(scale),
         int(bool(bounded)), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, f"rope_attention_{suffix}")
+    _raise_on(err, name)
     launch_counts["rope_fused_attention"] += 1
+    launch_counts[f"rope_fused_attention_{impl}"] += 1
     return out
 
 
@@ -648,6 +667,10 @@ def _tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
     return sb, sh, sl
 
 
+# the mode argument of flash_sm90_bf16
+SM90_MODES = {"bounded": 0, "online": 1, "single": 2}
+
+
 def _flash_sm90_call(q, k, v, kv_mask, out, lse, mode, scale):
     """Launch ``flash_sm90_bf16`` (``csrc/flash_forward_sm90.cu``, the
     ``ATTN_D=128`` build at head dim 128) on tensors whose strides
@@ -664,7 +687,7 @@ def _flash_sm90_call(q, k, v, kv_mask, out, lse, mode, scale):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
              lse.data_ptr(), b, heads, lq, lk, d, *strides, float(scale),
-             int(mode == "bounded"), torch.cuda.current_stream(q.device).cuda_stream)
+             SM90_MODES[mode], torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_sm90_bf16")
 
 
@@ -713,8 +736,7 @@ def _flash_forward(q, k, v, kv_mask, scale: float, bounded: bool
         )
         _raise_on(err, f"{name}_{suffix}")
     launch_counts[name] += 1
-    if mode != "single":
-        launch_counts[f"{name}_{impl}"] += 1
+    launch_counts[f"{name}_{impl}"] += 1
     return out, lse
 
 

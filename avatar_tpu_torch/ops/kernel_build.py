@@ -27,8 +27,9 @@ from typing import Dict, Iterable, List, Tuple, Union
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNEL_SOURCES = (
-    "rope_attention", "token_attention", "flash_forward", "flash_forward_sm90",
-    "flash_backward", "flash_backward_sm90", "flash_dense", "int8_matmul", "row_quant",
+    "rope_attention", "rope_attention_sm90", "token_attention", "flash_forward",
+    "flash_forward_sm90", "flash_backward", "flash_backward_sm90", "flash_dense",
+    "int8_matmul", "row_quant",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -8,17 +8,21 @@ Phases, each printing one JSON line as soon as it has its numbers:
 1. card: name and power limit (``nvidia-smi``), TF32 settings;
 2. build: compiles the CUDA kernels of ``avatar_tpu_torch/csrc`` with
    ``nvcc`` (one process per library, in parallel): every source's bf16 /
-   head dim 64 build and the Hopper kernel at head dim 128; the bf16 and
-   f32 variants at other head dims that kernel_generality needs build
-   meanwhile in the background;
+   head dim 64 build, the Hopper kernels and the WMMA A and E at head dim
+   128; the bf16 and f32 variants at other head dims that
+   kernel_generality needs build meanwhile in the background;
 3. kernels (``kernel_*`` lines): each of the five attention kernels against
    its plain PyTorch version (bf16) at every shape a driven path gives it
-   (832 and 5376 tokens, 256 caption keys, batch 1 and 3): bounded and
-   unbounded, masked, a fully masked row, ragged lengths, and for the
-   head-major kernels the row log-sum-exp; the bounded (C) and online (D)
-   kernels are the Hopper kernel (``flash_*_sm90``), also at head dim 128
-   and on transposed views, timed beside the WMMA kernel they replace, and their
-   WMMA route (``flash_*_wmma``) at f32; the int8 product (exact int32
+   (832 and 5376 tokens, 256 caption keys, batch 1, 3 and the training
+   batch 8 x 480): bounded and unbounded, masked, a fully masked row,
+   ragged lengths, and for the head-major kernels the row log-sum-exp; A
+   (``rope_fused_attention_sm90``) and the bounded (C), online (D) and
+   whole-row (E) kernels run the Hopper kernels (``flash_*_sm90``), also at
+   head dim 128 and, for C-E, on transposed views; each is timed (A and E
+   by the profiler's device time: their wrappers' host time exceeds the
+   kernels') at its main-path shapes beside the WMMA kernel it replaces on
+   the same inputs, ``scaled_dot_product_attention`` and its bound, and
+   their WMMA route (``*_wmma``) at f32; the int8 product (exact int32
    sums; the dequant at the DiT's three W8A8 shapes, 832 and a ragged 5000
    rows) and the three row-quant kernels (at most one int8 level apart on a
    stated fraction, scales at rtol 1e-6); the flash backward's two kernels
@@ -90,9 +94,9 @@ Phases, each printing one JSON line as soon as it has its numbers:
    directory;
 12. train: the full-width 2B DiT trained in "lora_audio" mode at the
    training point (batch 8, 480 tokens, caption 256, accumulation 2, 3
-   optimizer steps): losses, launches per micro-step (F on the Hopper
-   kernels only), seconds per step, peak memory and a profile of one
-   micro-step with F's device ms.
+   optimizer steps): losses, launches per micro-step (A, E and F on the
+   Hopper kernels only), seconds per step, peak memory and a profile of
+   one micro-step with A's, E's and F's device ms.
 
 The launch counts are set to 0 just before each driven path and read just
 after it. Then the kernel summary line, the ``nvidia-smi`` line, and as
@@ -170,10 +174,17 @@ LEVEL_FRACTION = 1e-3
 F32_REL_TOL = 1e-5
 # and their lse (values of O(10), f32 sums in another order)
 LSE_TOL_F32 = 1e-4
-# The Hopper kernel (csrc/flash_forward_sm90.cu) replaces C and D at bf16
-# with these head dims; every other (type, head dim) runs the WMMA tile code
+# The Hopper kernel (csrc/flash_forward_sm90.cu) replaces C, D and E at bf16
+# with head dim 64 or 128; every other (type, head dim) runs the WMMA tile code
 SM90_SOURCE = "avatar_tpu_torch/csrc/flash_forward_sm90.cu"
 WMMA_SOURCE = "avatar_tpu_torch/csrc/flash_forward.cu"
+# A at bf16 with head dim 64 or 128 runs csrc/rope_attention_sm90.cu, every
+# other case csrc/rope_attention.cu
+ROPE_SM90_SOURCE = "avatar_tpu_torch/csrc/rope_attention_sm90.cu"
+ROPE_WMMA_SOURCE = "avatar_tpu_torch/csrc/rope_attention.cu"
+# A and B on a bf16 path at head dim 64: every A launch on the Hopper kernel
+TOKEN_MAJOR_BF16 = ("rope_fused_attention", "rope_fused_attention_sm90",
+                    "fused_token_attention")
 # ... and csrc/flash_backward_sm90.cu the flash backward's two kernels (F)
 SM90_BWD_SOURCE = "avatar_tpu_torch/csrc/flash_backward_sm90.cu"
 
@@ -312,64 +323,158 @@ def rope_inputs(g, batch, length, grid):
             randn(batch, length, WIDTH), cos, sin)
 
 
+def _rope_work(batch, length, width=WIDTH, itemsize=2):
+    """(operations, bytes) of A: QK^T and PV over every head; q, k, v and o
+    once each, cos and sin (half the width) once each."""
+    return (4.0 * batch * length * length * width,
+            (4 * batch * length * width + 2 * batch * length * (width // 2)) * itemsize)
+
+
+def _wmma_rope_entry(dtype_name="bf16", defines=()):
+    """A's WMMA kernel of csrc/rope_attention.cu called directly (no
+    counter): to time it at the shapes the Hopper kernel took over from it."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    fn = fa._c_entry("rope_attention", f"rope_attention_{dtype_name}", 6, 4,
+                     defines=defines)
+
+    def call(q, k, v, cos, sin, out, heads, scale, bounded):
+        b, length, c = q.shape
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                 out.data_ptr(), b, length, heads, c // heads, float(scale), int(bounded),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"rope_attention_{dtype_name} (WMMA) failed with {err}")
+    return call
+
+
+# A's shapes on the driven paths: (batch, tokens, grid) of the short path,
+# the guided path's three conds, the training forward and the long path's
+# length (which the reference's 6 MiB cap sends to C instead)
+ROPE_SHAPES = {"832": (1, TOKENS, (13, 8, 8)), "batch 3": (3, TOKENS, (13, 8, 8)),
+               "train 8x480": (8, 480, (8, 6, 10)),
+               f"{LONG_TOKENS}": (1, LONG_TOKENS, LONG_GRID)}
+
+
 def check_rope_kernel(peaks):
+    """A on the Hopper kernel (bf16, head dim 64 and 128) against its plain
+    version, bounded and unbounded (the two-pass whole-row max): the short
+    path's 832 tokens, the guided batch 3, the training batch 8 x 480, a
+    ragged L = 80 and the largest length the reference's cap admits (1248);
+    every call must launch ``rope_fused_attention_sm90``. Then at each
+    shape of ROPE_SHAPES and at head dim 128: the kernel's time, the bound
+    and its fraction, ``scaled_dot_product_attention`` on q and k rotated
+    beforehand (head-major, contiguous), and the WMMA kernel it replaces on
+    the same inputs; the plain version's time at 832 tokens."""
     import torch
     import torch.nn.functional as F
 
     from avatar_tpu_torch.ops import flash_attention as fa
+    from avatar_tpu_torch.ops.rope import apply_rotary_emb_split
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(length, grid, batch=1):
         return rope_inputs(g, batch, length, grid)
 
-    q, k, v, cos, sin = inputs(TOKENS, (13, 8, 8))
-    # the guided path runs three conds per step in one batch
-    q3, k3, v3, cos3, sin3 = batch3 = inputs(TOKENS, (13, 8, 8), batch=3)
+    def d128(args):
+        # the same tensors read as 16 heads of 128
+        return args, 16, 128**-0.5
+
+    main = inputs(TOKENS, (13, 8, 8))
     scale = HEAD_DIM**-0.5
     cases = {
-        "": (q, k, v, cos, sin),
-        "batch 3, ": batch3,
-        # a length that is not a multiple of the 64-row tile
-        "ragged L=80, ": inputs(80, (5, 4, 4)),
+        "832": (main, HEADS, scale),
+        "batch 3": (inputs(TOKENS, (13, 8, 8), batch=3), HEADS, scale),
+        "train 8x480": (inputs(480, (8, 6, 10), batch=8), HEADS, scale),
+        # lengths that are not multiples of the 128-row tile
+        "ragged L=80": (inputs(80, (5, 4, 4)), HEADS, scale),
+        "L=1248": (inputs(1248, (13, 12, 8)), HEADS, scale),
+        "d=128 832": d128(main),
+        "d=128 ragged L=80, batch 2": d128(inputs(80, (5, 4, 4), batch=2)),
     }
-    errors = KernelErrors("rope_fused_attention")
-    for label, args in cases.items():
+    errors = KernelErrors("rope_fused_attention_sm90")
+    for label, (args, heads, sc) in cases.items():
         for bounded in (True, False):
-            out = fa.rope_fused_attention(*args, HEADS, scale, bounded)
-            ref = fa._rope_attention_plain(*args, HEADS, scale, bounded)
-            errors.add(f"{label}bounded={bounded}", out, ref)
+            before = dict(fa.launch_counts)
+            out = fa.rope_fused_attention(*args, heads, sc, bounded)
+            torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in fa.launch_counts.items()
+                        if c > before[n]}
+            if launched != {"rope_fused_attention": 1, "rope_fused_attention_sm90": 1}:
+                fail(f"rope {label}: launched {launched}, expected the Hopper kernel")
+            ref = fa._rope_attention_plain(*args, heads, sc, bounded)
+            errors.add(f"{label}, bounded={bounded}", out, ref)
+            del out, ref
     err, tol = errors.check()
 
-    def head_major(t):
-        return fa.split_to_head_major(t, HEADS).reshape(1, TOKENS, HEADS, HEAD_DIM
-                                                        ).transpose(1, 2)
+    wmma64, wmma128 = _wmma_rope_entry(), _wmma_rope_entry(defines=("ATTN_D=128",))
 
-    from avatar_tpu_torch.ops.rope import apply_rotary_emb_split
+    def timings(args, heads, sc, wmma):
+        q, k, v, cos, sin = args
+        b, length, c = q.shape
+        d = c // heads
 
-    qh = head_major(apply_rotary_emb_split(q, (cos, sin))).contiguous()
-    kh = head_major(apply_rotary_emb_split(k, (cos, sin))).contiguous()
-    vh = v.reshape(1, TOKENS, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
-    ms = time_ms(lambda: fa.rope_fused_attention(q, k, v, cos, sin, HEADS, scale, True))
+        def head_major(t):
+            return fa.split_to_head_major(t, heads).reshape(b, length, heads, d
+                                                            ).transpose(1, 2).contiguous()
+
+        qh = head_major(apply_rotary_emb_split(q, (cos, sin)))
+        kh = head_major(apply_rotary_emb_split(k, (cos, sin)))
+        vh = v.reshape(b, length, heads, d).transpose(1, 2).contiguous()
+        out = torch.empty_like(q)
+
+        def call():
+            return fa.rope_fused_attention(q, k, v, cos, sin, heads, sc, True)
+
+        ms = device_ms(call, "rope_sm90_kernel")
+        bound_ms, bound_by = bound(*_rope_work(b, length), peaks)
+        res = {"ms": ms, "ms_per_call_events": time_ms(call), "bound_ms": bound_ms,
+               "bound_by": bound_by, "fraction_of_bound": bound_ms / ms,
+               "library_ms": device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+               "wmma_ms_same_inputs": device_ms(
+                   lambda: wmma(q, k, v, cos, sin, out, heads, sc, True),
+                   "rope_attention_kernel", reps=5)}
+        res["wmma_over_sm90"] = res["wmma_ms_same_inputs"] / ms
+        res["sm90_over_library"] = ms / res["library_ms"]
+        return res
+
+    shapes = {}
+    for label, (b, length, grid) in ROPE_SHAPES.items():
+        args = main if label == "832" else inputs(length, grid, batch=b)
+        shapes[label] = timings(args, HEADS, scale, wmma64)
+        if length == LONG_TOKENS:
+            # what the long path runs instead (the reference's 6 MiB cap):
+            # RoPE and the head-major relayout in plain code, then C on views
+            q, k, v, cos, sin = args
+
+            def rope_pass():
+                return [fa.split_to_head_major(apply_rotary_emb_split(t, (cos, sin)), HEADS)
+                        for t in (q, k)]
+
+            def split(t):
+                return t.reshape(b, length, HEADS, HEAD_DIM).transpose(1, 2)
+
+            rq, rk = rope_pass()
+            shapes[label]["plain_rope_pass_ms"] = time_ms(rope_pass)
+            shapes[label]["c_on_rotated_views_ms"] = time_ms(lambda: fa.flash_attention(
+                split(rq), split(rk), split(v), scale=scale, bounded_logits=True))
+            del q, k, v, cos, sin, rq, rk
+        del args
+    shapes["d=128 832"] = timings(main, 16, 128**-0.5, wmma128)
+    q, k, v, cos, sin = main
     plain_ms = time_ms(lambda: fa._rope_attention_plain(
         q, k, v, cos, sin, HEADS, scale, True), reps=5, batches=3)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-    batch3_ms = time_ms(lambda: fa.rope_fused_attention(
-        q3, k3, v3, cos3, sin3, HEADS, scale, True))
-    flops = 4.0 * TOKENS * TOKENS * WIDTH
-    nbytes = 4 * TOKENS * WIDTH * 2 + 2 * TOKENS * (WIDTH // 2) * 2
-    bound_ms, bound_by = bound(flops, nbytes, peaks)
-    row = {"name": "rope_fused_attention", "route": "cuda",
-           "source": "avatar_tpu_torch/csrc/rope_attention.cu",
+    top = shapes["832"]
+    row = {"name": "rope_fused_attention_sm90", "route": "cuda", "source": ROPE_SM90_SOURCE,
            "replaces": "avatar_tpu/ops/flash_attention.py:729",
-           "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+           "max_abs_err": err, "tol": tol, "ms": top["ms"], "plain_ms": plain_ms,
+           "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+           "library_ms": top["library_ms"]}
     emit({"phase": "kernel_rope_fused_attention", "errors": errors.errs,
-          "limits": errors.tols,
-          "ms": ms, "ms_batch_3": batch3_ms, "plain_ms": plain_ms,
-          "library_ms": lib_ms,
-          "bound_us": bound_ms * 1e3, "bound_by": bound_by, "flops": flops,
-          "bytes": nbytes})
+          "limits": errors.tols, "plain_ms_832": plain_ms, "shapes": shapes})
     return row
 
 
@@ -454,9 +559,14 @@ FLASH_KERNELS = {
                 SM90_SOURCE),
     "online": ("flash_online_sm90", "avatar_tpu/ops/flash_attention.py:140", False,
                SM90_SOURCE),
-    "single": ("flash_single", "avatar_tpu/ops/flash_attention.py:387", False,
-               WMMA_SOURCE),
+    "single": ("flash_single_sm90", "avatar_tpu/ops/flash_attention.py:387", False,
+               SM90_SOURCE),
 }
+# E's shapes on the driven paths: every backward recompute of the training
+# step (self-attention over 480 tokens; cross-attention to 256 caption keys
+# with 200 kept and one sample's caption fully masked), and a DiT-like
+# single-block self-attention
+SINGLE_SHAPES = ("637x637", "train self 8x480", "train cross 8x480x256")
 
 
 def _attention_work(b, h, lq, lk, d, itemsize=2):
@@ -474,19 +584,21 @@ def plain_forward(q, k, v, mask, scale, mode):
     return fa._flash_plain(q, k, v, mask, scale, mode)
 
 
-def _wmma_entry(mode):
-    """The bf16 / 64 WMMA kernel of csrc/flash_forward.cu called directly
-    (no counter): to time it at the shapes the Hopper kernel took over from
-    it."""
+def _wmma_entry(mode, defines=()):
+    """The bf16 WMMA kernel of csrc/flash_forward.cu (the bf16 / 64 build,
+    or ``defines``) called directly (no counter): to time it at the shapes
+    the Hopper kernel took over from it."""
     import torch
 
     from avatar_tpu_torch.ops import flash_attention as fa
 
-    fn = fa._c_entry("flash_forward", f"flash_{mode}_bf16", 6, 5, bounded_flag=False)
+    fn = fa._c_entry("flash_forward", f"flash_{mode}_bf16", 6, 5, bounded_flag=False,
+                     defines=defines)
 
-    def call(q, k, v, out, lse):
+    def call(q, k, v, out, lse, mask=None):
         b, h, lq, d = q.shape
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if mask is None else mask.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), b, h, lq, k.shape[2], d, 1.0,
                  torch.cuda.current_stream().cuda_stream)
         if err:
@@ -494,15 +606,29 @@ def _wmma_entry(mode):
     return call
 
 
+def _forward_work(q, k, mask):
+    """(operations, bytes) of a head-major attention forward over the keys
+    this mask keeps: QK^T and PV per kept key; q, k, v, o, the mask and the
+    f32 lse once each."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    kept = b * lk if mask is None else float((mask > 0.5).sum())
+    nbytes = (2 * lq + 2 * lk) * b * h * d * 2 + b * h * lq * 4 + (
+        0 if mask is None else b * lk * 4)
+    return 4.0 * h * lq * d * kept, nbytes
+
+
 def check_flash_kernel(mode, peaks):
-    """One forward kernel (head-major, O and lse) against its plain version:
-    unmasked, masked (a tail and a band of keys), a fully masked batch row
-    and ragged lengths; for the bounded and online modes (the Hopper kernel)
-    also at head dim 128 and with q, k, v as head-major views of token-major
-    tensors (read in place). Then the times at its main-path shape: the
-    kernel with contiguous and with transposed-view inputs, at head dim 128,
-    the WMMA kernel it replaces on the same inputs, the plain version and
-    ``scaled_dot_product_attention``."""
+    """One forward kernel (head-major, O and lse) on the Hopper kernel
+    against its plain version: unmasked, masked (a tail and a band of
+    keys), a fully masked batch row, ragged lengths, head dim 128 and q, k,
+    v as head-major views of token-major tensors (read in place); the
+    whole-row mode (E) also at the training shapes, the caption's with a
+    fully masked sample. Then the times at its
+    main-path shapes (E: SINGLE_SHAPES): the kernel, the WMMA kernel it
+    replaces on the same inputs, ``scaled_dot_product_attention``, the bound
+    and its fraction, and at head dim 128; the plain version's time; for C
+    and D also the kernel on transposed views."""
     import torch
     import torch.nn.functional as F
 
@@ -536,12 +662,28 @@ def check_flash_kernel(mode, peaks):
     long_len = LONG_TOKENS
     if mode == "single":
         main = qkv(1, 637, 637)
+        # the training cross-attention: 200 caption keys kept, the last
+        # sample's caption fully masked
+        cross_mask = keep_mask(TRAIN_BATCH, CAPTION, 200, TRAIN_BATCH - 1)
+        cross_mask[:, 200:] = 0.0
+        shaped = {"637x637": (main, None), "train self 8x480": (qkv(8, 480, 480), None),
+                  "train cross 8x480x256": (qkv(8, 480, CAPTION), cross_mask)}
         cases = {
             "637x637": (main, None, None),
             "637x637 masked": (main, keep_mask(1, 637, 500), None),
+            "train self 8x480": (shaped["train self 8x480"][0], None, None),
+            "train cross 8x480x256, masked sample": (
+                shaped["train cross 8x480x256"][0], cross_mask, TRAIN_BATCH - 1),
             "1024x256 ragged mask, masked row": (
                 qkv(2, 1024, 256), keep_mask(2, 256, 200, 1), 1),
             "100x77 ragged": (qkv(1, 100, 77), None, None),
+            "637x700 transposed views, band, masked row": (
+                qkv(2, 637, 700, token_major=True), keep_mask(2, 700, 600, 1, (40, 90)), 1),
+            "d=128 637x637": (qkv(1, 637, 637, 128), None, None),
+            "d=128 8x480x256, masked sample": (qkv(8, 480, CAPTION, 128), cross_mask,
+                                               TRAIN_BATCH - 1),
+            "d=128 1000x900 transposed views, band, masked row": (
+                qkv(2, 1000, 900, 128, True), keep_mask(2, 900, 800, 1, (100, 300)), 1),
         }
     else:
         main = qkv(1, long_len, long_len)
@@ -594,14 +736,50 @@ def check_flash_kernel(mode, peaks):
         return time_ms(lambda: fa.flash_attention(q_, k_, v_, scale=q_.shape[-1]**-0.5,
                                                   bounded_logits=bounded))
 
-    ms = kernel_ms(q, k, v)
     plain_ms = time_ms(lambda: fa._flash_plain(q * scale, k, v, None, 1.0, mode),
                        reps=5, batches=3)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     flops, nbytes = _attention_work(b, h, lq, lq, d)
-    bound_ms, bound_by = bound(flops, nbytes, peaks)
-    extra = {}
-    if mode != "single":
+    if mode == "single":
+        wmma64, wmma128 = _wmma_entry(mode), _wmma_entry(mode, ("ATTN_D=128",))
+
+        def timings(q_, k_, v_, mask, wmma):
+            b_, h_, lq_, d_ = q_.shape
+            sc = d_**-0.5
+            qs, out = q_ * sc, torch.empty_like(q_)
+            lse = torch.empty(b_, h_, lq_, device="cuda")
+            keep = None if mask is None else (mask > 0.5)[:, None, None, :]
+
+            def call():
+                return fa.flash_attention(q_, k_, v_, kv_mask=mask, scale=sc)
+
+            # the kernel alone: the call also folds the scale into q
+            ms_ = device_ms(call, "flash_sm90_kernel")
+            bound_ms_, bound_by_ = bound(*_forward_work(q_, k_, mask), peaks)
+            res = {"shape": list(q_.shape) + [k_.shape[2]], "ms": ms_,
+                   "ms_per_call_events": time_ms(call), "bound_ms": bound_ms_,
+                   "bound_by": bound_by_, "fraction_of_bound": bound_ms_ / ms_,
+                   "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                       q_, k_, v_, attn_mask=keep)),
+                   "wmma_ms_same_inputs": device_ms(
+                       lambda: wmma(qs, k_, v_, out, lse, mask), "flash_forward_kernel",
+                       reps=5)}
+            res["wmma_over_sm90"] = res["wmma_ms_same_inputs"] / ms_
+            res["sm90_over_library"] = ms_ / res["library_ms"]
+            return res
+
+        shapes = {label: timings(*shaped[label][0], shaped[label][1], wmma64)
+                  for label in SINGLE_SHAPES}
+        shapes["d=128 637x637"] = timings(*cases["d=128 637x637"][0], None, wmma128)
+        shapes["d=128 8x480x256, masked sample"] = timings(
+            *cases["d=128 8x480x256, masked sample"][0], cross_mask, wmma128)
+        top = shapes["637x637"]
+        ms, lib_ms = top["ms"], top["library_ms"]
+        bound_ms, bound_by = top["bound_ms"], top["bound_by"]
+        extra = {"shapes": shapes, "fraction_of_bound": bound_ms / ms}
+    else:
+        ms = kernel_ms(q, k, v)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
         # the same inputs through the WMMA kernel it replaces (scale folded)
         qs, out = q * scale, torch.empty_like(q)
         lse = torch.empty(b, h, lq, device="cuda")
@@ -622,12 +800,6 @@ def check_flash_kernel(mode, peaks):
             "fraction_of_bound": bound_ms / ms,
         }
         del qs, out, lse
-    if mode == "bounded":
-        # the same self-attention through kernel A (RoPE inside, token-major),
-        # which the reference's 6 MiB cap keeps away from this length
-        rq, rk, rv, cos, sin = rope_inputs(g, 1, long_len, LONG_GRID)
-        extra["rope_fused_attention_ms_same_length"] = time_ms(
-            lambda: fa.rope_fused_attention(rq, rk, rv, cos, sin, HEADS, scale, True))
     row = {"name": row_name, "route": "cuda", "source": source, "replaces": replaces,
            "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
            "lse_tol": LSE_TOL, "ms": ms,
@@ -697,6 +869,92 @@ def check_wmma_rows(peaks):
                "shape": f"f32 [1, {HEADS}, {LONG_TOKENS}, {HEAD_DIM}]"}
         emit({"phase": f"kernel_{name}", **row, "flops": flops, "bytes": nbytes})
         rows.append(row)
+    return rows + check_wmma_token_rows(peaks)
+
+
+def check_wmma_token_rows(peaks):
+    """A and E on the WMMA route, which the f32 variants and the bf16 head
+    dims other than 64 and 128 take (``rope_fused_attention_wmma``,
+    ``flash_single_wmma``): in f32 at their main-path shapes ([1, 832,
+    2048] for A, bounded; [1, 32, 637, 64] for E) against the plain versions
+    in f32 (F32_REL_TOL; E's lse within LSE_TOL_F32), then the kernel's
+    time, the plain version's, ``scaled_dot_product_attention``'s in f32 and
+    the bound (three TF32 products per product, f32 bytes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+    from avatar_tpu_torch.ops.rope import apply_rotary_emb_split
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    q, k, v, cos, sin = (t.float() for t in rope_inputs(g, 1, TOKENS, (13, 8, 8)))
+    scale = HEAD_DIM**-0.5
+    before = dict(fa.launch_counts)
+    out = fa.rope_fused_attention(q, k, v, cos, sin, HEADS, scale, True)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    if launched != {"rope_fused_attention": 1, "rope_fused_attention_wmma": 1}:
+        fail(f"rope_fused_attention_wmma: launched {launched}")
+    errors = KernelErrors("rope_fused_attention_wmma", rel=F32_REL_TOL)
+    errors.add(f"f32 {TOKENS}", out, fa._rope_attention_plain(q, k, v, cos, sin, HEADS,
+                                                             scale, True))
+    err, tol = errors.check()
+
+    def head_major(t):
+        return fa.split_to_head_major(t, HEADS).reshape(1, TOKENS, HEADS, HEAD_DIM
+                                                        ).transpose(1, 2).contiguous()
+
+    qh = head_major(apply_rotary_emb_split(q, (cos, sin)))
+    kh = head_major(apply_rotary_emb_split(k, (cos, sin)))
+    vh = v.reshape(1, TOKENS, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+    flops, nbytes = _rope_work(1, TOKENS, itemsize=4)
+    bound_ms, bound_by = bound(3 * flops, nbytes, peaks, op_rate=TF32_PEAK)
+    row = {"name": "rope_fused_attention_wmma", "route": "cuda", "source": ROPE_WMMA_SOURCE,
+           "replaces": "avatar_tpu/ops/flash_attention.py:729", "max_abs_err": err,
+           "tol": tol,
+           "ms": time_ms(lambda: fa.rope_fused_attention(q, k, v, cos, sin, HEADS, scale,
+                                                         True), reps=5, batches=3),
+           "plain_ms": time_ms(lambda: fa._rope_attention_plain(
+               q, k, v, cos, sin, HEADS, scale, True), reps=2, batches=3),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+           "shape": f"f32 [1, {TOKENS}, {WIDTH}]"}
+    emit({"phase": "kernel_rope_fused_attention_wmma", **row, "flops": flops,
+          "bytes": nbytes})
+    rows.append(row)
+
+    x = torch.randn(3, 1, HEADS, 637, HEAD_DIM, generator=g, device="cuda")
+    q, k, v = x * (x.pow(2).mean(-1, keepdim=True) + 1e-6).rsqrt()
+    v = torch.randn(v.shape, generator=g, device="cuda")
+    mask = torch.ones(1, 637, device="cuda")
+    mask[0, 500:] = 0.0
+    before = dict(fa.launch_counts)
+    out, lse = fa.flash_attention(q, k, v, kv_mask=mask, scale=scale, with_lse=True)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    if launched != {"flash_single": 1, "flash_single_wmma": 1}:
+        fail(f"flash_single_wmma: launched {launched}")
+    ref, ref_lse = fa._flash_plain(q * scale, k, v, mask, 1.0, "single")
+    errors = KernelErrors("flash_single_wmma", rel=F32_REL_TOL)
+    errors.add("f32 637, masked tail", out, ref)
+    err, tol = errors.check()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not lse_err <= LSE_TOL_F32:
+        fail(f"flash_single_wmma: lse error {lse_err} above {LSE_TOL_F32}")
+    flops, nbytes = _attention_work(1, HEADS, 637, 637, HEAD_DIM, 4)
+    bound_ms, bound_by = bound(3 * flops, nbytes, peaks, op_rate=TF32_PEAK)
+    row = {"name": "flash_single_wmma", "route": "cuda", "source": WMMA_SOURCE,
+           "replaces": "avatar_tpu/ops/flash_attention.py:387", "max_abs_err": err,
+           "tol": tol, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL_F32,
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v, scale=scale), reps=5, batches=3),
+           "plain_ms": time_ms(lambda: fa._flash_plain(q * scale, k, v, None, 1.0, "single"),
+                               reps=2, batches=3),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+           "shape": f"f32 [1, {HEADS}, 637, {HEAD_DIM}]"}
+    emit({"phase": "kernel_flash_single_wmma", **row, "flops": flops, "bytes": nbytes})
+    rows.append(row)
     return rows
 
 
@@ -728,8 +986,8 @@ def generality_specs():
                 _, defines = fa.kernel_variant(dtype, d)
                 specs.append((source, defines))
             if dtype == torch.bfloat16 and d in fa.SM90_HEAD_DIMS and d != 64:
-                specs += [(source, fa.sm90_defines(d))
-                          for source in ("flash_forward_sm90", "flash_backward_sm90")]
+                specs += [(source, fa.sm90_defines(d)) for source in (
+                    "rope_attention_sm90", "flash_forward_sm90", "flash_backward_sm90")]
     return [spec for spec in dict.fromkeys(specs) if spec[1]]
 
 
@@ -806,11 +1064,14 @@ def _generality_case(g, fa, dtype, d):
             for bounded in (True, False):
                 out, got = launched_by(fa.rope_fused_attention, q, k, v, cos, sin, heads,
                                        scale, bounded)
-                if got != {"rope_fused_attention": 1}:
-                    fail(f"rope_fused_attention {dtype} d={d}: launched {got}")
+                want = {"rope_fused_attention": 1,
+                        f"rope_fused_attention_{fa.rope_impl(dtype, d)}": 1}
+                if got != want:
+                    fail(f"rope_fused_attention {dtype} d={d}: launched {got}, expected "
+                         f"{want}")
                 err.add(f"bounded={bounded}", out, fa._rope_attention_plain(
                     q, k, v, cos, sin, heads, scale, bounded))
-            found["rope_fused_attention"] = err.check()
+            found[f"rope_fused_attention_{fa.rope_impl(dtype, d)}"] = err.check()
         # B: ragged Lk = 77, a partly and a fully masked sample
         err = errors("fused_token_attention")
         q, k, v = rows(3, 100, c), rows(3, 77, c), randn(3, 77, c)
@@ -837,9 +1098,7 @@ def _generality_case(g, fa, dtype, d):
         (out, lse), got = launched_by(fa.flash_attention, q, k, v, kv_mask=mask,
                                       scale=scale, bounded_logits=mode == "bounded",
                                       with_lse=True)
-        want = {f"flash_{mode}": 1}
-        if mode != "single":
-            want[f"flash_{mode}_{fa.forward_impl(mode, dtype, d)}"] = 1
+        want = {f"flash_{mode}": 1, f"flash_{mode}_{fa.forward_impl(mode, dtype, d)}": 1}
         if got != want:
             fail(f"flash_{mode} {dtype} d={d}: launched {got}, expected {want}")
         ref, ref_lse = plain_forward(q, k, v, mask, scale, mode)
@@ -849,8 +1108,7 @@ def _generality_case(g, fa, dtype, d):
                 and bool((lse[1] == fa.LSE_MASKED).all()) and bool((out[1] == 0).all())):
             fail(f"flash_{mode} {dtype} d={d}: lse error {lse_err}, or a fully masked "
                  "row is not O = 0, lse = 1e30")
-        name = f"flash_{mode}" + ("" if mode == "single" else
-                                  f"_{fa.forward_impl(mode, dtype, d)}")
+        name = f"flash_{mode}_{fa.forward_impl(mode, dtype, d)}"
         found[name] = err.check() + (lse_err,)
         if mode == "online":
             gout = randn(2, heads, lq, d)
@@ -1261,7 +1519,7 @@ def check_reference():
     res = _reference_run(
         "reference", _tiny_models(), 64, 25, 48,
         dict(guidance_scale=1.0, stg_scale=0.0, rescaling_scale=1.0), {},
-        ("rope_fused_attention", "fused_token_attention"))
+        TOKEN_MAJOR_BF16)
     emit({"phase": "reference", **res, "rel_rms_tol": REFERENCE_TOL,
           "vs_no_kernel_tol": KERNEL_PATH_TOL})
     return res["launches"]
@@ -1284,13 +1542,16 @@ def check_reference_guided():
 
     settings = dict(GUIDED, skip_layer_strategy=SkipLayerStrategy.AttentionValues)
     flash = dict(attention_impl="flash", rope_split=False)
-    token_major = ("rope_fused_attention", "fused_token_attention")
+    token_major32 = ("rope_fused_attention", "rope_fused_attention_wmma",
+                     "fused_token_attention")
     # in f32 the reference's sublane of 8 (16 in bf16) lets the 40-key
     # caption take the token-major kernel B at 1280 queries
     runs = {
-        "token_major": (_tiny_models(), 64, 25, 48, {}, True, token_major, token_major),
-        "flash_single": (_tiny_models(), 64, 17, 40, flash, True, ("flash_single",),
-                         ("flash_single",)),
+        "token_major": (_tiny_models(), 64, 25, 48, {}, True, TOKEN_MAJOR_BF16,
+                        token_major32),
+        "flash_single": (_tiny_models(), 64, 17, 40, flash, True,
+                         ("flash_single", "flash_single_sm90"),
+                         ("flash_single", "flash_single_wmma")),
         "flash_bounded": (_tiny_models(), 256, 153, 40, flash, False,
                           ("flash_bounded", "flash_bounded_sm90"),
                           ("flash_bounded", "flash_bounded_wmma", "fused_token_attention")),
@@ -1362,7 +1623,7 @@ def check_reference_conditioned():
     for label, (size, frames, settings, extra, exact_tol) in runs.items():
         results[label] = _reference_run(
             f"reference_conditioned/{label}", _tiny_models(), size, frames, 48,
-            {**plain, **settings}, {}, ("rope_fused_attention", "fused_token_attention"),
+            {**plain, **settings}, {}, TOKEN_MAJOR_BF16,
             avatar=False, extra=extra, exact_t_tol=exact_tol)
         for name, n in results[label]["launches"].items():
             total[name] = total.get(name, 0) + n
@@ -1403,7 +1664,7 @@ def check_reference_w8a8():
     from avatar_tpu_torch.pipelines.pipeline import LTXVideoPipeline
 
     per_video = 2 * 3  # layers x steps
-    token_major = {"rope_fused_attention": per_video, "fused_token_attention": per_video}
+    token_major = {name: per_video for name in TOKEN_MAJOR_BF16}
     runs = {
         "kernel_route": (_tiny_models(), 512, 129, "w8a8", False, {
             "w8a8_matmul": 8 * per_video, "quantize_rows": 3 * per_video,
@@ -1697,7 +1958,7 @@ def check_attention_gradients():
         "rope_fused_attention": ((rq, rk, rv), lambda q, k, v: fa.rope_fused_attention(
             q, k, v, cos, sin, HEADS, scale, True),
             lambda q, k, v: fa._rope_attention_plain(q, k, v, cos, sin, HEADS, scale, True),
-            "rope_fused_attention"),
+            "rope_fused_attention_sm90"),
         "fused_token_attention": ((tq, tk, tv), lambda q, k, v: fa.fused_token_attention(
             q, k, v, tmask, HEADS, scale, True),
             lambda q, k, v: fa._token_attention_plain(q, k, v, tmask, HEADS, scale, True),
@@ -2067,8 +2328,7 @@ def check_reference_train():
 
     setup = _tiny_train_setup()
     layers, micro_steps = TINY_TRAIN_DIT["num_layers"], 2 * TRAIN_ACCUM
-    per_micro = {"lora_audio": {"rope_fused_attention": layers,
-                                "fused_token_attention": layers},
+    per_micro = {"lora_audio": {name: layers for name in TOKEN_MAJOR_BF16},
                  "full": {"fused_token_attention": 2 * layers}}
     apply = tt.dit_apply
 
@@ -2084,8 +2344,8 @@ def check_reference_train():
         _, xla, xla_losses, none = _tiny_train_run(setup, mode, "cuda", torch.bfloat16, "xla")
         _, card, losses, launches = _tiny_train_run(setup, mode, "cuda", torch.bfloat16)
         expect = {k: n * micro_steps for k, n in per_micro[mode].items()}
-        for name in ("flash_single", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_dkv_sm90",
-                     "flash_bwd_dq_sm90"):
+        for name in ("flash_single", "flash_single_sm90", "flash_bwd_dkv", "flash_bwd_dq",
+                     "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"):
             expect[name] = backward_recomputes(mode, layers) * micro_steps
         res = {"losses": losses, "cpu_losses": cpu_losses, "xla_losses": xla_losses,
                "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)),
@@ -2191,11 +2451,11 @@ def run_train(pipe):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     micro_steps = TRAIN_STEPS * TRAIN_ACCUM
     backwards = backward_recomputes("lora_audio", LAYERS)
-    # F on the Hopper kernels only: any WMMA backward launch fails below
-    per_micro = {"rope_fused_attention": LAYERS, "fused_token_attention": LAYERS,
-                 "flash_single": backwards, "flash_bwd_dkv": backwards,
-                 "flash_bwd_dq": backwards, "flash_bwd_dkv_sm90": backwards,
-                 "flash_bwd_dq_sm90": backwards}
+    # A, E and F on the Hopper kernels only: any WMMA launch fails below
+    per_micro = {**{name: LAYERS for name in TOKEN_MAJOR_BF16},
+                 "flash_single": backwards, "flash_single_sm90": backwards,
+                 "flash_bwd_dkv": backwards, "flash_bwd_dq": backwards,
+                 "flash_bwd_dkv_sm90": backwards, "flash_bwd_dq_sm90": backwards}
     for name, n in launches.items():
         if n != per_micro.get(name, 0) * micro_steps:
             fail(f"train: {name} launched {n} times in {micro_steps} micro-steps, "
@@ -2225,7 +2485,9 @@ def run_train(pipe):
           "clock_max_clock_power_temperature_after": card_state()})
     emit({"phase": "profile_train_micro_step", **profile_train_step(
         one, args, micro_s, {"flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
-                             "flash_bwd_dq": "flash_bwd_dq_sm90_kernel"})})
+                             "flash_bwd_dq": "flash_bwd_dq_sm90_kernel",
+                             "flash_single_sm90": "flash_sm90_kernel<2",
+                             "rope_fused_attention_sm90": "rope_sm90_kernel"})})
     return launches
 
 
@@ -2291,8 +2553,9 @@ def check_train_cli():
     if not (first_step == 4 and second_step == 6 and logged == [1, 2, 3, 4, 5, 6]
             and len(exports) == 2 and len(exports_after) == 3):
         fail(f"train_cli: expected steps 4 then 6, two exports then three: {res}")
-    if not {"rope_fused_attention", "fused_token_attention", "flash_bwd_dkv_sm90",
-            "flash_bwd_dq_sm90"} <= set(launches):
+    if not {"rope_fused_attention_sm90", "fused_token_attention", "flash_single_sm90",
+            "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"} <= set(launches) or any(
+                "wmma" in name for name in launches):
         fail(f"train_cli: the training path did not launch the kernels: {launches}")
     return launches
 
@@ -2587,12 +2850,14 @@ def main() -> int:
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
-    # the default build: every source's bf16 / 64 library and the Hopper
-    # kernels at head dim 128, one nvcc each, all in parallel
+    # the default build: every source's bf16 / 64 library, the Hopper
+    # kernels at head dim 128 and the WMMA A and E at head dim 128 (timed
+    # beside them), one nvcc each, all in parallel
     t0 = time.perf_counter()
     kernel_build.build_all(list(kernel_build.KERNEL_SOURCES)
-                           + [("flash_forward_sm90", ("ATTN_D=128",)),
-                              ("flash_backward_sm90", ("ATTN_D=128",))])
+                           + [(name, ("ATTN_D=128",)) for name in (
+                               "rope_attention_sm90", "flash_forward_sm90",
+                               "flash_backward_sm90", "rope_attention", "flash_forward")])
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in kernel_build.build_logs.items()}
@@ -2632,9 +2897,11 @@ def main() -> int:
     shipped = dict(guidance_scale=3.0, stg_scale=1.0, rescaling_scale=0.7,
                    skip_block_list=[19],
                    skip_layer_strategy=SkipLayerStrategy.AttentionValues)
+    # A on the Hopper kernel at every launch, none on the WMMA one
+    # (run_pipeline holds every other counter to 0)
+    short_attention = {name: every for name in TOKEN_MAJOR_BF16}
     by_path["pipeline"], plain_s, _ = run_pipeline(
-        pipe, "pipeline", 256, 97, plain,
-        {"rope_fused_attention": every, "fused_token_attention": every}, 5)
+        pipe, "pipeline", 256, 97, plain, short_attention, 5)
     # the long path's self-attention: every launch on the Hopper kernel,
     # none on the WMMA one (run_pipeline holds every other counter to 0)
     long_attention = {"flash_bounded": every, "flash_bounded_sm90": every,
@@ -2643,7 +2910,7 @@ def main() -> int:
         pipe, "pipeline_long", 512, 161, plain, long_attention, 3)
     by_path["pipeline_guided"], guided_s, _ = run_pipeline(
         pipe, "pipeline_guided", 256, 97, shipped,
-        {"rope_fused_attention": every, "fused_token_attention": every}, 0,
+        short_attention, 0,
         extra={"num_conds": 3, "guidance_1_total_s": plain_s})
     # image-to-video: the T5-XXL embeddings as prompt and negative prompt,
     # the shipped guidance, one first-frame item of strength 1 with the
@@ -2655,7 +2922,7 @@ def main() -> int:
     by_path["pipeline_conditioned"], _, _ = run_pipeline(
         pipe, "pipeline_conditioned", 256, 97,
         {**shipped, "image_cond_noise_scale": 0.15},
-        {"rope_fused_attention": every, "fused_token_attention": every}, 0,
+        short_attention, 0,
         extra={"num_conds": 3, "guided_total_s": guided_s,
                "prompt": f"T5-XXL embeddings, {T5_KEPT[0]} and {T5_KEPT[1]} kept tokens",
                "conditioning": "first frame, strength 1.0"},

@@ -1,6 +1,6 @@
 """Which CUDA attention kernel and which build variant each (dtype, head
 dim) takes, on the CPU (the decisions are Python, made before a launch):
-the Hopper kernels for C and D and for the backward F at bf16 with head
+the Hopper kernels for A, C, D, E and for the backward F at bf16 with head
 dim 64 or 128, the WMMA tile code built per (dtype, padded head dim) for
 everything else; and the head dims and dtypes the wrappers accept on the
 card are exactly those the reference's predicates admit, fp16 excepted (it
@@ -21,9 +21,24 @@ HEAD_DIMS = (8, 12, 16, 24, 32, 40, 64, 72, 80, 96, 120, 128, 136, 200, 256, 264
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mode", ["bounded", "online", "single"])
 def test_forward_implementation_by_dtype_and_head_dim(mode, dtype):
+    """C, D and E: the Hopper kernel at bf16 with head dim 64 or 128, the
+    WMMA variants for f32 and every other head dim."""
     for d in (8, 32, 64, 80, 128, 256, 512):
-        hopper = mode != "single" and dtype == torch.bfloat16 and d in (64, 128)
+        hopper = dtype == torch.bfloat16 and d in (64, 128)
         assert tfa.forward_impl(mode, dtype, d) == ("sm90" if hopper else "wmma"), d
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.bfloat16, jnp.bfloat16),
+                                          (torch.float32, jnp.float32)])
+@pytest.mark.parametrize("d", list(range(16, 257, 16)))
+def test_rope_implementation_of_each_admitted_head_dim(dtype, jdtype, d):
+    """A at every head dim ``rope_fused_supports`` admits (multiples of 16
+    up to 256): the wrapper accepts it, and it runs the Hopper kernel at
+    bf16 with head dim 64 or 128 and its WMMA variant otherwise."""
+    assert jfa.rope_fused_supports(64, 1, d, jdtype)
+    assert _accepts(lambda: tfa._split_heads("A", d, 1, dtype, 16))
+    hopper = dtype == torch.bfloat16 and d in (64, 128)
+    assert tfa.rope_impl(dtype, d) == ("sm90" if hopper else "wmma")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -208,7 +208,7 @@ def test_token_major_kernels_take_f32_and_other_head_dims(gen, no_tf32, dtype, d
 @pytest.mark.parametrize("mode", ["bounded", "online", "single"])
 def test_head_major_kernels_take_f32_and_other_head_dims(gen, no_tf32, dtype, d, mode):
     """C, D and E (O and lse) and the backward F from their output, at f32
-    and at head dims 32 / 128 / 256, with a fully masked sample; C and D on
+    and at head dims 32 / 128 / 256, with a fully masked sample; each on
     the route forward_impl names (Hopper at bf16 and 128, else WMMA)."""
     lq, lk = (1030, 150) if mode != "single" else (100, 77)
     q, k, v = _qkv(gen, dtype, 2, 2, lq, lk, d)
@@ -220,9 +220,7 @@ def test_head_major_kernels_take_f32_and_other_head_dims(gen, no_tf32, dtype, d,
                                   with_lse=True)
     torch.cuda.synchronize()
     launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
-    want = {f"flash_{mode}": 1}
-    if mode != "single":
-        want[f"flash_{mode}_{fa.forward_impl(mode, dtype, d)}"] = 1
+    want = {f"flash_{mode}": 1, f"flash_{mode}_{fa.forward_impl(mode, dtype, d)}": 1}
     assert launched == want
     ref, ref_lse = _plain_forward(q, k, v, mask, d**-0.5, mode)
     assert _close(out, ref, dtype)
@@ -280,6 +278,118 @@ def test_hopper_kernel_matches_plain(gen, d, mode, views):
     assert _close(out, ref, torch.bfloat16)
     assert (lse[0] - ref_lse[0]).abs().max().item() < 2e-3
     assert bool((out[1] == 0).all()) and bool((lse[1] == fa.LSE_MASKED).all())
+
+
+def _rope_inputs(gen, b, length, heads, d):
+    c = heads * d
+    q, k = _rows(gen, b, length, c), _rows(gen, b, length, c)
+    v = torch.randn(b, length, c, generator=gen, device="cuda").bfloat16()
+    ang = torch.rand(b, length, c // 2, generator=gen, device="cuda") * 6.3
+    return q, k, v, ang.cos().bfloat16(), ang.sin().bfloat16()
+
+
+def _wmma_rope(q, k, v, cos, sin, heads, scale, bounded):
+    """A's WMMA kernel called by its C entry, on the same inputs."""
+    d = q.shape[-1] // heads
+    suffix, defines = fa.kernel_variant(torch.bfloat16, d)
+    fn = fa._c_entry("rope_attention", f"rope_attention_{suffix}", 6, 4, defines=defines)
+    out = torch.empty_like(q)
+    b, length, _ = q.shape
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+              out.data_ptr(), b, length, heads, d, scale, int(bounded),
+              torch.cuda.current_stream().cuda_stream) == 0
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bounded", [True, False])
+@pytest.mark.parametrize("b,length", [(1, 80), (3, 80), (8, 80), (1, 1248), (3, 1248),
+                                      (8, 1248)])
+def test_hopper_rope_kernel_matches_plain_and_wmma(gen, d, bounded, b, length):
+    """A on the Hopper kernel (bf16, head dim 64 / 128) against its plain
+    version and against the WMMA kernel it replaced, on the same inputs:
+    ragged lengths (80, and 1248, the largest the reference's cap admits),
+    batch 1 / 3 / 8, bounded and the two-pass whole-row max."""
+    assert fa.rope_impl(torch.bfloat16, d) == "sm90"
+    q, k, v, cos, sin = _rope_inputs(gen, b, length, HEADS, d)
+    before = dict(fa.launch_counts)
+    out = fa.rope_fused_attention(q, k, v, cos, sin, HEADS, d**-0.5, bounded)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    assert launched == {"rope_fused_attention": 1, "rope_fused_attention_sm90": 1}
+    ref = fa._rope_attention_plain(q, k, v, cos, sin, HEADS, d**-0.5, bounded)
+    assert _close(out, ref, torch.bfloat16)
+    wmma = _wmma_rope(q, k, v, cos, sin, HEADS, d**-0.5, bounded)
+    torch.cuda.synchronize()
+    assert _close(out, wmma, torch.bfloat16)
+
+
+# E's cases: training self-attention, cross-attention to 256 keys with 200
+# kept and the last sample fully masked, ragged 100 x 77, a long row whose
+# keys stream twice (1000 x 900), head-major views of token-major tensors
+SINGLE_CASES = [(8, 480, 480, False, False), (8, 480, 256, True, False),
+                (2, 100, 77, False, False), (2, 1000, 900, True, False),
+                (2, 637, 700, True, True)]
+
+
+def _single_inputs(gen, d, b, lq, lk, masked, views):
+    if views:
+        q, k = (_rows(gen, b, n, HEADS, d).transpose(1, 2) for n in (lq, lk))
+        v = torch.randn(b, lk, HEADS, d, generator=gen, device="cuda").bfloat16(
+            ).transpose(1, 2)
+    else:
+        q, k, v = _qkv(gen, torch.bfloat16, b, HEADS, lq, lk, d)
+    mask = None
+    if masked:
+        mask = torch.ones(b, lk, device="cuda")
+        mask[:, lk * 4 // 5:] = 0.0
+        mask[-1] = 0.0
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,lq,lk,masked,views", SINGLE_CASES)
+def test_hopper_single_kernel_matches_plain(gen, d, b, lq, lk, masked, views):
+    """E on the Hopper kernel against its plain version: O within 2 bf16
+    ulps, lse within 2e-3, a fully masked sample O = 0 and lse = 1e30, and
+    views read in place (O in q's layout)."""
+    assert fa.flash_mode(lq, lk, False) == "single"
+    q, k, v, mask = _single_inputs(gen, d, b, lq, lk, masked, views)
+    before = dict(fa.launch_counts)
+    out, lse = fa.flash_attention(q, k, v, kv_mask=mask, with_lse=True)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    assert launched == {"flash_single": 1, "flash_single_sm90": 1}
+    assert out.stride() == q.stride()
+    ref, ref_lse = _plain_forward(q, k, v, mask, d**-0.5, "single")
+    assert _close(out, ref, torch.bfloat16)
+    live = ref_lse < 1e29
+    assert (lse - ref_lse)[live].abs().max().item() < 2e-3
+    assert bool((lse[~live] == fa.LSE_MASKED).all())
+    if masked:
+        assert bool((out[-1] == 0).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,lq,lk,masked,views", SINGLE_CASES[:4])
+def test_hopper_single_kernel_matches_the_wmma_kernel(gen, d, b, lq, lk, masked, views):
+    """E on the Hopper kernel against the WMMA kernel it replaced, called by
+    its C entry on the same (contiguous, scale-folded) inputs."""
+    q, k, v, mask = _single_inputs(gen, d, b, lq, lk, masked, views)
+    out, lse = fa.flash_attention(q, k, v, kv_mask=mask, with_lse=True)
+    qs = q * d**-0.5
+    suffix, defines = fa.kernel_variant(torch.bfloat16, d)
+    fn = fa._c_entry("flash_forward", f"flash_single_{suffix}", 6, 5, bounded_flag=False,
+                     defines=defines)
+    wout, wlse = torch.empty_like(q), torch.empty_like(lse)
+    assert fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+              None if mask is None else mask.data_ptr(), wout.data_ptr(), wlse.data_ptr(),
+              b, HEADS, lq, lk, d, 1.0, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert _close(out, wout, torch.bfloat16)
+    live = wlse < 1e29
+    assert (lse - wlse)[live].abs().max().item() < 2e-3
+    assert torch.equal(lse[~live], wlse[~live])
 
 
 # ---------------------------------------------------------------------------

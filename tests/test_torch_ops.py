@@ -116,9 +116,11 @@ def test_launch_counts_untouched_on_cpu():
     out = tfa.flash_attention(*heads, bounded_logits=True)
     torch.autograd.grad(out.sum(), heads)  # the flash backward's plain version
     assert set(tfa.launch_counts) == {
-        "rope_fused_attention", "fused_token_attention", "flash_bounded",
-        "flash_online", "flash_single", "flash_bounded_sm90", "flash_online_sm90",
-        "flash_bounded_wmma", "flash_online_wmma", "flash_bwd_dkv", "flash_bwd_dq",
+        "rope_fused_attention", "fused_token_attention", "rope_fused_attention_sm90",
+        "rope_fused_attention_wmma", "flash_bounded", "flash_online", "flash_single",
+        "flash_bounded_sm90", "flash_online_sm90", "flash_single_sm90",
+        "flash_bounded_wmma", "flash_online_wmma", "flash_single_wmma",
+        "flash_bwd_dkv", "flash_bwd_dq",
         "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_wmma", "flash_bwd_dq_wmma",
         "flash_dense_forward", "flash_dense_bwd_dkv", "flash_dense_bwd_dq",
         "flash_dense_bwd_db"}
