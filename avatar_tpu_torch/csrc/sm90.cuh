@@ -1,8 +1,8 @@
-// Pieces shared by the Hopper (sm_90a) attention kernels
-// (flash_forward_sm90.cu, rope_attention_sm90.cu, flash_backward_sm90.cu;
-// the forward's consumer side is attention_fwd_sm90.cuh): mbarriers, 4-D TMA loads
-// and stores, 128-byte-swizzled shared-memory descriptors, the wgmma forms
-// the kernels issue, and the host-side tensor maps.
+// Pieces shared by the Hopper (sm_90a) kernels (flash_forward_sm90.cu,
+// rope_attention_sm90.cu, flash_backward_sm90.cu, flash_dense_sm90.cu,
+// int8_matmul_sm90.cu; the forward's consumer side is attention_fwd_sm90.cuh):
+// mbarriers, 4-D TMA loads and stores, 128-byte-swizzled shared-memory
+// descriptors, the wgmma forms the kernels issue, and the host-side tensor maps.
 //
 // Tiles live in shared memory as 128-byte-swizzled panels of 64 bf16
 // columns, `rows` x 128 bytes each, 1024-byte aligned; a d = 128 tile is two
@@ -301,6 +301,23 @@ static int make_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int 
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Tensor map of any 4-D array for the 4-D tma_load: `dims` innermost
+// first, `strides` the byte strides of dims 1-3 (multiples of 16), boxes of
+// `box` elements (the innermost box 128 bytes for the 128-byte swizzle).
+// Unused dims have size 1. Boxes past an edge read zeros.
+static int make_map_raw(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                        const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                        const cuuint32_t (&box)[4]) {
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

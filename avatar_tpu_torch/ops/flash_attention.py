@@ -17,8 +17,8 @@ Head-major, [B, H, L, head_dim]:
   each also returning the row log-sum-exp; its gradient runs the two
   kernels of ``_flash_backward``: ``_bwd_dkv_kernel`` and
   ``_bwd_dq_kernel``. With a dense additive bias [B, 1|H, Lq, Lk] it runs
-  the four kernels of the dense-bias path
-  (``csrc/flash_dense.cu``): ``_fwd_kernel_dense_bias``, and for the
+  the four kernels of the dense-bias path (``csrc/flash_dense_sm90.cu``,
+  ``csrc/flash_dense.cu``): ``_fwd_kernel_dense_bias``, and for the
   gradient ``_bwd_dkv_kernel_bias``, ``_bwd_dq_kernel_bias`` and
   ``_bwd_db_kernel`` (dBias summed over the heads that share a slab).
 
@@ -42,8 +42,11 @@ built for its (dtype, padded head dim) variant (:func:`kernel_variant`).
 The flash backward (F) routes the same way (:func:`backward_impl`): bf16
 at head dim 64 or 128 runs ``csrc/flash_backward_sm90.cu`` (TMA and wgmma,
 P and dS in registers), every other case ``csrc/flash_backward.cu``
-(WMMA). Neither route is a fallback of the other: each (dtype, head dim)
-has exactly one.
+(WMMA). The dense-bias kernels (G) route by :func:`dense_impl`: bf16 at head
+dim 64 or 128 with ``Lk % 4 == 0`` runs ``csrc/flash_dense_sm90.cu`` (TMA
+brings the f32 bias tiles beside K and V), every other case
+``csrc/flash_dense.cu`` (WMMA). Neither route is a fallback of the other:
+each (dtype, head dim, and for G the key length's residue) has exactly one.
 
 Gradients follow the JAX package's custom VJPs. Where an input requires a
 gradient, each of the three attention entries runs as a
@@ -88,8 +91,9 @@ SINGLE_BLOCK_MAX = 1024
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # rope_fused_attention (A), flash_bounded / flash_online / flash_single (C,
-# D, E) and flash_bwd_dkv / flash_bwd_dq (F) count every launch whatever the
-# route; the _sm90 and _wmma counters split them by implementation.
+# D, E), flash_bwd_dkv / flash_bwd_dq (F) and flash_dense_forward /
+# flash_dense_bwd_dkv / _dq / _db (G) count every launch whatever the route;
+# the _sm90 and _wmma counters split them by implementation.
 launch_counts: Dict[str, int] = {
     "rope_fused_attention": 0, "fused_token_attention": 0,
     "rope_fused_attention_sm90": 0, "rope_fused_attention_wmma": 0,
@@ -101,6 +105,10 @@ launch_counts: Dict[str, int] = {
     "flash_bwd_dkv_wmma": 0, "flash_bwd_dq_wmma": 0,
     "flash_dense_forward": 0, "flash_dense_bwd_dkv": 0, "flash_dense_bwd_dq": 0,
     "flash_dense_bwd_db": 0,
+    "flash_dense_fwd_sm90": 0, "flash_dense_bwd_dkv_sm90": 0, "flash_dense_bwd_dq_sm90": 0,
+    "flash_dense_bwd_db_sm90": 0,
+    "flash_dense_fwd_wmma": 0, "flash_dense_bwd_dkv_wmma": 0, "flash_dense_bwd_dq_wmma": 0,
+    "flash_dense_bwd_db_wmma": 0,
 }
 
 
@@ -378,6 +386,15 @@ def backward_impl(dtype: torch.dtype, d: int) -> str:
     "sm90" (``csrc/flash_backward_sm90.cu``) at bf16 with head dim 64 or
     128, else "wmma" (``csrc/flash_backward.cu``)."""
     return _route(dtype, d)
+
+
+def dense_impl(dtype: torch.dtype, d: int, lk: int) -> str:
+    """Which implementation runs the dense-bias attention's four kernels (G)
+    on the card: "sm90" (``csrc/flash_dense_sm90.cu``) at bf16 with head dim
+    64 or 128 and ``lk % 4 == 0`` (the f32 bias rows' stride, ``lk * 4``
+    bytes, must be a multiple of 16 for the tensor maps that load the bias
+    tiles), else "wmma" (``csrc/flash_dense.cu``)."""
+    return _route(dtype, d) if lk % 4 == 0 else "wmma"
 
 
 def sm90_defines(d: int) -> Tuple[str, ...]:
@@ -849,69 +866,87 @@ def _check_dense_inputs(q, k, v, bias3, tensors=()):
     return b, heads, lq, lk, b * heads // bb, d
 
 
+_DENSE_POINTERS = {"fwd": 6, "bwd_dkv": 9, "bwd_dq": 8, "bwd_db": 8}
+
+
+def _dense_entry(kernel: str, route: str, dtype: torch.dtype, d: int):
+    """(C entry name, entry) of G's ``kernel`` ("fwd", "bwd_dkv", "bwd_dq" or
+    "bwd_db") on ``route`` ("sm90" or "wmma", as :func:`dense_impl` names
+    it)."""
+    if route == "sm90":
+        lib, suffix, defines = "flash_dense_sm90", "sm90_bf16", sm90_defines(d)
+    else:
+        lib = "flash_dense"
+        suffix, defines = kernel_variant(dtype, d)
+    name = f"flash_dense_{kernel}_{suffix}"
+    return name, _c_entry(lib, name, _DENSE_POINTERS[kernel], 6, bounded_flag=False,
+                          defines=defines)
+
+
 def _flash_dense_forward(q, k, v, bias3, scale: float):
-    """(out, lse) of the dense-bias forward: kernel ``flash_dense_fwd_<dtype>``
-    on the card, its plain version on the CPU."""
+    """(out, lse) of the dense-bias forward: kernel ``flash_dense_fwd_*`` on
+    the card by the route :func:`dense_impl` names, its plain version on the
+    CPU."""
     if _wrapper_device(q) == "cpu":
         return _flash_dense_plain(q, k, v, bias3, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, heads, lq, lk, group, d = _check_dense_inputs(q, k, v, bias3)
     out = torch.empty_like(q)
     lse = torch.empty((b, heads, lq), device=q.device, dtype=torch.float32)
-    suffix, defines = kernel_variant(q.dtype, d)
-    fn = _c_entry("flash_dense", f"flash_dense_fwd_{suffix}", 6, 6, bounded_flag=False,
-                  defines=defines)
+    route = dense_impl(q.dtype, d, lk)
+    name, fn = _dense_entry("fwd", route, q.dtype, d)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias3.data_ptr(), out.data_ptr(),
              lse.data_ptr(), b, heads, lq, lk, group, d, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, f"flash_dense_fwd_{suffix}")
+    _raise_on(err, name)
     launch_counts["flash_dense_forward"] += 1
+    launch_counts[f"flash_dense_fwd_{route}"] += 1
     return out, lse
 
 
-def _dense_backward_call(name, n_ptrs, q, k, v, g, lse, delta, bias3, outs, scale):
+def _dense_backward_call(kernel, q, k, v, g, lse, delta, bias3, outs, scale):
     b, heads, lq, lk, group, d = _check_dense_inputs(q, k, v, bias3,
                                                      (("g", g, q.shape[2]),))
     for label, t in (("lse", lse), ("delta", delta)):
         _check_cuda(label, t, (b, heads, lq), torch.float32)
-    suffix, defines = kernel_variant(q.dtype, d)
-    fn = _c_entry("flash_dense", f"{name}_{suffix}", n_ptrs, 6, bounded_flag=False,
-                  defines=defines)
+    route = dense_impl(q.dtype, d, lk)
+    name, fn = _dense_entry(kernel, route, q.dtype, d)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), bias3.data_ptr(), *(t.data_ptr() for t in outs),
              b, heads, lq, lk, group, d, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, f"{name}_{suffix}")
-    launch_counts[name] += 1
+    _raise_on(err, name)
+    launch_counts[f"flash_dense_{kernel}"] += 1
+    launch_counts[f"flash_dense_{kernel}_{route}"] += 1
 
 
 def flash_dense_bwd_dkv(q, k, v, g, lse, delta, bias3, scale: float):
-    """Kernel ``flash_dense_bwd_dkv_<dtype>`` (``_bwd_dkv_kernel_bias``): (dk,
-    dv) of head-major attention with the f32 bias slabs ``bias3``
-    [B or B*H, Lq, Lk], from contiguous q, k, v, the output gradient g, lse
-    and delta = rowsum(g * O) [B, H, Lq] f32. CUDA tensors only."""
+    """Kernel ``flash_dense_bwd_dkv_*`` (``_bwd_dkv_kernel_bias``): (dk, dv)
+    of head-major attention with the f32 bias slabs ``bias3`` [B or B*H, Lq,
+    Lk], from contiguous q, k, v, the output gradient g, lse and delta =
+    rowsum(g * O) [B, H, Lq] f32, by the route :func:`dense_impl` names.
+    CUDA tensors only."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _dense_backward_call("flash_dense_bwd_dkv", 9, q, k, v, g, lse, delta, bias3,
-                         (dk, dv), scale)
+    _dense_backward_call("bwd_dkv", q, k, v, g, lse, delta, bias3, (dk, dv), scale)
     return dk, dv
 
 
 def flash_dense_bwd_dq(q, k, v, g, lse, delta, bias3, scale: float):
-    """Kernel ``flash_dense_bwd_dq_<dtype>`` (``_bwd_dq_kernel_bias``): dq, with
-    the arguments of :func:`flash_dense_bwd_dkv`. CUDA tensors only."""
+    """Kernel ``flash_dense_bwd_dq_*`` (``_bwd_dq_kernel_bias``): dq, with the
+    arguments and the route of :func:`flash_dense_bwd_dkv`. CUDA tensors
+    only."""
     dq = torch.empty_like(q)
-    _dense_backward_call("flash_dense_bwd_dq", 8, q, k, v, g, lse, delta, bias3,
-                         (dq,), scale)
+    _dense_backward_call("bwd_dq", q, k, v, g, lse, delta, bias3, (dq,), scale)
     return dq
 
 
 def flash_dense_bwd_db(q, k, v, g, lse, delta, bias3, scale: float):
-    """Kernel ``flash_dense_bwd_db_<dtype>`` (``_bwd_db_kernel``): dBias
-    [B or B*H, Lq, Lk] f32, each slab summed over the heads that share it,
-    with the arguments of :func:`flash_dense_bwd_dkv`. CUDA tensors only."""
+    """Kernel ``flash_dense_bwd_db_*`` (``_bwd_db_kernel``): dBias [B or B*H,
+    Lq, Lk] f32, each slab summed over the heads that share it in head
+    order, with the arguments and the route of :func:`flash_dense_bwd_dkv`.
+    CUDA tensors only."""
     db = torch.empty_like(bias3)
-    _dense_backward_call("flash_dense_bwd_db", 8, q, k, v, g, lse, delta, bias3,
-                         (db,), scale)
+    _dense_backward_call("bwd_db", q, k, v, g, lse, delta, bias3, (db,), scale)
     return db
 
 

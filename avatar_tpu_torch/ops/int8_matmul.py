@@ -1,8 +1,11 @@
 """W8A8 int8 kernels (port of ``avatar_tpu/ops/int8_matmul.py``).
 
-- :func:`w8a8_matmul` (``csrc/int8_matmul.cu``, replacing ``_kernel`` and
-  ``_kernel_ksplit``): int8 x int8 -> int32 with the dequant epilogue
-  ``(acc * x_s) * w_s (+ bias)`` in f32, cast to the output dtype;
+- :func:`w8a8_matmul` (``csrc/int8_matmul_sm90.cu``: wgmma on s8 operands,
+  TMA, persistent; replacing ``_kernel`` and ``_kernel_ksplit``): int8 x
+  int8 -> int32 with the dequant epilogue ``(acc * x_s) * w_s (+ bias)`` in
+  f32, cast to the output dtype. It takes every shape the wrapper admits;
+  the ``mma.sync`` kernel of ``csrc/int8_matmul.cu`` it replaced stays
+  only as a comparison, reached through its C entry;
 - :func:`quantize_rows_pallas` (``csrc/row_quant.cu``, replacing
   ``_quant_rows_kernel``): per-row int8 quantization in one pass;
 - :func:`fused_rms_mod_quant` (replacing ``_rms_mod_quant_kernel``):
@@ -46,8 +49,12 @@ ACTIVATIONS = {"gelu-approximate": 0, "gelu": 1, "geglu": 2}
 MAX_ROW_WIDTH = 16384
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
+# w8a8_matmul and w8a8_matmul_sm90 both count the Hopper kernel's launches:
+# the first names the function, the second the kernel, as the attention
+# kernels' _sm90 counters do.
 launch_counts: Dict[str, int] = {
-    "w8a8_matmul": 0, "quantize_rows": 0, "rms_mod_quant": 0, "act_quant": 0,
+    "w8a8_matmul": 0, "w8a8_matmul_sm90": 0,
+    "quantize_rows": 0, "rms_mod_quant": 0, "act_quant": 0,
 }
 
 
@@ -168,9 +175,26 @@ def _check_width(width: int):
         raise ValueError(f"row width {width} outside 1..{MAX_ROW_WIDTH}")
 
 
+def matmul_tile_n(m: int, n: int, sms: int = 132) -> int:
+    """Output columns per tile of the Hopper kernel (tiles of 128 rows, one
+    persistent CTA per SM of ``sms``): 256, unless tiles of 128 columns
+    finish the product in under 90% of the rounds of tile time (a round of
+    128-column tiles counts half): they fill the SMs of a short or ragged
+    M that leaves the last round of 256-column tiles mostly idle (832 and
+    5000 rows of 2048 columns on an H100)."""
+    m_tiles = -(-m // 128)
+
+    def rounds(tile_n):
+        return -(-m_tiles * -(-n // tile_n) // sms) * tile_n / 256
+
+    return 128 if rounds(128) < 0.9 * rounds(256) else 256
+
+
+_LIBRARIES = {"w8a8_matmul": "int8_matmul", "w8a8_matmul_sm90": "int8_matmul_sm90"}
+
+
 def _entry(fn_name: str, argtypes):
-    fn = getattr(load("int8_matmul" if fn_name == "w8a8_matmul" else "row_quant"),
-                 fn_name)
+    fn = getattr(load(_LIBRARIES.get(fn_name, "row_quant")), fn_name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -187,6 +211,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLOATS = (torch.bfloat16, torch.float32)
 
@@ -201,15 +236,17 @@ def w8a8_matmul(
 ) -> torch.Tensor:
     """``((x_q @ w_q^T as int32) * x_s) * w_s (+ bias)`` in f32, cast to
     ``out_dtype`` (bf16 or f32 on the card). The scales and the bias are
-    cast to f32 first, as the reference does."""
+    cast to f32 first, as the reference does. The card takes any M, ``K %
+    16 == 0`` and even N: TMA reads a row stride of K bytes and zero-fills
+    the ragged tiles."""
     m, k = x_q.shape
     n = w_q.shape[0]
     if w_q.shape[1] != k:
         raise ValueError(f"w8a8_matmul: x_q {tuple(x_q.shape)} and w_q {tuple(w_q.shape)}")
     if _device(x_q, x_s, w_s, bias) == "cpu":
         return _w8a8_matmul_plain(x_q, x_s, w_q, w_s, bias, out_dtype)
-    if k % 16 or n % 2:
-        raise ValueError(f"w8a8_matmul takes K % 16 == 0 and even N; got K={k}, N={n}")
+    if m < 1 or k < 16 or k % 16 or n < 2 or n % 2:
+        raise ValueError(f"w8a8_matmul takes K % 16 == 0 and even N; got M={m}, K={k}, N={n}")
     if out_dtype not in _FLOATS:
         raise ValueError(f"w8a8_matmul: out_dtype {out_dtype} is not bf16 or f32")
     w_s = w_s.float().contiguous()
@@ -221,11 +258,13 @@ def w8a8_matmul(
     if bias is not None:
         _check("bias", bias, (n,), (torch.float32,))
     out = torch.empty((m, n), device=x_q.device, dtype=out_dtype)
-    fn = _entry("w8a8_matmul", [_P] * 6 + [_I] * 4 + [_P])
+    fn = _entry("w8a8_matmul_sm90", [_P] * 6 + [_I] * 5 + [_P])
     err = fn(x_q.data_ptr(), x_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-             int(out_dtype == torch.float32), _stream(x_q))
+             int(out_dtype == torch.float32), matmul_tile_n(m, n, _sm_count(x_q.device)),
+             _stream(x_q))
     _launched(err, "w8a8_matmul")
+    launch_counts["w8a8_matmul_sm90"] += 1
     return out
 
 

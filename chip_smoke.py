@@ -22,17 +22,23 @@ Phases, each printing one JSON line as soon as it has its numbers:
    by the profiler's device time: their wrappers' host time exceeds the
    kernels') at its main-path shapes beside the WMMA kernel it replaces on
    the same inputs, ``scaled_dot_product_attention`` and its bound, and
-   their WMMA route (``*_wmma``) at f32; the int8 product (exact int32
-   sums; the dequant at the DiT's three W8A8 shapes, 832 and a ragged 5000
-   rows) and the three row-quant kernels (at most one int8 level apart on a
-   stated fraction, scales at rtol 1e-6); the flash backward's two kernels
+   their WMMA route (``*_wmma``) at f32; the int8 product on the Hopper
+   kernel (``w8a8_matmul_sm90``: exact int32 sums; the dequant at the DiT's
+   three W8A8 shapes, 832 and a ragged 5000 rows, equal to the ``mma.sync``
+   kernel's, each timed beside it and ``torch._int_mm``; the W8A8
+   crossover, ``linear`` on the kernel route against the short route at
+   832, 3328 and 5376 tokens) and the three row-quant kernels (at most one
+   int8 level apart on a stated fraction, scales at rtol 1e-6); the flash
+   backward's two kernels
    (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) on the Hopper
    kernels (``flash_bwd_*_sm90``) at the training shapes, at 5376 tokens
    with lse from kernel C and from D, ragged with a fully masked sample and
-   at head dim 128, timed beside the WMMA kernels they replace; the dense-bias attention's four kernels
-   (``kernel_flash_dense_*``: forward, dK/dV, dQ, dBias) at T5-XXL's shape
-   with a per-head position-and-padding bias and at 5376 tokens with one
-   shared bias, a band of masked keys and a fully masked row;
+   at head dim 128, timed beside the WMMA kernels they replace; the
+   dense-bias attention's four kernels on the Hopper route
+   (``kernel_flash_dense_*_sm90``: forward, dK/dV, dQ, dBias) at T5-XXL's
+   shape with a per-head position-and-padding bias and at 5376 tokens with
+   one shared bias, a band of masked keys and a fully masked row, beside
+   the WMMA kernels on the same inputs, and at Lk = 254 on the WMMA route;
    then each one's time, the plain version's, one PyTorch library call's
    where there is one (a yardstick the port never calls) and the card's
    lower bound for the same work; then autograd through the three
@@ -83,8 +89,10 @@ Phases, each printing one JSON line as soon as it has its numbers:
    conditioning item (strength 1, image-conditioning noise 0.15):
    image-to-video;
 10. pipeline_long_w8a8: the long path with the DiT quantized W8A8 (from
-   the same bf16 weights): every block linear through the int8 kernels,
-   launches checked per kernel, profile of 3 steps, and the latents'
+   the same bf16 weights): every block linear through the int8 kernels
+   (the product on the Hopper kernel, 8,960 launches, none of the
+   ``mma.sync`` one), launches checked per kernel, profile of 3 steps
+   (device ms by kernel), and the latents''
    relative RMS against the bf16 long path's (printed, not held);
 11. reference_train (run after phase 6): a tiny DiT (heads of 64, 128
    tokens) trained 2 steps with accumulation 2, "lora_audio" and "full",
@@ -225,11 +233,31 @@ def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
     return statistics.median(per_call)
 
 
+class EventsMs(float):
+    """A time per call that :func:`device_ms` took from CUDA events, host
+    time included, because the profiler recorded no kernel."""
+
+
+def mark_event_times(row: dict) -> dict:
+    """Adds ``"<key>_source": "events"`` beside each time in ``row`` (and
+    in the dicts it holds) that :func:`device_ms` took from CUDA events, so
+    that such a number cannot pass for a device time."""
+    for key, value in list(row.items()):
+        if isinstance(value, dict):
+            mark_event_times(value)
+        elif isinstance(value, EventsMs):
+            row[f"{key}_source"] = "events"
+    return row
+
+
 def device_ms(fn, match=None, reps: int = 20) -> float:
     """Mean device time per call of the kernels ``fn`` launches whose name
     holds ``match`` (every kernel when None), from torch.profiler: unlike
     :func:`time_ms`, no host time between launches, which a wrapper's few
-    tens of microseconds of Python can exceed for a kernel that short."""
+    tens of microseconds of Python can exceed for a kernel that short.
+    Where three profiling sessions record none of them, the time per call
+    from CUDA events as an :class:`EventsMs`, which the kernels line marks
+    (:func:`mark_event_times`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -237,16 +265,19 @@ def device_ms(fn, match=None, reps: int = 20) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and (match is None or match in e.key))
-    if total_us <= 0:
-        fail(f"the profiler saw no device time for {match or 'the call'}")
-    return total_us / reps / 1e3
+    # a profiling session now and then records no kernel at all: it is
+    # taken again, up to three times
+    for _ in range(3):
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and (match is None or match in e.key))
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return EventsMs(time_ms(fn, reps=reps, batches=3))
 
 
 def bound(flops: float, nbytes: float, peaks, op_rate=None):
@@ -987,7 +1018,8 @@ def generality_specs():
                 specs.append((source, defines))
             if dtype == torch.bfloat16 and d in fa.SM90_HEAD_DIMS and d != 64:
                 specs += [(source, fa.sm90_defines(d)) for source in (
-                    "rope_attention_sm90", "flash_forward_sm90", "flash_backward_sm90")]
+                    "rope_attention_sm90", "flash_forward_sm90", "flash_backward_sm90",
+                    "flash_dense_sm90")]
     return [spec for spec in dict.fromkeys(specs) if spec[1]]
 
 
@@ -1137,23 +1169,23 @@ def _generality_case(g, fa, dtype, d):
     bias3 = fa._dense_bias3(bias)
     (out, lse), got = launched_by(fa._flash_dense_forward, q, k, v, bias3, scale)
     ref, ref_lse = fa._flash_dense_plain(q, k, v, bias3, scale)
-    err = errors("flash_dense_forward")
+    route = fa.dense_impl(dtype, d, lk)
+    err = errors(f"flash_dense_fwd_{route}")
     err.add("O", out, ref)
-    found["flash_dense_forward"] = err.check()
+    found[f"flash_dense_fwd_{route}"] = err.check()
     gout = randn(2, heads, lq, d)
     (dq, dk, dv, db), got2 = launched_by(fa._flash_dense_backward, q, k, v, bias3, out,
                                          lse, gout, scale, True)
     got = {n: got.get(n, 0) + got2.get(n, 0) for n in set(got) | set(got2)}
-    if got != {name: 1 for name, _ in DENSE_ROWS}:
-        fail(f"flash_dense {dtype} d={d}: launched {got}")
+    if got != dense_launches(route):
+        fail(f"flash_dense {dtype} d={d}: launched {got}, expected the {route} route")
     rq, rk, rv, rdb = fa._flash_dense_backward_plain(q, k, v, bias3, out, lse, gout, scale)
-    for name, pairs in (("flash_dense_bwd_dkv", (("dk", dk, rk), ("dv", dv, rv))),
-                        ("flash_dense_bwd_dq", (("dq", dq, rq),)),
-                        ("flash_dense_bwd_db", (("db", db, rdb),))):
-        err = errors(name, BWD_ULPS)
+    for key, pairs in (("bwd_dkv", (("dk", dk, rk), ("dv", dv, rv))),
+                       ("bwd_dq", (("dq", dq, rq),)), ("bwd_db", (("db", db, rdb),))):
+        err = errors(f"flash_dense_{key}_{route}", BWD_ULPS)
         for lbl, a, b in pairs:
             err.add(lbl, a, b)
-        found[name] = err.check()
+        found[f"flash_dense_{key}_{route}"] = err.check()
     return found
 
 
@@ -1180,19 +1212,62 @@ W8A8_SHAPES = {"2048x2048": (WIDTH, WIDTH), "2048x8192": (WIDTH, 4 * WIDTH),
                "8192x2048": (4 * WIDTH, WIDTH)}
 
 
-def check_w8a8_kernel(peaks):
-    """Kernel H against its plain version: with unit scales and an f32
-    output, exactly the int32 sums; with real scales, with and without
-    bias, bf16 output, within one bf16 ulp of the case's largest output
-    (equal in fact). M = 5376 at the three DiT shapes, 832 and a ragged
-    5000. Then the device times (profiler) beside the library int8 product
-    (which lacks the epilogue), the time per call with the wrapper's host
-    work (CUDA events), and the bound at the int8 peak."""
+# The Hopper int8 product (csrc/int8_matmul_sm90.cu) replaces the mma.sync
+# kernel of csrc/int8_matmul.cu, which stays as the comparison
+I8_SM90_SOURCE = "avatar_tpu_torch/csrc/int8_matmul_sm90.cu"
+# token counts of the W8A8 crossover: the short path's 832, 3328 (below the
+# reference's 4096 threshold) and the long path's 5376
+CROSSOVER_TOKENS = (TOKENS, 3328, LONG_TOKENS)
+
+
+def _mma_w8a8_call():
+    """H's ``mma.sync`` kernel of csrc/int8_matmul.cu called through its C
+    entry (no counter): x_q, x_s, w_q, w_s, bias -> bf16 out, the arguments
+    of ``w8a8_matmul``, to compare the Hopper kernel with on the same
+    inputs."""
+    import ctypes
+
     import torch
 
     from avatar_tpu_torch.ops import int8_matmul as i8
 
+    fn = i8._entry("w8a8_matmul", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+
+    def call(x_q, x_s, w_q, w_s, bias):
+        (m, k), n = x_q.shape, w_q.shape[0]
+        w_s = w_s.float()
+        bias = None if bias is None else bias.float()
+        out = torch.empty((m, n), device=x_q.device, dtype=torch.bfloat16)
+        err = fn(x_q.data_ptr(), x_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k, 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the mma.sync w8a8_matmul failed with cudaError_t {err}")
+        return out
+    return call
+
+
+def check_w8a8_kernel(peaks):
+    """Kernel H on the Hopper route (``w8a8_matmul_sm90``) against its plain
+    version: with unit scales and an f32 output, exactly the int32 sums;
+    with real scales, with and without bias, bf16 output, within one bf16
+    ulp of the case's largest output (equal in fact); and equal to the
+    ``mma.sync`` kernel on the same inputs. M = 5376 at the three DiT
+    shapes, 832 and a ragged 5000. Then, per shape, the device times
+    (profiler) of both kernels and of the library int8 product (which
+    lacks the epilogue), the Hopper kernel's time per call with the
+    wrapper's host work (CUDA events), the bound at the int8 peak and the
+    rate; and the W8A8 crossover: ``linear`` on the kernel route (row-quant
+    kernel, then H) against the short route (eager quantization, the
+    library product, eager dequant) at 832, 3328 and 5376 tokens."""
+    import torch
+
+    from avatar_tpu_torch.models import layers
+    from avatar_tpu_torch.ops import int8_matmul as i8
+
     g = torch.Generator(device="cuda").manual_seed(11)
+    mma = _mma_w8a8_call()
 
     def operands(m, k, n):
         x_q = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
@@ -1208,50 +1283,83 @@ def check_w8a8_kernel(peaks):
              for kn, shape in W8A8_SHAPES.items()}
     cases.update({f"{TOKENS}x2048x2048": (TOKENS, WIDTH, WIDTH),
                   "5000x2048x2048 ragged": (5000, WIDTH, WIDTH)})
-    errors, exact, ops = KernelErrors("w8a8_matmul"), {}, {}
-    ms, events_ms, lib_ms, bounds = {}, {}, {}, {}
+    errors, exact, ops, same_as_mma = KernelErrors("w8a8_matmul_sm90"), {}, {}, {}
+    timed = {}
     for label, (m, k, n) in cases.items():
         x_q, x_s, w_q, w_s, bias = ops[label] = operands(m, k, n)
         ones_m, ones_n = torch.ones_like(x_s), torch.ones_like(w_s)
+        before = dict(i8.launch_counts)
         acc = i8.w8a8_matmul(x_q, ones_m, w_q, ones_n, out_dtype=torch.float32)
+        launched = {c: i8.launch_counts[c] - before[c] for c in before
+                    if i8.launch_counts[c] != before[c]}
+        if launched != {"w8a8_matmul": 1, "w8a8_matmul_sm90": 1}:
+            fail(f"w8a8_matmul {label}: launched {launched}, expected the Hopper kernel")
         ref = i8._w8a8_matmul_plain(x_q, ones_m, w_q, ones_n, None, torch.float32)
         exact[label] = bool(torch.equal(acc, ref))
         if not exact[label]:
-            fail(f"w8a8_matmul {label}: the int32 sums differ from the plain version's")
+            fail(f"w8a8_matmul_sm90 {label}: the int32 sums differ from the plain version's")
         for b in (bias, None):
             out = i8.w8a8_matmul(x_q, x_s, w_q, w_s, b)
             errors.add(f"{label}, bias={b is not None}", out,
                        i8._w8a8_matmul_plain(x_q, x_s, w_q, w_s, b, torch.bfloat16))
+            same_as_mma[f"{label}, bias={b is not None}"] = bool(torch.equal(
+                out, mma(x_q, x_s, w_q, w_s, b)))
     torch.cuda.synchronize()
+    if not all(same_as_mma.values()):
+        fail(f"w8a8_matmul_sm90 differs from the mma.sync kernel: {same_as_mma}")
     # one bf16 ulp (2^-8 of the largest output): the limit, not the expectation
     errors.tols = {k: v / 2 / KERNEL_ULPS for k, v in errors.tols.items()}
     err, tol = errors.check()
     for label, (m, k, n) in cases.items():
+        if "ragged" in label:
+            continue
         x_q, x_s, w_q, w_s, bias = ops[label]
-        if "ragged" not in label:
-            ms[label] = device_ms(lambda: i8.w8a8_matmul(x_q, x_s, w_q, w_s, bias),
-                                  "w8a8_matmul_kernel")
-            events_ms[label] = time_ms(lambda: i8.w8a8_matmul(x_q, x_s, w_q, w_s, bias))
-            lib_ms[label] = device_ms(lambda: torch._int_mm(x_q, w_q.t()))
-            nbytes = m * k + n * k + 2 * m * n + 4 * m + 4 * n + 2 * n
-            bounds[label] = bound(2.0 * m * n * k, nbytes, peaks, peaks[2])
+        nbytes = m * k + n * k + 2 * m * n + 4 * m + 4 * n + 2 * n
+        bound_ms, bound_by = bound(2.0 * m * n * k, nbytes, peaks, peaks[2])
+        ms = device_ms(lambda: i8.w8a8_matmul(x_q, x_s, w_q, w_s, bias), "w8a8_sm90_kernel")
+        timed[label] = {
+            "ms": ms,
+            "events_ms_per_call": time_ms(lambda: i8.w8a8_matmul(x_q, x_s, w_q, w_s, bias)),
+            "mma_ms": device_ms(lambda: mma(x_q, x_s, w_q, w_s, bias), "w8a8_matmul_kernel"),
+            "library_ms": device_ms(lambda: torch._int_mm(x_q, w_q.t())),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tera_ops_per_s": 2.0 * m * n * k / (ms * 1e-3) / 1e12,
+            "tile_n": i8.matmul_tile_n(m, n)}
     main = f"{LONG_TOKENS}x2048x2048"
     x_q, x_s, w_q, w_s, bias = ops[main]
     plain_ms = time_ms(lambda: i8._w8a8_matmul_plain(x_q, x_s, w_q, w_s, bias,
                                                      torch.bfloat16), reps=3, batches=3)
-    row = {"name": "w8a8_matmul", "route": "cuda",
-           "source": "avatar_tpu_torch/csrc/int8_matmul.cu",
+    del ops
+    # the crossover, as linear runs each route: the reference's threshold
+    # moved below and above the token count
+    w_q8 = torch.randint(-127, 128, (WIDTH, WIDTH), generator=g, device="cuda",
+                         dtype=torch.int8)
+    params = {"kernel_q8": w_q8, "scale": torch.rand(WIDTH, generator=g, device="cuda") * 1e-3,
+              "bias": torch.randn(WIDTH, generator=g, device="cuda").bfloat16()}
+    crossover, threshold = {}, i8.W8A8_PALLAS_MIN_TOKENS
+    try:
+        for tokens in CROSSOVER_TOKENS:
+            x = torch.randn(1, tokens, WIDTH, generator=g, device="cuda").bfloat16()
+            row = {}
+            for route, at in (("kernel_route_ms", 0), ("short_route_ms", 10**9)):
+                i8.W8A8_PALLAS_MIN_TOKENS = at
+                row[route] = time_ms(lambda: layers.linear(params, x))
+            crossover[str(tokens)] = row
+    finally:
+        i8.W8A8_PALLAS_MIN_TOKENS = threshold
+    t = timed[main]
+    row = {"name": "w8a8_matmul_sm90", "route": "cuda", "source": I8_SM90_SOURCE,
            "replaces": "avatar_tpu/ops/int8_matmul.py:47",
-           "max_abs_err": err, "tol": tol, "ms": ms[main], "plain_ms": plain_ms,
-           "bound_ms": bounds[main][0], "bound_by": bounds[main][1],
-           "library_ms": lib_ms[main], "shape": f"M x K x N = {main}"}
+           "max_abs_err": err, "tol": tol, "ms": t["ms"], "plain_ms": plain_ms,
+           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+           "library_ms": t["library_ms"], "mma_ms": t["mma_ms"],
+           "shape": f"M x K x N = {main}",
+           "ff_shapes": {k: {n: v[n] for n in ("ms", "mma_ms", "bound_ms", "library_ms")}
+                         for k, v in timed.items() if k != main}}
     emit({"phase": "kernel_w8a8_matmul", "int32_exact": exact, "errors": errors.errs,
-          "limits": errors.tols, "ms": ms, "events_ms_per_call": events_ms,
-          "plain_ms": plain_ms, "library_int_mm_ms": lib_ms,
-          "bound_us": {k: v[0] * 1e3 for k, v in bounds.items()},
-          "bound_by": {k: v[1] for k, v in bounds.items()},
-          "tera_ops_per_s": {k: 2.0 * cases[k][0] * cases[k][1] * cases[k][2]
-                             / (v * 1e-3) / 1e12 for k, v in ms.items()}})
+          "limits": errors.tols, "equal_to_mma": same_as_mma, "plain_ms": plain_ms,
+          "times": timed, "crossover_2048x2048": crossover,
+          "w8a8_pallas_min_tokens": threshold})
     return row
 
 
@@ -1667,7 +1775,8 @@ def check_reference_w8a8():
     token_major = {name: per_video for name in TOKEN_MAJOR_BF16}
     runs = {
         "kernel_route": (_tiny_models(), 512, 129, "w8a8", False, {
-            "w8a8_matmul": 8 * per_video, "quantize_rows": 3 * per_video,
+            "w8a8_matmul": 8 * per_video, "w8a8_matmul_sm90": 8 * per_video,
+            "quantize_rows": 3 * per_video,
             "rms_mod_quant": 2 * per_video, "act_quant": per_video,
             "flash_bounded": per_video, "flash_bounded_sm90": per_video,
             "fused_token_attention": per_video}),
@@ -2003,8 +2112,22 @@ def check_attention_gradients():
 T5_BATCH, T5_HEADS, T5_TOKENS = 2, 64, 256
 # keys kept of the prompt's and the negative prompt's 256 (the t5 phase)
 T5_KEPT = (200, 40)
-DENSE_ROWS = (("flash_dense_forward", 317), ("flash_dense_bwd_dkv", 1328),
-              ("flash_dense_bwd_dq", 1367), ("flash_dense_bwd_db", 1397))
+# G's four kernels: (the counter of every launch, the kernel's key in the
+# route counters flash_dense_<key>_sm90 / _wmma, the TPU kernel's line)
+DENSE_ROWS = (("flash_dense_forward", "fwd", 317), ("flash_dense_bwd_dkv", "bwd_dkv", 1328),
+              ("flash_dense_bwd_dq", "bwd_dq", 1367), ("flash_dense_bwd_db", "bwd_db", 1397))
+# bf16 at head dim 64 / 128 with Lk % 4 == 0 runs csrc/flash_dense_sm90.cu,
+# every other case csrc/flash_dense.cu (fa.dense_impl)
+DENSE_SM90_SOURCE = "avatar_tpu_torch/csrc/flash_dense_sm90.cu"
+# a key length whose f32 bias rows the Hopper kernels' tensor maps cannot
+# step (Lk % 4 != 0): the WMMA route
+DENSE_RAGGED_LK = 254
+
+
+def dense_launches(route, times=1):
+    """The counters G's four kernels move on ``route``, ``times`` each."""
+    return {**{total: times for total, _, _ in DENSE_ROWS},
+            **{f"flash_dense_{key}_{route}": times for _, key, _ in DENSE_ROWS}}
 
 
 def dense_cases(g):
@@ -2058,51 +2181,135 @@ def _dense_work(q, k, bias3):
             "flash_dense_bwd_db": (2 * product, bwd_in + bias_bytes)}
 
 
+def _dense_run(fa, q, k, v, bias3, gout, scale):
+    """(out, lse, dq, dk, dv, db) through G's four wrappers, on the route
+    ``dense_impl`` names."""
+    out, lse = fa._flash_dense_forward(q, k, v, bias3, scale)
+    delta = (gout.float() * out.float()).sum(-1)
+    dk, dv = fa.flash_dense_bwd_dkv(q, k, v, gout, lse, delta, bias3, scale)
+    dq = fa.flash_dense_bwd_dq(q, k, v, gout, lse, delta, bias3, scale)
+    db = fa.flash_dense_bwd_db(q, k, v, gout, lse, delta, bias3, scale)
+    return out, lse, dq, dk, dv, db
+
+
+def _dense_c_calls(fa, route, q, k, v, bias3, gout, scale):
+    """G's four kernels of ``route`` ("sm90" or "wmma") called through their
+    C entries (no counter), to compare the routes on the same contiguous
+    inputs: ({kernel: call}, run). Each call writes its outputs into
+    buffers of its own; the backward calls read the lse and delta that
+    ``run`` leaves, which runs all four in order and returns (out, lse, dq,
+    dk, dv, db)."""
+    import torch
+
+    b, heads, lq, d = q.shape
+    dims = (b, heads, lq, k.shape[2], b * heads // bias3.shape[0], d, float(scale))
+    out = torch.empty_like(q)
+    lse = torch.empty((b, heads, lq), device=q.device, dtype=torch.float32)
+    delta = torch.empty_like(lse)
+    dq, dk, dv, db = (torch.empty_like(t) for t in (q, k, v, bias3))
+    outs = {"fwd": (out, lse), "bwd_dkv": (dk, dv), "bwd_dq": (dq,), "bwd_db": (db,)}
+
+    def caller(kernel):
+        name, fn = fa._dense_entry(kernel, route, q.dtype, d)
+        ins = (q, k, v, bias3) if kernel == "fwd" else (q, k, v, gout, lse, delta, bias3)
+        ptrs = [t.data_ptr() for t in ins + outs[kernel]]
+
+        def call():
+            err = fn(*ptrs, *dims, torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f"{name} failed with cudaError_t {err}")
+        return call
+
+    calls = {kernel: caller(kernel) for kernel in outs}
+
+    def run():
+        calls["fwd"]()
+        delta.copy_((gout.float() * out.float()).sum(-1))
+        for kernel in ("bwd_dkv", "bwd_dq", "bwd_db"):
+            calls[kernel]()
+        return out, lse, dq, dk, dv, db
+    return calls, run
+
+
+def _dense_errors(fa, errors, label, q, k, v, bias3, gout, scale, got):
+    """Adds each kernel's error against its plain version to ``errors``
+    (by total counter); returns the lse error over the live rows."""
+    out, lse, dq, dk, dv, db = got
+    ref, ref_lse = fa._flash_dense_plain(q, k, v, bias3, scale)
+    errors["flash_dense_forward"].add(label, out, ref)
+    live = ref_lse < 1e29
+    lse_err = (lse - ref_lse)[live].abs().max().item()
+    del ref, ref_lse
+    want = fa._flash_dense_backward_plain(q, k, v, bias3, out, lse, gout, scale)
+    for name, grad, a, b in (("flash_dense_bwd_dkv", "dk", dk, want[1]),
+                             ("flash_dense_bwd_dkv", "dv", dv, want[2]),
+                             ("flash_dense_bwd_dq", "dq", dq, want[0]),
+                             ("flash_dense_bwd_db", "dbias", db, want[3])):
+        errors[name].add(f"{label}: {grad}", a, b)
+    return lse_err
+
+
 def check_flash_dense(peaks):
-    """G's four kernels (``csrc/flash_dense.cu``) against their plain
-    versions at the two shapes of :func:`dense_cases`, the backward from the
-    forward kernel's own O and lse; a fully masked query row gives O = 0,
-    lse = 1e30 and zero gradients. Then each kernel's time (CUDA events),
-    its bound, the plain version's (the forward; the whole backward for the
-    three backward rows) and the library's: ``scaled_dot_product_attention``
-    with the bias as its bf16 ``attn_mask``, forward, and its autograd
-    backward (bias included) minus its forward."""
+    """G's four kernels on the Hopper route (``csrc/flash_dense_sm90.cu``)
+    against their plain versions at the two shapes of :func:`dense_cases`,
+    the backward from the forward kernel's own O and lse; the fully masked
+    query row 77 gives O = 0, lse = 1e30, dQ = 0 and dBias = 0. The WMMA
+    kernels (``csrc/flash_dense.cu``, through their C entries) run on the
+    same inputs, held to the same gates, and the two routes' distance is
+    printed. One more case, Lk = 254 (Lk % 4 != 0), takes the WMMA route
+    and is held to the gates. Then each kernel's device time (profiler) and
+    time per call (CUDA events), the WMMA kernel's device time, its bound,
+    the plain version's time (the forward; the whole backward for the three
+    backward rows) and the library's device time:
+    ``scaled_dot_product_attention`` with the bias as its bf16
+    ``attn_mask``, forward, and its autograd backward (bias included)
+    minus its forward."""
     import torch
     import torch.nn.functional as F
 
     from avatar_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(23)
-    errors = {name: KernelErrors(name, KERNEL_ULPS if name.endswith("forward") else BWD_ULPS)
-              for name, _ in DENSE_ROWS}
-    lse_errs, timed = {}, {}
+
+    def gates(route):
+        return {total: KernelErrors(f"flash_dense_{key}_{route}",
+                                    KERNEL_ULPS if key == "fwd" else BWD_ULPS)
+                for total, key, _ in DENSE_ROWS}
+
+    errors, wmma_errors = gates("sm90"), gates("wmma")
+    lse_errs, wmma_lse_errs, routes_apart, timed = {}, {}, {}, {}
     for label, (q, k, v, bias, gout, scale, masked_row) in dense_cases(g).items():
         bias3 = fa._dense_bias3(bias)
+        if fa.dense_impl(q.dtype, q.shape[-1], k.shape[2]) != "sm90":
+            fail(f"flash_dense {label}: dense_impl does not name the Hopper route")
         before = dict(fa.launch_counts)
         out, lse = fa._flash_dense_forward(q, k, v, bias3, scale)
         dq, dk, dv, db = fa._flash_dense_backward(q, k, v, bias3, out, lse, gout, scale,
                                                   with_db=True)
         torch.cuda.synchronize()
-        if any(fa.launch_counts[n] != before[n] + 1 for n, _ in DENSE_ROWS):
-            fail(f"flash_dense {label}: the four kernels were not each launched once")
-        ref, ref_lse = fa._flash_dense_plain(q, k, v, bias3, scale)
-        errors["flash_dense_forward"].add(label, out, ref)
-        live = ref_lse < 1e29
-        lse_errs[label] = (lse - ref_lse)[live].abs().max().item()
-        del ref, ref_lse
-        want = fa._flash_dense_backward_plain(q, k, v, bias3, out, lse, gout, scale)
-        for name, grad, got, ref_grad in (("flash_dense_bwd_dkv", "dk", dk, want[1]),
-                                          ("flash_dense_bwd_dkv", "dv", dv, want[2]),
-                                          ("flash_dense_bwd_dq", "dq", dq, want[0]),
-                                          ("flash_dense_bwd_db", "dbias", db, want[3])):
-            errors[name].add(f"{label}: {grad}", got, ref_grad)
-        del want
+        launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+        if launched != dense_launches("sm90"):
+            fail(f"flash_dense {label}: launched {launched}, expected the four Hopper kernels")
+        got = (out, lse, dq, dk, dv, db)
+        lse_errs[label] = _dense_errors(fa, errors, label, q, k, v, bias3, gout, scale, got)
         if masked_row is not None:
             r = masked_row
             if not all(bool(x.all()) for x in (
                     out[:, :, r] == 0, lse[:, :, r] == fa.LSE_MASKED, dq[:, :, r] == 0,
                     db[:, r] == 0)):
                 fail(f"flash_dense {label}: the fully masked row {r} is not 0 (lse 1e30)")
+        wmma_calls, wmma_run = _dense_c_calls(fa, "wmma", q, k, v, bias3, gout, scale)
+        wmma = wmma_run()
+        torch.cuda.synchronize()
+        wmma_lse_errs[label] = _dense_errors(fa, wmma_errors, label, q, k, v, bias3, gout,
+                                             scale, wmma)
+        # the two routes' distance, in bf16 ulps of the WMMA output's largest value
+        routes_apart[label] = {
+            name: (a.float() - b.float()).abs().max().item()
+            / (2.0**-8 * b.float().abs().max().item())
+            for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"),
+                                  (out, dq, dk, dv, db), wmma[:1] + wmma[2:])}
+        del wmma, dq, dk, dv, db
         delta = (gout.float() * out.float()).sum(-1)
         work = _dense_work(q, k, bias3)
         lib_leaves = [t.detach().requires_grad_() for t in (q, k, v, bias.to(q.dtype))]
@@ -2111,59 +2318,89 @@ def check_flash_dense(peaks):
             return F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
                                                   scale=scale)
 
-        lib_fwd_ms = time_ms(lib_fwd)
-        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_fwd(), lib_leaves, gout)
-                             ) - lib_fwd_ms
+        lib_fwd_ms = device_ms(lib_fwd)
+        lib_all_ms = device_ms(lambda: torch.autograd.grad(lib_fwd(), lib_leaves, gout))
+        lib_bwd_ms = lib_all_ms - lib_fwd_ms
+        if isinstance(lib_all_ms, EventsMs) or isinstance(lib_fwd_ms, EventsMs):
+            lib_bwd_ms = EventsMs(lib_bwd_ms)
         plain_bwd_ms = time_ms(lambda: fa._flash_dense_backward_plain(
             q, k, v, bias3, out, lse, gout, scale), reps=2, batches=3)
-        timed[label] = {
-            "flash_dense_forward": (
-                time_ms(lambda: fa._flash_dense_forward(q, k, v, bias3, scale)),
-                time_ms(lambda: fa._flash_dense_plain(q, k, v, bias3, scale), reps=2,
-                        batches=3), lib_fwd_ms),
-            "flash_dense_bwd_dkv": (
-                time_ms(lambda: fa.flash_dense_bwd_dkv(q, k, v, gout, lse, delta, bias3, scale)),
-                plain_bwd_ms, lib_bwd_ms),
-            "flash_dense_bwd_dq": (
-                time_ms(lambda: fa.flash_dense_bwd_dq(q, k, v, gout, lse, delta, bias3, scale)),
-                plain_bwd_ms, lib_bwd_ms),
-            "flash_dense_bwd_db": (
-                time_ms(lambda: fa.flash_dense_bwd_db(q, k, v, gout, lse, delta, bias3, scale)),
-                plain_bwd_ms, lib_bwd_ms),
-        }
-        for name, (ops, nbytes) in work.items():
+        calls = {
+            "fwd": lambda: fa._flash_dense_forward(q, k, v, bias3, scale),
+            "bwd_dkv": lambda: fa.flash_dense_bwd_dkv(q, k, v, gout, lse, delta, bias3, scale),
+            "bwd_dq": lambda: fa.flash_dense_bwd_dq(q, k, v, gout, lse, delta, bias3, scale),
+            "bwd_db": lambda: fa.flash_dense_bwd_db(q, k, v, gout, lse, delta, bias3, scale)}
+        plain_ms = {"fwd": time_ms(lambda: fa._flash_dense_plain(q, k, v, bias3, scale),
+                                   reps=2, batches=3)}
+        timed[label] = {}
+        for total, key, _ in DENSE_ROWS:
+            call = calls[key]
+            ops, nbytes = work[total]
             bound_ms, bound_by = bound(ops, nbytes, peaks)
-            ms, plain_ms, lib_ms = timed[label][name]
-            timed[label][name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                  "bound_ms": bound_ms, "bound_by": bound_by,
-                                  "flops": ops, "bytes": nbytes}
-        del out, lse, dq, dk, dv, db, delta, lib_leaves
+            timed[label][total] = {
+                "ms": device_ms(call, f"flash_dense_{key}_sm90_kernel"),
+                "events_ms_per_call": time_ms(call),
+                "wmma_ms": device_ms(wmma_calls[key], f"flash_dense_{key}_kernel", reps=5),
+                "plain_ms": plain_ms.get(key, plain_bwd_ms),
+                "library_ms": lib_fwd_ms if key == "fwd" else lib_bwd_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "flops": ops, "bytes": nbytes}
+        del out, lse, delta, lib_leaves, wmma_calls, wmma_run
         torch.cuda.empty_cache()
+    # Lk % 4 != 0: the WMMA route, held to the same gates
+    lk = DENSE_RAGGED_LK
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    q, k = (rms_rows(randn(2, 8, n, HEAD_DIM)).bfloat16() for n in (256, lk))
+    v, gout = randn(2, 8, lk, HEAD_DIM).bfloat16(), randn(2, 8, 256, HEAD_DIM).bfloat16()
+    bias = randn(2, 1, 256, lk)
+    bias[..., 90:120] = -1e30
+    bias3 = fa._dense_bias3(bias)
+    ragged_label = f"[2, 8, 256, {HEAD_DIM}] x Lk {lk}, shared bias"
+    route = fa.dense_impl(q.dtype, HEAD_DIM, lk)
+    before = dict(fa.launch_counts)
+    got = _dense_run(fa, q, k, v, bias3, gout, HEAD_DIM**-0.5)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    if route != "wmma" or launched != dense_launches("wmma"):
+        fail(f"flash_dense {ragged_label}: route {route}, launched {launched}")
+    wmma_lse_errs[ragged_label] = _dense_errors(fa, wmma_errors, ragged_label, q, k, v,
+                                                bias3, gout, HEAD_DIM**-0.5, got)
+    del got
     checked = {name: err.check() for name, err in errors.items()}
-    lse_err = max(lse_errs.values())
-    if not (math.isfinite(lse_err) and lse_err <= LSE_TOL):
-        fail(f"flash_dense_forward: lse disagrees with its plain version's: {lse_errs}")
+    wmma_checked = {name: err.check() for name, err in wmma_errors.items()}
+    for errs in (lse_errs, wmma_lse_errs):
+        lse_err = max(errs.values())
+        if not (math.isfinite(lse_err) and lse_err <= LSE_TOL):
+            fail(f"flash_dense forward: lse disagrees with its plain version's: {errs}")
     t5_label, dit_label = list(timed)
     rows = []
-    for name, line in DENSE_ROWS:
-        err, tol = checked[name]
-        main = timed[t5_label][name]
-        row = {"name": name, "route": "cuda", "source": "avatar_tpu_torch/csrc/flash_dense.cu",
+    for total, key, line in DENSE_ROWS:
+        err, tol = checked[total]
+        main = timed[t5_label][total]
+        name = f"flash_dense_{key}_sm90"
+        row = {"name": name, "route": "cuda", "source": DENSE_SM90_SOURCE,
                "replaces": f"avatar_tpu/ops/flash_attention.py:{line}",
                "max_abs_err": err, "tol": tol, "ms": main["ms"], "plain_ms": main["plain_ms"],
                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-               "library_ms": main["library_ms"], "shape": t5_label,
+               "library_ms": main["library_ms"], "wmma_ms": main["wmma_ms"],
+               "shape": t5_label,
                "long_shape": {"shape": dit_label, **{
-                   k: timed[dit_label][name][k]
-                   for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
-        if name != "flash_dense_forward":
+                   k: timed[dit_label][total][k]
+                   for k in ("ms", "wmma_ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}}}
+        if key != "fwd":
             row["plain_and_library_cover"] = "the whole backward (dq, dk, dv, dbias)"
         rows.append(row)
-        emit({"phase": f"kernel_{name}", "errors": errors[name].errs,
-              "limits": errors[name].tols,
-              **({"lse_errors": lse_errs, "lse_tol": LSE_TOL} if name.endswith("forward")
-                 else {"ulps": BWD_ULPS}),
-              "times": {label: t[name] for label, t in timed.items()}})
+        emit({"phase": f"kernel_{name}", "errors": errors[total].errs,
+              "limits": errors[total].tols,
+              "wmma_errors": wmma_errors[total].errs, "wmma_limits": wmma_errors[total].tols,
+              "wmma_max_abs_err_and_tol": wmma_checked[total],
+              **({"lse_errors": lse_errs, "wmma_lse_errors": wmma_lse_errs,
+                  "lse_tol": LSE_TOL} if key == "fwd" else {"ulps": BWD_ULPS}),
+              "routes_apart_in_ulps": routes_apart,
+              "times": {label: t[total] for label, t in timed.items()}})
     return rows
 
 
@@ -2203,7 +2440,7 @@ def check_attention_dense_bias():
         if not all(math.isfinite(e) and e <= GRAD_TOL for e in errs):
             fail(f"attention_dense_bias {label}: the card disagrees with the plain "
                  f"versions in f32: {results[label]}")
-    expect = {name: len(cases) for name, _ in DENSE_ROWS}
+    expect = dense_launches("sm90", len(cases))
     emit({"phase": "attention_dense_bias", "tol": GRAD_TOL, "rel_rms": results,
           "launches": launches})
     if launches != expect:
@@ -2940,7 +3177,8 @@ def main() -> int:
     emit({"phase": "init_w8a8", "seconds": time.perf_counter() - t0})
     by_path["pipeline_long_w8a8"], _, w8a8_latents = run_pipeline(
         pipe_w8a8, "pipeline_long_w8a8", 512, 161, plain,
-        {"w8a8_matmul": 8 * every, "quantize_rows": 3 * every,
+        {"w8a8_matmul": 8 * every, "w8a8_matmul_sm90": 8 * every,
+         "quantize_rows": 3 * every,
          "rms_mod_quant": 2 * every, "act_quant": every, **long_attention}, 3,
         extra={"bf16_total_s": long_s})
     # a finding, not a gate: how far int8 moves the 2B latents from bf16's
@@ -2956,7 +3194,7 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
         if not row["launches"]:
             fail(f"{row['name']} was launched on no driven path")
-    emit({"kernels": rows})
+    emit({"kernels": [mark_event_times(row) for row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,11 @@
 """Which CUDA attention kernel and which build variant each (dtype, head
 dim) takes, on the CPU (the decisions are Python, made before a launch):
-the Hopper kernels for A, C, D, E and for the backward F at bf16 with head
-dim 64 or 128, the WMMA tile code built per (dtype, padded head dim) for
-everything else; and the head dims and dtypes the wrappers accept on the
-card are exactly those the reference's predicates admit, fp16 excepted (it
-reaches no path of either package)."""
+the Hopper kernels for A, C, D, E, the backward F and the dense-bias G
+(there with Lk % 4 == 0) at bf16 with head dim 64 or 128, the WMMA tile
+code built per (dtype, padded head dim) for everything else; and the head
+dims and dtypes the wrappers accept on the card are exactly those the
+reference's predicates admit, fp16 excepted (it reaches no path of either
+package)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +49,24 @@ def test_backward_implementation_by_dtype_and_head_dim(dtype, d):
     or 128, the WMMA variants for f32 and every other head dim."""
     hopper = dtype == torch.bfloat16 and d in (64, 128)
     assert tfa.backward_impl(dtype, d) == ("sm90" if hopper else "wmma")
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.bfloat16, jnp.bfloat16),
+                                          (torch.float32, jnp.float32)])
+@pytest.mark.parametrize("d", list(range(8, 513, 8)))
+def test_dense_implementation_of_each_admitted_shape(dtype, jdtype, d):
+    """G at every head dim ``dense_bias_supported`` admits (multiples of 8
+    up to 512) and key lengths 1-600: the Hopper kernels at bf16 with head
+    dim 64 or 128 and ``Lk % 4 == 0`` (the f32 bias rows' TMA stride), the
+    WMMA variants otherwise; the wrapper accepts the head dim."""
+    assert _accepts(lambda: tfa.check_kernel_args("flash", dtype, d, 512))
+    for lk in range(1, 601):
+        lq = -(-128 * 128 // lk)
+        q = np.zeros((1, 1, lq, d), np.float32)
+        k = np.zeros((1, 1, lk, d), np.float32)
+        assert jfa.dense_bias_supported(q, k, np.zeros((1, 1, lq, lk))), (d, lk)
+        hopper = dtype == torch.bfloat16 and d in (64, 128) and lk % 4 == 0
+        assert tfa.dense_impl(dtype, d, lk) == ("sm90" if hopper else "wmma"), (d, lk)
 
 
 @pytest.mark.parametrize("d,padded", [(8, 64), (32, 64), (64, 64), (72, 128),

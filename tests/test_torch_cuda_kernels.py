@@ -5,6 +5,8 @@ them on a card with
 ``python -m pytest tests/test_torch_cuda_kernels.py --noconftest`` (the
 shared conftest imports JAX, which the card's machine need not have)."""
 
+import ctypes
+
 import pytest
 import torch
 
@@ -577,9 +579,131 @@ def test_flash_dense_gradients_on_the_card(gen):
         grads[device] = torch.autograd.grad(out, leaves + [b], g.to(device, dtype))
     launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
     assert launched == {"flash_dense_forward": 1, "flash_dense_bwd_dkv": 1,
-                        "flash_dense_bwd_dq": 1, "flash_dense_bwd_db": 1}
+                        "flash_dense_bwd_dq": 1, "flash_dense_bwd_db": 1,
+                        "flash_dense_fwd_sm90": 1, "flash_dense_bwd_dkv_sm90": 1,
+                        "flash_dense_bwd_dq_sm90": 1, "flash_dense_bwd_db_sm90": 1}
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert got.shape == want.shape and _rel(got.cpu(), want) < 2e-2
+
+
+DENSE_KERNELS = ("fwd", "bwd_dkv", "bwd_dq", "bwd_db")
+
+
+def _dense_inputs(gen, d, per_head, lq, lk):
+    """bf16 q, k, v, g at head dim d (2 samples of HEADS heads) and an f32
+    bias [2, 1|H, Lq, Lk] with a band of masked keys and, in sample 1, a
+    fully masked query row 5."""
+    q, k, v = _qkv(gen, torch.bfloat16, 2, HEADS, lq, lk, d)
+    g = torch.randn(2, HEADS, lq, d, generator=gen, device="cuda").bfloat16()
+    bias = torch.randn(2, HEADS if per_head else 1, lq, lk, generator=gen, device="cuda")
+    bias[..., lk // 3:lk // 2] = -1e30
+    bias[1, :, 5] = -1e30
+    return q, k, v, g, fa._dense_bias3(bias)
+
+
+def _dense_run(q, k, v, g, bias3, scale):
+    """(out, lse, dq, dk, dv, db) through G's four wrappers, on the route
+    dense_impl names."""
+    out, lse = fa._flash_dense_forward(q, k, v, bias3, scale)
+    delta = (g.float() * out.float()).sum(-1)
+    dk, dv = fa.flash_dense_bwd_dkv(q, k, v, g, lse, delta, bias3, scale)
+    dq = fa.flash_dense_bwd_dq(q, k, v, g, lse, delta, bias3, scale)
+    db = fa.flash_dense_bwd_db(q, k, v, g, lse, delta, bias3, scale)
+    return out, lse, dq, dk, dv, db
+
+
+def _dense_c_call(kernel, route, ins, outs, scale):
+    """The cudaError_t of G's ``kernel`` on ``route`` called through its C
+    entry (no counter) on contiguous head-major ``ins`` (q, k, v, then g,
+    lse, delta for the backward, then the bias slabs) into ``outs``."""
+    q, k, bias3 = ins[0], ins[1], ins[-1]
+    b, heads, lq, d = q.shape
+    _, fn = fa._dense_entry(kernel, route, q.dtype, d)
+    return fn(*(t.data_ptr() for t in ins + outs), b, heads, lq, k.shape[2],
+              b * heads // bias3.shape[0], d, float(scale),
+              torch.cuda.current_stream().cuda_stream)
+
+
+def _wmma_dense_run(q, k, v, g, bias3, scale):
+    """(out, lse, dq, dk, dv, db) from the WMMA kernels of
+    csrc/flash_dense.cu on the same inputs, whatever route dense_impl
+    names."""
+    out, lse = torch.empty_like(q), torch.empty(q.shape[:3], device="cuda")
+    assert _dense_c_call("fwd", "wmma", (q, k, v, bias3), (out, lse), scale) == 0
+    delta = (g.float() * out.float()).sum(-1)
+    dq, dk, dv, db = (torch.empty_like(t) for t in (q, k, v, bias3))
+    ins = (q, k, v, g, lse, delta, bias3)
+    for kernel, outs in (("bwd_dkv", (dk, dv)), ("bwd_dq", (dq,)), ("bwd_db", (db,))):
+        assert _dense_c_call(kernel, "wmma", ins, outs, scale) == 0
+    return out, lse, dq, dk, dv, db
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("per_head,lq,lk", [(True, 256, 256), (False, 256, 256),
+                                            (False, 200, 132), (True, 150, 130)])
+def test_hopper_dense_kernels_match_plain_and_wmma(gen, d, per_head, lq, lk):
+    """G's four kernels on the route dense_impl names (Hopper at Lk % 4 ==
+    0, WMMA at Lk = 130) against their plain versions from the same
+    inputs, and against the WMMA kernels called on the same inputs (both
+    round p and dS to bf16 at the same places and sum in f32 in other
+    orders); the fully masked row gives O = 0, lse = 1e30, dQ = 0 and
+    dBias = 0."""
+    route = fa.dense_impl(torch.bfloat16, d, lk)
+    assert route == ("sm90" if lk % 4 == 0 else "wmma")
+    q, k, v, g, bias3 = _dense_inputs(gen, d, per_head, lq, lk)
+    before = dict(fa.launch_counts)
+    out, lse, dq, dk, dv, db = _dense_run(q, k, v, g, bias3, d**-0.5)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    assert launched == {
+        **{f"flash_dense_{n}": 1 for n in ("forward", "bwd_dkv", "bwd_dq", "bwd_db")},
+        **{f"flash_dense_{n}_{route}": 1 for n in DENSE_KERNELS}}
+    ref, ref_lse = fa._flash_dense_plain(q, k, v, bias3, d**-0.5)
+    assert _ulps_ok(out, ref, 2)
+    live = ref_lse < 1e29
+    assert (lse - ref_lse)[live].abs().max().item() < 2e-3
+    want = fa._flash_dense_backward_plain(q, k, v, bias3, out, lse, g, d**-0.5)
+    for got, ref_grad in zip((dq, dk, dv, db), want):
+        assert _ulps_ok(got, ref_grad)
+    assert bool((out[1, :, 5] == 0).all()) and bool((lse[1, :, 5] == fa.LSE_MASKED).all())
+    assert bool((dq[1, :, 5] == 0).all())
+    assert bool((db.reshape(2, -1, lq, lk)[1, :, 5] == 0).all())
+    wmma = _wmma_dense_run(q, k, v, g, bias3, d**-0.5)
+    torch.cuda.synchronize()
+    assert _ulps_ok(out, wmma[0], 2)
+    assert (lse - wmma[1])[live].abs().max().item() < 2e-3
+    for got, other in zip((dq, dk, dv, db), wmma[2:]):
+        assert _ulps_ok(got, other)
+
+
+def test_hopper_dense_refuses_a_key_length_its_tensor_maps_cannot_read(gen):
+    """Lk % 4 != 0 routes to WMMA; the Hopper entry called there anyway
+    refuses it (the f32 bias rows' stride is not a multiple of 16 bytes)."""
+    q, k, v, g, bias3 = _dense_inputs(gen, 64, False, 128, 130)
+    assert fa.dense_impl(torch.bfloat16, 64, 130) == "wmma"
+    out, lse = torch.empty_like(q), torch.empty(q.shape[:3], device="cuda")
+    assert _dense_c_call("fwd", "sm90", (q, k, v, bias3), (out, lse), 0.125) != 0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("per_head", [True, False])
+def test_hopper_dense_gradients_through_flash_attention(gen, d, per_head):
+    """Autograd through flash_attention(bias=...) on the Hopper route, the
+    bias requiring a gradient, against autograd through the plain forward
+    in f32 on the card from the same inputs."""
+    q, k, v, g, bias3 = _dense_inputs(gen, d, per_head, 384, 256)
+    bias = bias3.reshape(2, -1, 384, 256)
+    before = dict(fa.launch_counts)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    out = fa.flash_attention(*leaves[:3], bias=leaves[3])
+    got = (out,) + torch.autograd.grad(out, leaves, g)
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    assert all(launched.get(f"flash_dense_{n}_sm90") == 1 for n in DENSE_KERNELS)
+    leaves32 = [t.detach().float().requires_grad_() for t in (q, k, v, bias)]
+    ref = fa._flash_dense_plain(*leaves32[:3], fa._dense_bias3(leaves32[3]), d**-0.5)[0]
+    want = (ref,) + torch.autograd.grad(ref, leaves32, g.float())
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a, b) < 2e-2
 
 
 # ---------------------------------------------------------------------------
@@ -619,6 +743,36 @@ def test_w8a8_matmul_kernel_is_exact_in_int32(gen, m, k, n):
     assert i8.launch_counts["w8a8_matmul"] == before + 1
     acc = (x_q.double() @ w_q.double().t()).float()
     assert torch.equal(out, acc)
+
+
+# ragged M, K off the 128-byte step, N off the tile and not a multiple of 8
+@pytest.mark.parametrize("m,k,n", [(333, 272, 200), (5000, 2048, 2048), (1, 16, 2),
+                                   (130, 4096, 520)])
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_hopper_w8a8_matmul_matches_plain_and_mma(gen, m, k, n, use_bias, out_dtype):
+    """The Hopper kernel exact in int32, and with real scales equal to the
+    plain version and to the mma.sync kernel of csrc/int8_matmul.cu (called
+    through its C entry) on the same inputs: each f32 step of the dequant
+    rounds alike."""
+    x_q, w_q = _int8(gen, m, k), _int8(gen, n, k)
+    ones_m, ones_n = torch.ones(m, 1, device="cuda"), torch.ones(n, device="cuda")
+    before = dict(i8.launch_counts)
+    acc = i8.w8a8_matmul(x_q, ones_m, w_q, ones_n, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert i8.launch_counts["w8a8_matmul_sm90"] == before["w8a8_matmul_sm90"] + 1
+    assert torch.equal(acc, (x_q.double() @ w_q.double().t()).float())
+    x_s = torch.rand(m, 1, generator=gen, device="cuda") * 0.02
+    w_s = torch.rand(n, generator=gen, device="cuda") * 0.02
+    bias = torch.randn(n, generator=gen, device="cuda") if use_bias else None
+    out = i8.w8a8_matmul(x_q, x_s, w_q, w_s, bias, out_dtype)
+    assert torch.equal(out, i8._w8a8_matmul_plain(x_q, x_s, w_q, w_s, bias, out_dtype))
+    mma = torch.empty_like(out)
+    fn = i8._entry("w8a8_matmul", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    assert fn(x_q.data_ptr(), x_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+              None if bias is None else bias.data_ptr(), mma.data_ptr(), m, n, k,
+              int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream) == 0
+    assert torch.equal(out, mma)
 
 
 @pytest.mark.parametrize("use_bias", [True, False])

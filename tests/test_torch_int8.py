@@ -251,6 +251,51 @@ def test_w8a8_matmul_plain_matches_pallas(m, k, n, use_bias, bk):
                                atol=MATMUL_ATOL)
 
 
+@pytest.mark.parametrize("m,n,sms,tile_n", [
+    # the DiT's W8A8 shapes on 132 SMs: 336 and 1,344 tiles of 256 columns
+    (5376, 2048, 132, 256), (5376, 8192, 132, 256),
+    # the short path and a ragged M: 128 columns fill the SMs
+    (832, 2048, 132, 128), (5000, 2048, 132, 128), (3328, 2048, 132, 256),
+    # narrow products: half-width tiles run on twice the SMs
+    (1, 2, 132, 128), (128, 256, 132, 128), (128, 200, 132, 128),
+    # fewer SMs: 42 x 8 tiles fill 8 SMs evenly
+    (5376, 2048, 8, 256),
+])
+def test_matmul_tile_n(m, n, sms, tile_n):
+    """128-column tiles where they finish in under 90% of the rounds of
+    256-column ones, else 256 (the choice measured on an H100)."""
+    assert ti8.matmul_tile_n(m, n, sms) == tile_n
+
+
+@pytest.mark.parametrize("sms", [132, 114, 7])
+def test_matmul_tile_n_rounds_against_a_brute_force_walk(sms):
+    """matmul_tile_n picks the tile width that a brute-force walk of the
+    kernel's persistent schedule picks (CTA c of min(sms, tiles) takes tiles
+    c, c + ctas, ...; a 128-column tile takes half a 256-column one's time):
+    128 columns where the busiest CTA finishes in under 90% of its time
+    with 256-column tiles. The walk visits every output tile once."""
+    for m in (1, 128, 129, 832, 3328, 5000, 5376):
+        for n in (2, 200, 256, 520, 2048, 8192):
+            busiest = {}
+            for tile_n in (128, 256):
+                tiles = [(i, j) for i in range(-(-m // 128)) for j in range(-(-n // tile_n))]
+                ctas = min(sms, len(tiles))
+                walks = [tiles[c::ctas] for c in range(ctas)]
+                assert sorted(t for w in walks for t in w) == tiles
+                busiest[tile_n] = max(len(w) for w in walks) * tile_n / 256
+            want = 128 if busiest[128] < 0.9 * busiest[256] else 256
+            assert ti8.matmul_tile_n(m, n, sms) == want, (m, n)
+
+
+def test_matmul_cpu_route_launches_nothing():
+    """On the CPU the wrapper runs the plain version and launches nothing."""
+    ti8.reset_launch_counts()
+    x_q = torch.ones(4, 32, dtype=torch.int8)
+    out = ti8.w8a8_matmul(x_q, torch.ones(4, 1), x_q[:2], torch.ones(2))
+    assert torch.equal(out, torch.full((4, 2), 32.0, dtype=torch.bfloat16))
+    assert not any(ti8.launch_counts.values())
+
+
 # ---------------------------------------------------------------------------
 # linear, branch by branch
 # ---------------------------------------------------------------------------

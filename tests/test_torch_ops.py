@@ -123,7 +123,9 @@ def test_launch_counts_untouched_on_cpu():
         "flash_bwd_dkv", "flash_bwd_dq",
         "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_wmma", "flash_bwd_dq_wmma",
         "flash_dense_forward", "flash_dense_bwd_dkv", "flash_dense_bwd_dq",
-        "flash_dense_bwd_db"}
+        "flash_dense_bwd_db", "flash_dense_fwd_sm90", "flash_dense_bwd_dkv_sm90",
+        "flash_dense_bwd_dq_sm90", "flash_dense_bwd_db_sm90", "flash_dense_fwd_wmma",
+        "flash_dense_bwd_dkv_wmma", "flash_dense_bwd_dq_wmma", "flash_dense_bwd_db_wmma"}
     assert not any(tfa.launch_counts.values())
 
 
