@@ -1,7 +1,9 @@
 // The consumer side of the Hopper (sm_90a) attention forward kernels,
-// shared by flash_forward_sm90.cu (C, D, E) and rope_attention_sm90.cu (A):
-// the tile shape, S = Q K^T by wgmma, the softmax on the accumulator
-// fragment, O += P V with P as the register A operand, and the epilogue.
+// shared by flash_forward_sm90.cu (C, D, E), token_attention_sm90.cu (B)
+// and rope_attention_sm90.cu (A): the tile shape, S = Q K^T by wgmma, the
+// softmax on the accumulator fragment, O += P V with P as the register A
+// operand, and the epilogue; and the whole kernel of the forwards whose
+// producer only issues TMA loads (B, C, D, E: fwd_sm90).
 //
 // Persistent: one CTA of kThreads = 384 per SM walks work items of
 // (batch, head, kBlockM = 128 query rows): warpgroup 0 produces (each
@@ -362,6 +364,140 @@ static int persistent_ctas(int n_items) {
     if (sms <= 0) sms = 1;
   }
   return n_items < sms ? n_items : sms;
+}
+
+// ---------------------------------------------------------------------------
+// The body of the forwards whose producer only issues TMA loads (B, C, D,
+// E): q, k, v and o each through one 4-D tensor map (d, L, H, B) built from
+// its strides, so a tile past a head's last row reads TMA's zero fill,
+// never the next head's rows
+// ---------------------------------------------------------------------------
+
+template <int kStages>
+struct alignas(1024) FwdSmem {
+  uint8_t q[kTileBytes];
+  uint8_t o[kTileBytes];                     // the O staging
+  uint8_t k[kStages][kTileBytes];
+  uint8_t v[kStages][kTileBytes];
+  float keep[kStages][kBlockN];              // 1 kept, 0 masked, -1 past end
+  uint64_t q_full;
+  uint64_t q_empty;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+// The body of a kernel of kThreads threads, called with its
+// __grid_constant__ tensor maps. Warpgroup 0's first warp produces: each
+// item's Q tile (once both consumers have issued the previous item's last
+// S), then K and V tiles of kBlockN keys into the ring (K alone in the
+// whole-row mode's first pass), and with a mask the tile's keep
+// flags, staged by the warp's lanes. setmaxnreg moves registers from the
+// producer (40) to the consumers (232). `lse` may be null.
+template <int kMode, bool kMask, bool kSumRounded, int kStages>
+__device__ __forceinline__ void fwd_sm90(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                         const CUtensorMap& tm_v, const CUtensorMap& tm_o,
+                                         const float* __restrict__ mask,
+                                         float* __restrict__ lse, int B, int H, int Lq,
+                                         int Lk, float scale_log2) {
+  using Smem = FwdSmem<kStages>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+  const int n_tiles = (Lk + kBlockN - 1) / kBlockN;
+  const int q_tiles = (Lq + kBlockM - 1) / kBlockM;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, 8);  // lane 0 of each consumer warp
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);  // the producer warp's lanes
+      mbar_init(&sm.empty[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid >= 32) return;
+    const int lane = tid;
+    const int n_pos = ring_positions(kMode, n_tiles);
+    int pos = 0;  // ring position, counted across items as the consumers count it
+    int it = 0;
+    for (int w = blockIdx.x; w < q_tiles * H * B; w += gridDim.x, ++it) {
+      const WorkItem wi = work_item(w, q_tiles, H);
+      if (lane == 0) {
+        mbar_wait(&sm.q_empty, (it & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.q_full, kTileBytes);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(sm.q + p * kPanelBytes, &tm_q, &sm.q_full, p * 64, wi.q0, wi.h, wi.b);
+      }
+      for (int i = 0; i < n_pos; ++i, ++pos) {
+        const int s = pos % kStages;
+        mbar_wait(&sm.empty[s], ((pos / kStages) & 1) ^ 1);
+        const int t = i < n_tiles ? i : i - n_tiles;
+        // the whole-row mode's first pass reads K alone
+        const bool with_v = n_pos == n_tiles || i >= n_tiles;
+        const int k0 = t * kBlockN;
+        if (kMask) {
+          for (int j = lane; j < kBlockN; j += 32) {
+            float f = -1.0f;
+            if (k0 + j < Lk) f = mask[(int64_t)wi.b * Lk + k0 + j] > 0.5f ? 1.0f : 0.0f;
+            sm.keep[s][j] = f;
+          }
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[s], (with_v ? 2 : 1) * kTileBytes);
+#pragma unroll
+          for (int p = 0; p < kPanels; ++p) {
+            tma_load(sm.k[s] + p * kPanelBytes, &tm_k, &sm.full[s], p * 64, k0, wi.h, wi.b);
+            if (with_v)
+              tma_load(sm.v[s] + p * kPanelBytes, &tm_v, &sm.full[s], p * 64, k0, wi.h,
+                       wi.b);
+          }
+        } else {
+          mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg - 1 owns query rows [(wg - 1) * 64, +64) ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const FwdRing ring{sm.q, sm.o, &sm.k[0][0], &sm.v[0][0], &sm.keep[0][0], &sm.q_full,
+                     &sm.q_empty, sm.full, sm.empty};
+  consume<kMode, kMask, kSumRounded, kStages>(ring, wg - 1, tid, B, H, Lq, Lk, scale_log2,
+                                              &tm_o, lse);
+}
+
+// Launches kKernel, a kernel that runs fwd_sm90 with kStages stages,
+// persistent, one CTA per SM; returns a cudaError_t. Its shared-memory
+// attribute is set once per device: the call is host time on every launch.
+template <int kStages, auto kKernel>
+static int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                      const CUtensorMap& to, const float* mask, float* lse, int B, int H,
+                      int Lq, int Lk, float scale_log2, cudaStream_t stream) {
+  const int smem = (int)sizeof(FwdSmem<kStages>) + 1024;
+  static int sized_for = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sized_for != dev) {
+    err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized_for = dev;
+  }
+  const int ctas = persistent_ctas((Lq + kBlockM - 1) / kBlockM * H * B);
+  kKernel<<<ctas, kThreads, smem, stream>>>(tq, tk, tv, to, mask, lse, B, H, Lq, Lk,
+                                            scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace avatar_sm90

@@ -63,7 +63,7 @@
 // - Forward: each CTA owns 128 query rows of one head; K, V and the bias
 //   walk through a 2-stage ring in tiles of 128 keys at d = 64 (a 64 KB
 //   bias tile per stage; 7-8% faster at 5376 tokens on an H100 than 64 keys
-//   through 3 stages, `python3 -m avatar_tpu_torch.tools.dense_int8_ab`)
+//   through 3 stages, `python3 -m avatar_tpu_torch.tools.kernel_ab dense`)
 //   and 64 at d = 128. S = Q K^T by wgmma (both operands in shared memory), the bias
 //   added to the scaled logits on the fragment before the row max, online
 //   softmax, O += P V with P as the register A operand; ping-pong between
@@ -82,7 +82,7 @@
 // - The backward rings hold 3 stages at d = 64 (2 at d = 128, what 227 KB
 //   of shared memory holds): on an H100 the third stage takes dK/dV at 5376
 //   tokens from 1.79-1.81 to 1.25-1.26 ms and dBias from 1.19-1.23 to
-//   1.03-1.04 (`dense_int8_ab`'s `bwd_stages2`).
+//   1.03-1.04 (`kernel_ab`'s `bwd_stages2`).
 #include "sm90.cuh"
 
 #ifndef ATTN_D

@@ -33,10 +33,12 @@
 // The whole-row mode at the training shapes is bound by bytes:
 // [8, 32, 480, 64] moves 63.4 MB (18.9 us) for 30.2 GFLOP (30.5 us of
 // operations counts both products; 1.5x that with the max pass), the
-// cross-attention 480 x 256 moves 48.2 MB (14.4 us).
+// cross-attention 480 x 256 (200 keys kept, one sample fully masked) 43.4
+// MB over its kept keys (13.0 us).
 //
-// Design (warp-specialised, after FlashAttention-3; the consumer side is
-// attention_fwd_sm90.cuh, shared with kernel A):
+// Design (warp-specialised, after FlashAttention-3; the kernel's body is
+// fwd_sm90 of attention_fwd_sm90.cuh, shared with kernel B, and its
+// consumer side also with kernel A):
 // - Persistent: one CTA of 384 threads per SM walks work items of (batch,
 //   head, 128 query rows): warpgroup 0 is the producer, warpgroups 1 and 2
 //   consume 64 rows each. setmaxnreg moves registers from the producer
@@ -73,22 +75,6 @@ namespace avatar_sm90 {
 
 constexpr int kStages = kD == 64 ? 3 : 2;
 
-struct alignas(1024) Smem {
-  uint8_t q[kTileBytes];
-  uint8_t o[kTileBytes];                     // the O staging
-  uint8_t k[kStages][kTileBytes];
-  uint8_t v[kStages][kTileBytes];
-  float keep[kStages][kBlockN];              // 1 kept, 0 masked, -1 past end
-  uint64_t q_full;
-  uint64_t q_empty;
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
-};
-
-// ---------------------------------------------------------------------------
-// The kernel
-// ---------------------------------------------------------------------------
-
 template <int kMode, bool kMask>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -97,111 +83,22 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_o,
                   const float* __restrict__ mask, float* __restrict__ lse,
                   int B, int H, int Lq, int Lk, float scale_log2) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
-  const int n_tiles = (Lk + kBlockN - 1) / kBlockN;
-  const int q_tiles = (Lq + kBlockM - 1) / kBlockM;
-  const int wg = threadIdx.x / 128;
-  const int tid = threadIdx.x % 128;
-
-  if (threadIdx.x == 0) {
-    mbar_init(&sm.q_full, 1);
-    mbar_init(&sm.q_empty, 8);  // lane 0 of each consumer warp
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&sm.full[s], 32);  // the producer warp's lanes
-      mbar_init(&sm.empty[s], 8);  // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    // ---- producer ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (tid >= 32) return;
-    const int lane = tid;
-    const int n_pos = ring_positions(kMode, n_tiles);
-    int pos = 0;  // ring position, counted across items as the consumers count it
-    int it = 0;
-    for (int w = blockIdx.x; w < q_tiles * H * B; w += gridDim.x, ++it) {
-      const WorkItem wi = work_item(w, q_tiles, H);
-      if (lane == 0) {
-        mbar_wait(&sm.q_empty, (it & 1) ^ 1);
-        mbar_arrive_expect_tx(&sm.q_full, kTileBytes);
-#pragma unroll
-        for (int p = 0; p < kPanels; ++p)
-          tma_load(sm.q + p * kPanelBytes, &tm_q, &sm.q_full, p * 64, wi.q0, wi.h, wi.b);
-      }
-      for (int i = 0; i < n_pos; ++i, ++pos) {
-        const int s = pos % kStages;
-        mbar_wait(&sm.empty[s], ((pos / kStages) & 1) ^ 1);
-        const int t = i < n_tiles ? i : i - n_tiles;
-        // the whole-row mode's first pass reads K alone
-        const bool with_v = n_pos == n_tiles || i >= n_tiles;
-        const int k0 = t * kBlockN;
-        if (kMask) {
-          for (int j = lane; j < kBlockN; j += 32) {
-            float f = -1.0f;
-            if (k0 + j < Lk) f = mask[(int64_t)wi.b * Lk + k0 + j] > 0.5f ? 1.0f : 0.0f;
-            sm.keep[s][j] = f;
-          }
-        }
-        if (lane == 0) {
-          mbar_arrive_expect_tx(&sm.full[s], (with_v ? 2 : 1) * kTileBytes);
-#pragma unroll
-          for (int p = 0; p < kPanels; ++p) {
-            tma_load(sm.k[s] + p * kPanelBytes, &tm_k, &sm.full[s], p * 64, k0, wi.h, wi.b);
-            if (with_v)
-              tma_load(sm.v[s] + p * kPanelBytes, &tm_v, &sm.full[s], p * 64, k0, wi.h,
-                       wi.b);
-          }
-        } else {
-          mbar_arrive(&sm.full[s]);
-        }
-      }
-    }
-    return;
-  }
-
-  // ---- consumers: warpgroup wg - 1 owns query rows [(wg - 1) * 64, +64) ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  const FwdRing ring{sm.q, sm.o, &sm.k[0][0], &sm.v[0][0], &sm.keep[0][0], &sm.q_full,
-                     &sm.q_empty, sm.full, sm.empty};
-  constexpr bool kSumRounded = kMode != kModeSingle && kD < 128;
-  consume<kMode, kMask, kSumRounded, kStages>(ring, wg - 1, tid, B, H, Lq, Lk, scale_log2,
-                                              &tm_o, lse);
+  fwd_sm90<kMode, kMask, kMode != kModeSingle && kD < 128, kStages>(
+      tm_q, tm_k, tm_v, tm_o, mask, lse, B, H, Lq, Lk, scale_log2);
 }
 
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
-template <int kMode, bool kMask>
-static int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                  const CUtensorMap& to, const float* mask, float* lse, int B, int H,
-                  int Lq, int Lk, float scale_log2, cudaStream_t stream) {
-  auto kernel = flash_sm90_kernel<kMode, kMask>;
-  const int smem = (int)sizeof(Smem) + 1024;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ctas = persistent_ctas((Lq + kBlockM - 1) / kBlockM * H * B);
-  kernel<<<ctas, kThreads, smem, stream>>>(tq, tk, tv, to, mask, lse, B, H, Lq, Lk,
-                                           scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int kMode>
 static int launch_mode(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                        const CUtensorMap& to, const float* mask, float* lse, int B, int H,
                        int Lq, int Lk, float scale_log2, cudaStream_t stream) {
-  return mask ? launch<kMode, true>(tq, tk, tv, to, mask, lse, B, H, Lq, Lk, scale_log2,
-                                    stream)
-              : launch<kMode, false>(tq, tk, tv, to, mask, lse, B, H, Lq, Lk, scale_log2,
-                                     stream);
+  return mask ? launch_fwd<kStages, flash_sm90_kernel<kMode, true>>(
+                    tq, tk, tv, to, mask, lse, B, H, Lq, Lk, scale_log2, stream)
+              : launch_fwd<kStages, flash_sm90_kernel<kMode, false>>(
+                    tq, tk, tv, to, mask, lse, B, H, Lq, Lk, scale_log2, stream);
 }
 
 }  // namespace avatar_sm90

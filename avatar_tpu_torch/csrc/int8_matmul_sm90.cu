@@ -43,7 +43,7 @@
 //   stored from the registers in pairs (N even: a pair is wholly in or
 //   out). The tensor cores idle while the two warpgroups run their
 //   epilogues, so the epilogue is what this design can still lose:
-//   `python3 -m avatar_tpu_torch.tools.dense_int8_ab` times the kernel
+//   `python3 -m avatar_tpu_torch.tools.kernel_ab int8` times the kernel
 //   without it (`no_epilogue`) and with the bf16 rows stored from the
 //   registers (`register_store`); PERF.md has the numbers.
 #include "sm90.cuh"

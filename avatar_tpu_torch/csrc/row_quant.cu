@@ -1,5 +1,6 @@
 // Per-row dynamic int8 quantization and the two fused producers that end
-// in it. Three kernels, one per TPU kernel of avatar_tpu/ops/int8_matmul.py:
+// in it. One kernel per TPU kernel of avatar_tpu/ops/int8_matmul.py, and a
+// second one for the last:
 //
 // - quantize_rows (replaces `_quant_rows_kernel`, :231, launched by
 //   `quantize_rows_pallas`): y = x in f32;
@@ -8,7 +9,10 @@
 //   (+ shift), in f32, cvec and shift per batch row;
 // - act_quant (replaces `_act_quant_kernel`, :392, launched by
 //   `fused_act_quant`): y = gelu-tanh(h), gelu-erf(h) or, for geglu,
-//   h[:, :W] * gelu-erf(h[:, W:]) with W = C2 / 2, in f32;
+//   h[:, :W] * gelu-erf(h[:, W:]) with W = C2 / 2, in f32; two kernels:
+//   act_quant_regs_kernel for bf16 rows whose output width W is a multiple
+//   of 8 (the DiT's), act_quant_kernel (the "row block" one) for every
+//   other width and for f32;
 //
 // each followed by the same epilogue:
 //   s = max(max|y|, 1e-30) / 127,  q = clip(round(y * (1 / s)), -127, 127)
@@ -18,18 +22,40 @@
 // the plain version puts it. Build without --use_fast_math. The kernels'
 // transcendentals (sqrtf, erff, tanhf) may differ from the host's by an ulp,
 // which can move an element across a rounding boundary: one int8 level.
+// The two act_quant kernels compute the same f32 expressions, so on rows
+// whose y is finite their outputs are equal bit for bit. A row with an inf
+// or NaN y (an inf in h, or a geglu product past the f32 range) has inv =
+// 0 and NaN levels: the row-block kernel's clip turns them into -127, the
+// register kernel's single conversion into 0.
 //
-// Bound on an H100 SXM (3.35 TB/s): all three are bound by bytes. At the
-// DiT's shapes quantize_rows and rms_mod_quant read a [5376, 2048] bf16
-// input (22 MB) and write its int8 (11 MB): about 10 us; act_quant reads
-// [5376, 8192] bf16 (88 MB) and writes 44 MB of int8: about 39 us.
+// Bound on an H100 SXM (3.35 TB/s): quantize_rows and rms_mod_quant are
+// bound by bytes. At the DiT's shapes they read a [5376, 2048] bf16 input
+// (22 MB) and write its int8 (11 MB): about 10 us. act_quant reads
+// [5376, 8192] bf16 (88 MB) and writes 44 MB of int8: 39.4 us of bytes;
+// but accurate tanhf and erff take tens of instructions each, so its bound
+// is the larger of that and the instructions its function needs per
+// element over the SMs' issue rate (four warp instructions per clock per
+// SM): 30 for gelu-approximate on an H100 at 1980 MHz, 39.5 us, a tie;
+// counted from the SASS of avatar_tpu_torch/tools/act_quant_work.cu by
+// avatar_tpu_torch/tools/act_quant_sass.py (PERF.md).
 //
-// Design: one block of 256 threads per row. The row is read once from
-// device memory into shared memory as f32 (y), with the row's sum of
-// squares or its activation computed on the way; block reductions (warp
-// shuffles, then one value per warp) give the mean square and max|y|; the
-// quantized row and its scale are written once. Width up to 16,384 f32 in
-// shared memory (64 KB).
+// Design of quantize_rows, rms_mod_quant and the row-block act_quant: one
+// block of 256 threads per row. The row is read once from device memory
+// into shared memory as f32 (y), with the row's sum of squares or its
+// activation computed on the way; block reductions (warp shuffles, then
+// one value per warp) give the mean square and max|y|; the quantized row
+// and its scale are written once. Width up to 16,384 f32 in shared memory
+// (64 KB).
+//
+// Design of act_quant_regs_kernel (the Hopper route), for what bounds it,
+// the instructions: one block of 256 threads per row, each thread's share
+// of the row in its registers (up to 8 chunks of 8 values); y never
+// touches shared memory (no store and two loads per element); 16-byte
+// loads of 8 bf16; the level in one conversion (see the kernel); max|y| by
+// warp shuffles and one value per warp; each chunk of 8 levels leaves as
+// one 8-byte store. A thread issues all its loads (both halves for geglu)
+// before it computes, so a CTA keeps its whole row in flight (16 KB at W
+// = 8192) beside the other CTAs of its SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,6 +182,81 @@ act_quant_kernel(const T* __restrict__ h, int8_t* __restrict__ q,
   quantize_row(y, width, q + row * width, s + row, red);
 }
 
+// act_quant over bf16 rows whose output width is a multiple of 8, in
+// registers: a block of kThreads per row, thread t holds chunks t, t +
+// kThreads, ... (kChunks of them) of 8 values. (128 threads of twice the
+// elements each issue fewer instructions per element, the per-row work
+// spread over more, but leave fewer warps to hide each one's latencies:
+// 4% slower at 8,192 values, gelu-approximate, on an H100; PERF.md.)
+// The same f32 expressions as act_quant_kernel and quantize_row, but for
+// the level: rintf, the clip to [-127, 127] and the conversion are one
+// conversion that rounds half to even (__float2int_rn), because the clip
+// never binds on a finite row: |y| <= amax, so |y * inv| <= amax *
+// fl(1 / fl(amax / 127)) (1 + 2^-24) < 127 (1 + 2^-21) < 127.5, and the
+// level is within [-127, 127]. (On a row with a non-finite y the two
+// kernels differ: see the top of this file.)
+template <int kAct, int kChunks>
+__global__ void __launch_bounds__(kThreads)
+act_quant_regs_kernel(const __nv_bfloat16* __restrict__ h, int8_t* __restrict__ q,
+                      float* __restrict__ s, int in_width, int width) {
+  __shared__ float red[kWarps];
+  constexpr bool kGated = kAct == kGeglu;
+  const int64_t row = blockIdx.x;
+  const int n = width / 8;  // 16-byte chunks of the output row
+  const uint4* hr = reinterpret_cast<const uint4*>(h + row * in_width);
+  uint4 x[kChunks], gate[kGated ? kChunks : 1];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int i = threadIdx.x + c * kThreads;
+    if (i < n) {
+      x[c] = __ldg(hr + i);
+      if (kGated) gate[c] = __ldg(hr + n + i);
+    }
+  }
+  float y[kChunks][8];
+  float amax = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (threadIdx.x + c * kThreads >= n) continue;
+    const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&x[c]);
+    const __nv_bfloat162* gv =
+        reinterpret_cast<const __nv_bfloat162*>(&gate[kGated ? c : 0]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 v = __bfloat1622float2(xv[e]);
+      float2 a;
+      if (kGated) {
+        const float2 gf = __bfloat1622float2(gv[e]);
+        a = make_float2(__fmul_rn(v.x, gelu_erf(gf.x)), __fmul_rn(v.y, gelu_erf(gf.y)));
+      } else if (kAct == kGeluErf) {
+        a = make_float2(gelu_erf(v.x), gelu_erf(v.y));
+      } else {
+        a = make_float2(gelu_tanh(v.x), gelu_tanh(v.y));
+      }
+      y[c][2 * e] = a.x;
+      y[c][2 * e + 1] = a.y;
+      amax = fmaxf(amax, fmaxf(fabsf(a.x), fabsf(a.y)));
+    }
+  }
+  amax = block_reduce<0>(amax, red);
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-30f), 127.0f);
+  const float inv = __fdiv_rn(1.0f, sc);
+  int8_t* qr = q + row * width;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int i = threadIdx.x + c * kThreads;
+    if (i >= n) continue;
+    uint32_t word[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int level = __float2int_rn(__fmul_rn(y[c][e], inv));
+      word[e / 4] |= (static_cast<uint32_t>(level) & 0xffu) << (8 * (e % 4));
+    }
+    *reinterpret_cast<uint2*>(qr + 8 * i) = make_uint2(word[0], word[1]);
+  }
+  if (threadIdx.x == 0) s[row] = sc;
+}
+
 template <typename Kernel>
 static cudaError_t prepare(Kernel kernel, int width, size_t* smem) {
   if (width <= 0 || width > kMaxWidth) return cudaErrorInvalidValue;
@@ -229,6 +330,33 @@ static cudaError_t dispatch_act_quant(const void* h, void* q, void* s, int rows,
   return cudaErrorInvalidValue;
 }
 
+// The Hopper route of act_quant: bf16 rows, output width a multiple of 8
+// up to kMaxWidth; chunks per thread the least power of two that covers
+// the row.
+template <int kAct, int kChunks>
+static cudaError_t launch_regs(const void* h, void* q, void* s, int rows, int in_width,
+                               cudaStream_t stream) {
+  const int width = kAct == kGeglu ? in_width / 2 : in_width;
+  act_quant_regs_kernel<kAct, kChunks><<<rows, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<int8_t*>(q),
+      static_cast<float*>(s), in_width, width);
+  return cudaGetLastError();
+}
+
+template <int kAct>
+static cudaError_t dispatch_regs(const void* h, void* q, void* s, int rows, int in_width,
+                                 cudaStream_t st) {
+  const int width = kAct == kGeglu ? in_width / 2 : in_width;
+  if (width <= 0 || width % 8 || width > kMaxWidth || (kAct == kGeglu && in_width % 2))
+    return cudaErrorInvalidValue;
+  const int per_thread = (width / 8 + kThreads - 1) / kThreads;
+  if (per_thread <= 1) return launch_regs<kAct, 1>(h, q, s, rows, in_width, st);
+  if (per_thread <= 2) return launch_regs<kAct, 2>(h, q, s, rows, in_width, st);
+  if (per_thread <= 4) return launch_regs<kAct, 4>(h, q, s, rows, in_width, st);
+  if (per_thread <= 8) return launch_regs<kAct, 8>(h, q, s, rows, in_width, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace avatar_quant
 
 // C entries for ctypes. x/h are row-major [rows, width] bf16 (in_f32 = 0)
@@ -263,4 +391,17 @@ extern "C" int act_quant(const void* h, void* q, void* s, int rows, int in_width
       in_f32 ? avatar_quant::dispatch_act_quant<float>(h, q, s, rows, in_width, act, st)
              : avatar_quant::dispatch_act_quant<__nv_bfloat16>(h, q, s, rows, in_width,
                                                                act, st));
+}
+
+// The Hopper route of act_quant (act_quant_regs_kernel): bf16 h, output
+// width a multiple of 8; act as above.
+extern "C" int act_quant_sm90(const void* h, void* q, void* s, int rows, int in_width,
+                              int act, void* stream) {
+  using namespace avatar_quant;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (act == kGeglu) err = dispatch_regs<kGeglu>(h, q, s, rows, in_width, st);
+  if (act == kGeluErf) err = dispatch_regs<kGeluErf>(h, q, s, rows, in_width, st);
+  if (act == kGeluTanh) err = dispatch_regs<kGeluTanh>(h, q, s, rows, in_width, st);
+  return static_cast<int>(err);
 }

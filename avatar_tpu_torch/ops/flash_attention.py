@@ -7,7 +7,8 @@ Token-major, [B, L, heads*head_dim]:
   q/k with the rotation done inside the kernel (``csrc/rope_attention_sm90.cu``
   and ``csrc/rope_attention.cu``, replacing ``_rope_token_kernel``).
 - :func:`fused_token_attention`: attention with an optional [B, Lk]
-  keep-mask (``csrc/token_attention.cu``, replacing ``_token_major_kernel``).
+  keep-mask (``csrc/token_attention_sm90.cu`` and
+  ``csrc/token_attention.cu``, replacing ``_token_major_kernel``).
 
 Head-major, [B, H, L, head_dim]:
 
@@ -33,12 +34,15 @@ predicate for their path admits: a multiple of 8 up to 512 for the
 head-major kernels (a multiple of 16 for A, up to 256 for A and B); fp16
 reaches no path of either package and raises. The route is chosen from the
 dtype and the head dim before the launch (:func:`forward_impl`,
-:func:`rope_impl`): the three head-major forward kernels (C, D, E) at bf16
-with head dim 64 or 128 run the Hopper kernel (``csrc/flash_forward_sm90.cu``:
-TMA and wgmma, and strided q/k/v read in place), and so does A
-(``csrc/rope_attention_sm90.cu``: the rotation written into the wgmma
-operand layout in shared memory); every other case runs the WMMA tile code
-built for its (dtype, padded head dim) variant (:func:`kernel_variant`).
+:func:`rope_impl`, :func:`token_impl`): the three head-major forward
+kernels (C, D, E) at bf16 with head dim 64 or 128 run the Hopper kernel
+(``csrc/flash_forward_sm90.cu``: TMA and wgmma, and strided q/k/v read in
+place), and so do A (``csrc/rope_attention_sm90.cu``: the rotation written
+into the wgmma operand layout in shared memory) and B
+(``csrc/token_attention_sm90.cu``: the token-major tensors read in place
+by the kernel body of C, D and E); every other case runs the WMMA
+tile code built for its (dtype, padded head dim) variant
+(:func:`kernel_variant`).
 The flash backward (F) routes the same way (:func:`backward_impl`): bf16
 at head dim 64 or 128 runs ``csrc/flash_backward_sm90.cu`` (TMA and wgmma,
 P and dS in registers), every other case ``csrc/flash_backward.cu``
@@ -90,13 +94,15 @@ DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 SINGLE_BLOCK_MAX = 1024
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
-# rope_fused_attention (A), flash_bounded / flash_online / flash_single (C,
-# D, E), flash_bwd_dkv / flash_bwd_dq (F) and flash_dense_forward /
+# rope_fused_attention (A), fused_token_attention (B), flash_bounded /
+# flash_online / flash_single (C, D, E), flash_bwd_dkv / flash_bwd_dq (F)
+# and flash_dense_forward /
 # flash_dense_bwd_dkv / _dq / _db (G) count every launch whatever the route;
 # the _sm90 and _wmma counters split them by implementation.
 launch_counts: Dict[str, int] = {
     "rope_fused_attention": 0, "fused_token_attention": 0,
     "rope_fused_attention_sm90": 0, "rope_fused_attention_wmma": 0,
+    "fused_token_attention_sm90": 0, "fused_token_attention_wmma": 0,
     "flash_bounded": 0, "flash_online": 0, "flash_single": 0,
     "flash_bounded_sm90": 0, "flash_online_sm90": 0, "flash_single_sm90": 0,
     "flash_bounded_wmma": 0, "flash_online_wmma": 0, "flash_single_wmma": 0,
@@ -381,6 +387,13 @@ def rope_impl(dtype: torch.dtype, d: int) -> str:
     return _route(dtype, d)
 
 
+def token_impl(dtype: torch.dtype, d: int) -> str:
+    """Which implementation runs B on the card: "sm90"
+    (``csrc/token_attention_sm90.cu``) at bf16 with head dim 64 or 128, else
+    "wmma" (``csrc/token_attention.cu``)."""
+    return _route(dtype, d)
+
+
 def backward_impl(dtype: torch.dtype, d: int) -> str:
     """Which implementation runs the flash backward (F) on the card:
     "sm90" (``csrc/flash_backward_sm90.cu``) at bf16 with head dim 64 or
@@ -510,15 +523,30 @@ def _token_forward(q, k, v, kv_mask, heads, scale, bounded):
         _check_cuda("kv_mask", kv_mask, (b, lk), torch.float32)
         mask_ptr = kv_mask.data_ptr()
     out = torch.empty_like(q)
-    suffix, defines = kernel_variant(q.dtype, d)
-    fn = _c_entry("token_attention", f"token_attention_{suffix}", 5, 5, defines=defines)
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        b, lq, lk, heads, d, float(scale), int(bool(bounded)),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(err, f"token_attention_{suffix}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    impl = token_impl(q.dtype, d)
+    if impl == "sm90":
+        name = "token_attention_sm90_bf16"
+        fn = getattr(load("token_attention_sm90", sm90_defines(d)), name)
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 12
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        q_strides = token_major_strides(b, lq, c, heads)
+        kv_strides = token_major_strides(b, lk, c, heads)
+        strides = [*q_strides, *kv_strides, *kv_strides, *q_strides]
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+                 b, heads, lq, lk, d, *strides, float(scale), int(bool(bounded)), stream)
+    else:
+        suffix, defines = kernel_variant(q.dtype, d)
+        name = f"token_attention_{suffix}"
+        fn = _c_entry("token_attention", name, 5, 5, defines=defines)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+                 b, lq, lk, heads, d, float(scale), int(bool(bounded)), stream)
+    _raise_on(err, name)
     launch_counts["fused_token_attention"] += 1
+    launch_counts[f"fused_token_attention_{impl}"] += 1
     return out
 
 
@@ -681,6 +709,19 @@ def _tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
         sb = h * sh
     if any(x % 8 for x in (sb, sh, sl)):
         return None
+    return sb, sh, sl
+
+
+def token_major_strides(b: int, length: int, c: int, heads: int) -> Tuple[int, int, int]:
+    """Element strides (batch, head, row) of the head-major view [B, H, L,
+    d] of a contiguous token-major [B, L, H*d] tensor, as
+    :func:`_tma_strides` gives them for that view (a size-1 dimension gets
+    a stride TMA accepts), computed from the shape alone, without making
+    the view: it runs on the host at every launch of the Hopper B."""
+    d = c // heads
+    sl = c if length > 1 else d
+    sh = d if heads > 1 else length * sl
+    sb = length * c if b > 1 else heads * sh
     return sb, sh, sl
 
 

@@ -11,7 +11,11 @@
 - :func:`fused_rms_mod_quant` (replacing ``_rms_mod_quant_kernel``):
   rms-norm, AdaLN modulate and the row quantization in one pass;
 - :func:`fused_act_quant` (replacing ``_act_quant_kernel``): the FF
-  activation (gelu-tanh, gelu-erf or geglu) and the row quantization.
+  activation (gelu-tanh, gelu-erf or geglu) and the row quantization; bf16
+  rows whose output width is a multiple of 8 (the DiT's) take the
+  register-resident kernel (``act_quant_sm90``: 16-byte loads, no
+  shared-memory round trip), every other width and f32 the row-block
+  kernel (``act_quant``), by :func:`act_quant_impl`.
 
 The row quantization is ``s = max(max|y|, 1e-30) / 127`` and
 ``q = clip(round(y * (1 / s)), -127, 127)``, rounding half to even. The
@@ -51,10 +55,12 @@ MAX_ROW_WIDTH = 16384
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # w8a8_matmul and w8a8_matmul_sm90 both count the Hopper kernel's launches:
 # the first names the function, the second the kernel, as the attention
-# kernels' _sm90 counters do.
+# kernels' _sm90 counters do; act_quant counts every launch of K and
+# act_quant_sm90 / act_quant_rowblock split them by route.
 launch_counts: Dict[str, int] = {
     "w8a8_matmul": 0, "w8a8_matmul_sm90": 0,
     "quantize_rows": 0, "rms_mod_quant": 0, "act_quant": 0,
+    "act_quant_sm90": 0, "act_quant_rowblock": 0,
 }
 
 
@@ -168,6 +174,15 @@ def _check(name: str, t: torch.Tensor, shape, dtypes):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+def act_quant_impl(width: int, dtype: torch.dtype) -> str:
+    """Which kernel runs K on the card for an output row of ``width``
+    (geglu's halved width) in ``dtype``: "sm90" (``act_quant_sm90``,
+    registers and 16-byte loads) for bf16 with ``width % 8 == 0``, which
+    keeps every row and both of geglu's halves 16-byte aligned; else
+    "rowblock" (``act_quant``, the row through shared memory)."""
+    return "sm90" if dtype == torch.bfloat16 and width % 8 == 0 else "rowblock"
 
 
 def _check_width(width: int):
@@ -331,8 +346,15 @@ def fused_act_quant(h: torch.Tensor, act: str = "gelu-approximate") -> PrequantR
     _check("h", h, (b, n, c2), _FLOATS)
     q = torch.empty((b * n, width), device=h.device, dtype=torch.int8)
     s = torch.empty((b * n, 1), device=h.device, dtype=torch.float32)
-    fn = _entry("act_quant", [_P] * 3 + [_I] * 4 + [_P])
-    err = fn(h.data_ptr(), q.data_ptr(), s.data_ptr(), b * n, c2, ACTIVATIONS[act],
-             int(h.dtype == torch.float32), _stream(h))
+    impl = act_quant_impl(width, h.dtype)
+    if impl == "sm90":
+        fn = _entry("act_quant_sm90", [_P] * 3 + [_I] * 3 + [_P])
+        err = fn(h.data_ptr(), q.data_ptr(), s.data_ptr(), b * n, c2, ACTIVATIONS[act],
+                 _stream(h))
+    else:
+        fn = _entry("act_quant", [_P] * 3 + [_I] * 4 + [_P])
+        err = fn(h.data_ptr(), q.data_ptr(), s.data_ptr(), b * n, c2, ACTIVATIONS[act],
+                 int(h.dtype == torch.float32), _stream(h))
     _launched(err, "act_quant")
+    launch_counts[f"act_quant_{impl}"] += 1
     return PrequantRows(q, s, (b, n, width), h.dtype)

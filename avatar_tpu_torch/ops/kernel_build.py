@@ -27,9 +27,9 @@ from typing import Dict, Iterable, List, Tuple, Union
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNEL_SOURCES = (
-    "rope_attention", "rope_attention_sm90", "token_attention", "flash_forward",
-    "flash_forward_sm90", "flash_backward", "flash_backward_sm90", "flash_dense",
-    "flash_dense_sm90", "int8_matmul", "int8_matmul_sm90", "row_quant",
+    "rope_attention", "rope_attention_sm90", "token_attention", "token_attention_sm90",
+    "flash_forward", "flash_forward_sm90", "flash_backward", "flash_backward_sm90",
+    "flash_dense", "flash_dense_sm90", "int8_matmul", "int8_matmul_sm90", "row_quant",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

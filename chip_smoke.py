@@ -8,7 +8,7 @@ Phases, each printing one JSON line as soon as it has its numbers:
 1. card: name and power limit (``nvidia-smi``), TF32 settings;
 2. build: compiles the CUDA kernels of ``avatar_tpu_torch/csrc`` with
    ``nvcc`` (one process per library, in parallel): every source's bf16 /
-   head dim 64 build, the Hopper kernels and the WMMA A and E at head dim
+   head dim 64 build, the Hopper kernels and the WMMA A, B and E at head dim
    128; the bf16 and f32 variants at other head dims that
    kernel_generality needs build meanwhile in the background;
 3. kernels (``kernel_*`` lines): each of the five attention kernels against
@@ -16,10 +16,11 @@ Phases, each printing one JSON line as soon as it has its numbers:
    (832 and 5376 tokens, 256 caption keys, batch 1, 3 and the training
    batch 8 x 480): bounded and unbounded, masked, a fully masked row,
    ragged lengths, and for the head-major kernels the row log-sum-exp; A
-   (``rope_fused_attention_sm90``) and the bounded (C), online (D) and
+   (``rope_fused_attention_sm90``), B (``fused_token_attention_sm90``, also
+   at 512 keys) and the bounded (C), online (D) and
    whole-row (E) kernels run the Hopper kernels (``flash_*_sm90``), also at
-   head dim 128 and, for C-E, on transposed views; each is timed (A and E
-   by the profiler's device time: their wrappers' host time exceeds the
+   head dim 128 and, for C-E, on transposed views; each is timed (A, B and
+   E by the profiler's device time: their wrappers' host time exceeds the
    kernels') at its main-path shapes beside the WMMA kernel it replaces on
    the same inputs, ``scaled_dot_product_attention`` and its bound, and
    their WMMA route (``*_wmma``) at f32; the int8 product on the Hopper
@@ -28,7 +29,10 @@ Phases, each printing one JSON line as soon as it has its numbers:
    kernel's, each timed beside it and ``torch._int_mm``; the W8A8
    crossover, ``linear`` on the kernel route against the short route at
    832, 3328 and 5376 tokens) and the three row-quant kernels (at most one
-   int8 level apart on a stated fraction, scales at rtol 1e-6); the flash
+   int8 level apart on a stated fraction, scales at rtol 1e-6; K on its
+   Hopper route, ``act_quant_sm90``, for each activation beside its
+   row-block kernel, and its bound from the SASS instructions it issues,
+   ``avatar_tpu_torch/tools/act_quant_sass.py``); the flash
    backward's two kernels
    (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) on the Hopper
    kernels (``flash_bwd_*_sm90``) at the training shapes, at 5376 tokens
@@ -102,9 +106,9 @@ Phases, each printing one JSON line as soon as it has its numbers:
    directory;
 12. train: the full-width 2B DiT trained in "lora_audio" mode at the
    training point (batch 8, 480 tokens, caption 256, accumulation 2, 3
-   optimizer steps): losses, launches per micro-step (A, E and F on the
+   optimizer steps): losses, launches per micro-step (A, B, E and F on the
    Hopper kernels only), seconds per step, peak memory and a profile of
-   one micro-step with A's, E's and F's device ms.
+   one micro-step with A's, B's, E's and F's device ms.
 
 The launch counts are set to 0 just before each driven path and read just
 after it. Then the kernel summary line, the ``nvidia-smi`` line, and as
@@ -190,9 +194,13 @@ WMMA_SOURCE = "avatar_tpu_torch/csrc/flash_forward.cu"
 # other case csrc/rope_attention.cu
 ROPE_SM90_SOURCE = "avatar_tpu_torch/csrc/rope_attention_sm90.cu"
 ROPE_WMMA_SOURCE = "avatar_tpu_torch/csrc/rope_attention.cu"
-# A and B on a bf16 path at head dim 64: every A launch on the Hopper kernel
+# B at bf16 with head dim 64 or 128 runs csrc/token_attention_sm90.cu, every
+# other case csrc/token_attention.cu
+TOKEN_SM90_SOURCE = "avatar_tpu_torch/csrc/token_attention_sm90.cu"
+TOKEN_WMMA_SOURCE = "avatar_tpu_torch/csrc/token_attention.cu"
+# A and B on a bf16 path at head dim 64: every launch on the Hopper kernels
 TOKEN_MAJOR_BF16 = ("rope_fused_attention", "rope_fused_attention_sm90",
-                    "fused_token_attention")
+                    "fused_token_attention", "fused_token_attention_sm90")
 # ... and csrc/flash_backward_sm90.cu the flash backward's two kernels (F)
 SM90_BWD_SOURCE = "avatar_tpu_torch/csrc/flash_backward_sm90.cu"
 
@@ -509,77 +517,157 @@ def check_rope_kernel(peaks):
     return row
 
 
+def _kept_keys(b, lk, mask):
+    """Keys the [b, lk] keep-mask keeps over the batch (all without one)."""
+    return b * lk if mask is None else float((mask > 0.5).sum())
+
+
+def _token_work(b, lq, lk, mask, c=WIDTH, itemsize=2):
+    """(operations, bytes) of B over the keys this mask keeps: QK^T and PV
+    per kept key; q, o and the mask once each, k and v of the kept keys."""
+    kept = _kept_keys(b, lk, mask)
+    nbytes = (2 * b * lq + 2 * kept) * c * itemsize + (0 if mask is None else b * lk * 4)
+    return 4.0 * lq * c * kept, nbytes
+
+
+def _wmma_token_entry(dtype_name="bf16", defines=()):
+    """B's WMMA kernel of csrc/token_attention.cu called directly (no
+    counter): to time it at the shapes the Hopper kernel took over from it."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    fn = fa._c_entry("token_attention", f"token_attention_{dtype_name}", 5, 5,
+                     defines=defines)
+
+    def call(q, k, v, mask, out, heads, scale, bounded):
+        b, lq, c = q.shape
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if mask is None else mask.data_ptr(), out.data_ptr(), b, lq,
+                 k.shape[1], heads, c // heads, float(scale), int(bounded),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"token_attention_{dtype_name} (WMMA) failed with {err}")
+    return call
+
+
+# B's shapes on the driven paths: (batch, queries, kept caption keys per
+# sample; 0 a fully masked sample): the short path, the guided path's three
+# conds (the first with fewer keys), the long path and the training batch
+# with one sample's caption masked; each over the 256 caption keys
+TOKEN_SHAPES = {"832x256": (1, TOKENS, (200,)), "batch 3": (3, TOKENS, (120, 200, 200)),
+                f"{LONG_TOKENS}x256": (1, LONG_TOKENS, (200,)),
+                "train 8x480x256": (8, 480, (200,) * 7 + (0,))}
+
+
 def check_token_kernel(peaks):
+    """B on the Hopper kernel (bf16, head dim 64 and 128) against its plain
+    version, bounded and unbounded (the two-pass whole-row max), with and
+    without a mask, at every shape of TOKEN_SHAPES, a ragged Lk = 77 with a
+    fully masked sample, Lk = 512 (four key tiles) and head dim 128; every call must launch
+    ``fused_token_attention_sm90`` and a fully masked sample must be 0.
+    Then at each shape of TOKEN_SHAPES and at head dim 128: the kernel's
+    device time, the WMMA kernel it replaced on the same inputs (through its
+    C entry), ``scaled_dot_product_attention`` on head-major contiguous
+    copies with the same keep-mask (all three by the profiler's device
+    time, each also by CUDA events), and the bound over the kept keys; the
+    plain version's time at 832 tokens."""
     import torch
     import torch.nn.functional as F
 
     from avatar_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(1)
+    scale = HEAD_DIM**-0.5
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
 
-    q = rms_rows(randn(1, TOKENS, WIDTH))
-    k, v = rms_rows(randn(1, CAPTION, WIDTH)), randn(1, CAPTION, WIDTH)
-    mask = torch.ones(1, CAPTION, device="cuda")
-    mask[0, 200:] = 0.0
-    # the long path's cross-attention: 5376 queries on the same 256 keys
-    q_long = rms_rows(randn(1, LONG_TOKENS, WIDTH))
-    # the guided path's: three conds, the first keeping fewer keys
-    q3 = rms_rows(randn(3, TOKENS, WIDTH))
-    k3, v3 = rms_rows(randn(3, CAPTION, WIDTH)), randn(3, CAPTION, WIDTH)
-    mask3 = mask.repeat(3, 1)
-    mask3[0, 120:] = 0.0
-    scale = HEAD_DIM**-0.5
-    errors = KernelErrors("fused_token_attention")
-    for bounded in (True, False):
-        for label, args in {
-                "mask=False": (q, k, v, None), "mask=True": (q, k, v, mask),
-                f"{LONG_TOKENS}x{CAPTION}, mask=True": (q_long, k, v, mask),
-                "batch 3, mask=True": (q3, k3, v3, mask3)}.items():
-            out = fa.fused_token_attention(*args, HEADS, scale, bounded)
-            ref = fa._token_attention_plain(*args, HEADS, scale, bounded)
-            errors.add(f"bounded={bounded},{label}", out, ref)
-    # batch 2 with every key of sample 1 masked, ragged Lk = 77
-    q2, k2, v2 = (rms_rows(randn(2, 96, WIDTH)), rms_rows(randn(2, 77, WIDTH)),
-                  randn(2, 77, WIDTH))
-    m2 = torch.ones(2, 77, device="cuda")
-    m2[0, 50:] = 0.0
-    m2[1] = 0.0
-    for bounded in (True, False):
-        out = fa.fused_token_attention(q2, k2, v2, m2, HEADS, scale, bounded)
-        ref = fa._token_attention_plain(q2, k2, v2, m2, HEADS, scale, bounded)
-        if not bool((out[1] == 0).all()):
-            fail("fused_token_attention: a fully masked row is not 0")
-        errors.add(f"ragged Lk=77, masked row, bounded={bounded}", out, ref)
+    def inputs(b, lq, kept, lk=CAPTION):
+        mask = torch.ones(b, lk, device="cuda")
+        for i, n in enumerate(kept):
+            mask[i, n:] = 0.0
+        return (rms_rows(randn(b, lq, WIDTH)), rms_rows(randn(b, lk, WIDTH)),
+                randn(b, lk, WIDTH), mask)
+
+    shapes = {label: inputs(b, lq, kept) for label, (b, lq, kept) in TOKEN_SHAPES.items()}
+    q, k, v, mask = shapes["832x256"]
+    cases = {label: (args, HEADS, scale) for label, args in shapes.items()}
+    cases.update({
+        "mask=False": ((q, k, v, None), HEADS, scale),
+        "ragged Lk=77, masked sample": (inputs(2, 96, (50, 0), lk=77), HEADS, scale),
+        "Lk=512": (inputs(2, 1024, (512, 300), lk=512), HEADS, scale),
+        "d=128 832x256": ((q, k, v, mask), 16, 128**-0.5),
+        "d=128 train 8x480x256": (shapes["train 8x480x256"], 16, 128**-0.5),
+    })
+    errors = KernelErrors("fused_token_attention_sm90")
+    for label, (args, heads, sc) in cases.items():
+        for bounded in (True, False):
+            before = dict(fa.launch_counts)
+            out = fa.fused_token_attention(*args, heads, sc, bounded)
+            torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in fa.launch_counts.items()
+                        if c > before[n]}
+            if launched != {"fused_token_attention": 1, "fused_token_attention_sm90": 1}:
+                fail(f"token {label}: launched {launched}, expected the Hopper kernel")
+            mask_ = args[3]
+            if mask_ is not None:
+                empty = (mask_ <= 0.5).all(dim=1)
+                if not bool((out[empty] == 0).all()):
+                    fail(f"fused_token_attention_sm90 {label}: a fully masked row is not 0")
+            errors.add(f"{label}, bounded={bounded}", out,
+                       fa._token_attention_plain(*args, heads, sc, bounded))
+            del out
     err, tol = errors.check()
 
-    def head_major(t):
-        return t.reshape(1, -1, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+    wmma = {64: _wmma_token_entry(), 128: _wmma_token_entry(defines=("ATTN_D=128",))}
 
-    qh, kh, vh = head_major(q), head_major(k), head_major(v)
-    keep = (mask > 0.5)[:, None, None, :]
-    ms = time_ms(lambda: fa.fused_token_attention(q, k, v, mask, HEADS, scale, True))
+    def timings(args, heads, sc):
+        q, k, v, mask = args
+        b, lq, c = q.shape
+        lk, d = k.shape[1], c // heads
+
+        def head_major(t):
+            return t.reshape(b, -1, heads, d).transpose(1, 2).contiguous()
+
+        qh, kh, vh = head_major(q), head_major(k), head_major(v)
+        keep = (mask > 0.5)[:, None, None, :]
+        out = torch.empty_like(q)
+
+        def call():
+            return fa.fused_token_attention(q, k, v, mask, heads, sc, True)
+
+        def wmma_call():
+            return wmma[d](q, k, v, mask, out, heads, sc, True)
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep)
+
+        ms = device_ms(call, "token_sm90_kernel")
+        bound_ms, bound_by = bound(*_token_work(b, lq, lk, mask, c), peaks)
+        res = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "fraction_of_bound": bound_ms / ms,
+               "wmma_ms_same_inputs": device_ms(wmma_call, "token_attention_kernel"),
+               "library_ms": device_ms(library),
+               "events_ms": time_ms(call), "wmma_events_ms": time_ms(wmma_call),
+               "library_events_ms": time_ms(library)}
+        res["wmma_over_sm90"] = res["wmma_ms_same_inputs"] / ms
+        res["sm90_over_library"] = ms / res["library_ms"]
+        return res
+
+    times = {label: timings(args, HEADS, scale) for label, args in shapes.items()}
+    times["d=128 832x256"] = timings((q, k, v, mask), 16, 128**-0.5)
+    times["Lk=512 1024 queries"] = timings(cases["Lk=512"][0], HEADS, scale)
     plain_ms = time_ms(lambda: fa._token_attention_plain(
         q, k, v, mask, HEADS, scale, True), reps=5, batches=3)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
-    long_ms = time_ms(lambda: fa.fused_token_attention(
-        q_long, k, v, mask, HEADS, scale, True))
-    flops = 4.0 * TOKENS * CAPTION * WIDTH
-    nbytes = 2 * TOKENS * WIDTH * 2 + 2 * CAPTION * WIDTH * 2 + CAPTION * 4
-    bound_ms, bound_by = bound(flops, nbytes, peaks)
-    row = {"name": "fused_token_attention", "route": "cuda",
-           "source": "avatar_tpu_torch/csrc/token_attention.cu",
+    top = times["832x256"]
+    row = {"name": "fused_token_attention_sm90", "route": "cuda", "source": TOKEN_SM90_SOURCE,
            "replaces": "avatar_tpu/ops/flash_attention.py:611",
-           "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+           "max_abs_err": err, "tol": tol, "ms": top["ms"], "plain_ms": plain_ms,
+           "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+           "library_ms": top["library_ms"]}
     emit({"phase": "kernel_fused_token_attention", "errors": errors.errs,
-          "limits": errors.tols,
-          "ms": ms, f"ms_{LONG_TOKENS}x{CAPTION}": long_ms, "plain_ms": plain_ms,
-          "library_ms": lib_ms,
-          "bound_us": bound_ms * 1e3, "bound_by": bound_by, "flops": flops,
-          "bytes": nbytes})
+          "limits": errors.tols, "plain_ms_832": plain_ms, "shapes": times})
     return row
 
 
@@ -639,12 +727,12 @@ def _wmma_entry(mode, defines=()):
 
 def _forward_work(q, k, mask):
     """(operations, bytes) of a head-major attention forward over the keys
-    this mask keeps: QK^T and PV per kept key; q, k, v, o, the mask and the
-    f32 lse once each."""
+    this mask keeps: QK^T and PV per kept key; q, o, the mask and the f32
+    lse once each, k and v of the kept keys."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    kept = b * lk if mask is None else float((mask > 0.5).sum())
-    nbytes = (2 * lq + 2 * lk) * b * h * d * 2 + b * h * lq * 4 + (
+    kept = _kept_keys(b, lk, mask)
+    nbytes = (2 * b * lq + 2 * kept) * h * d * 2 + b * h * lq * 4 + (
         0 if mask is None else b * lk * 4)
     return 4.0 * h * lq * d * kept, nbytes
 
@@ -848,6 +936,8 @@ WMMA_ROWS = {"bounded": ("flash_bounded_wmma", "avatar_tpu/ops/flash_attention.p
 # dense TF32 tensor-core peak (NVIDIA data sheet, SXM); the f32 variants
 # multiply through 3xTF32, three TF32 products per product
 TF32_PEAK = 495e12
+# B's f32 row: the short path's cross-attention in f32
+TOKEN_MAJOR_F32_SHAPE = f"[1, {TOKENS}, {WIDTH}] x {CAPTION} keys, 200 kept"
 
 
 def check_wmma_rows(peaks):
@@ -904,13 +994,14 @@ def check_wmma_rows(peaks):
 
 
 def check_wmma_token_rows(peaks):
-    """A and E on the WMMA route, which the f32 variants and the bf16 head
-    dims other than 64 and 128 take (``rope_fused_attention_wmma``,
-    ``flash_single_wmma``): in f32 at their main-path shapes ([1, 832,
-    2048] for A, bounded; [1, 32, 637, 64] for E) against the plain versions
-    in f32 (F32_REL_TOL; E's lse within LSE_TOL_F32), then the kernel's
-    time, the plain version's, ``scaled_dot_product_attention``'s in f32 and
-    the bound (three TF32 products per product, f32 bytes)."""
+    """A, B and E on the WMMA route, which the f32 variants and the bf16
+    head dims other than 64 and 128 take (``rope_fused_attention_wmma``,
+    ``fused_token_attention_wmma``, ``flash_single_wmma``): in f32 at their
+    main-path shapes ([1, 832, 2048] for A, bounded; B over 256 caption keys
+    with 200 kept; [1, 32, 637, 64] for E) against the plain versions in f32
+    (F32_REL_TOL; E's lse within LSE_TOL_F32), then the kernel's time, the
+    plain version's, ``scaled_dot_product_attention``'s in f32 and the bound
+    (three TF32 products per product, f32 bytes)."""
     import torch
     import torch.nn.functional as F
 
@@ -952,6 +1043,42 @@ def check_wmma_token_rows(peaks):
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
            "shape": f"f32 [1, {TOKENS}, {WIDTH}]"}
     emit({"phase": "kernel_rope_fused_attention_wmma", **row, "flops": flops,
+          "bytes": nbytes})
+    rows.append(row)
+
+    tk, tv = k[:, :CAPTION], v[:, :CAPTION]
+    tmask = torch.ones(1, CAPTION, device="cuda")
+    tmask[0, 200:] = 0.0
+    before = dict(fa.launch_counts)
+    out = fa.fused_token_attention(q, tk, tv, tmask, HEADS, scale, False)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    if launched != {"fused_token_attention": 1, "fused_token_attention_wmma": 1}:
+        fail(f"fused_token_attention_wmma: launched {launched}")
+    errors = KernelErrors("fused_token_attention_wmma", rel=F32_REL_TOL)
+    errors.add(f"f32 {TOKEN_MAJOR_F32_SHAPE}", out,
+               fa._token_attention_plain(q, tk, tv, tmask, HEADS, scale, False))
+    err, tol = errors.check()
+
+    def head_major(t):
+        return t.reshape(1, -1, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+
+    qh, kh, vh = head_major(q), head_major(tk), head_major(tv)
+    keep = (tmask > 0.5)[:, None, None, :]
+    flops, nbytes = _token_work(1, TOKENS, CAPTION, tmask, itemsize=4)
+    bound_ms, bound_by = bound(3 * flops, nbytes, peaks, op_rate=TF32_PEAK)
+    row = {"name": "fused_token_attention_wmma", "route": "cuda",
+           "source": TOKEN_WMMA_SOURCE, "replaces": "avatar_tpu/ops/flash_attention.py:611",
+           "max_abs_err": err, "tol": tol,
+           "ms": device_ms(lambda: fa.fused_token_attention(q, tk, tv, tmask, HEADS, scale,
+                                                            False), "token_attention_kernel"),
+           "plain_ms": time_ms(lambda: fa._token_attention_plain(
+               q, tk, tv, tmask, HEADS, scale, False), reps=2, batches=3),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, attn_mask=keep)),
+           "shape": f"f32 {TOKEN_MAJOR_F32_SHAPE}"}
+    emit({"phase": "kernel_fused_token_attention_wmma", **row, "flops": flops,
           "bytes": nbytes})
     rows.append(row)
 
@@ -1018,8 +1145,8 @@ def generality_specs():
                 specs.append((source, defines))
             if dtype == torch.bfloat16 and d in fa.SM90_HEAD_DIMS and d != 64:
                 specs += [(source, fa.sm90_defines(d)) for source in (
-                    "rope_attention_sm90", "flash_forward_sm90", "flash_backward_sm90",
-                    "flash_dense_sm90")]
+                    "rope_attention_sm90", "token_attention_sm90", "flash_forward_sm90",
+                    "flash_backward_sm90", "flash_dense_sm90")]
     return [spec for spec in dict.fromkeys(specs) if spec[1]]
 
 
@@ -1110,15 +1237,17 @@ def _generality_case(g, fa, dtype, d):
         mask = torch.ones(3, 77, device="cuda")
         mask[1, 30:60] = 0.0
         mask[2] = 0.0
+        impl = fa.token_impl(dtype, d)
         for bounded in (True, False):
             out, got = launched_by(fa.fused_token_attention, q, k, v, mask, heads, scale,
                                    bounded)
-            if got != {"fused_token_attention": 1} or not bool((out[2] == 0).all()):
-                fail(f"fused_token_attention {dtype} d={d}: launched {got} or a masked "
-                     "row is not 0")
+            want = {"fused_token_attention": 1, f"fused_token_attention_{impl}": 1}
+            if got != want or not bool((out[2] == 0).all()):
+                fail(f"fused_token_attention {dtype} d={d}: launched {got}, expected "
+                     f"{want}, or a masked row is not 0")
             err.add(f"bounded={bounded}", out, fa._token_attention_plain(
                 q, k, v, mask, heads, scale, bounded))
-        found["fused_token_attention"] = err.check()
+        found[f"fused_token_attention_{impl}"] = err.check()
     # C, D and E with O and lse, then F from D's O and lse
     for mode, (lq, lk) in (("bounded", (1030, 150)), ("online", (1030, 150)),
                            ("single", (100, 77))):
@@ -1364,24 +1493,59 @@ def check_w8a8_kernel(peaks):
 
 
 ROW_QUANT_KERNELS = {
-    # counter: (TPU kernel it replaces, f32 operations per output element)
+    # row name: (TPU kernel it replaces, f32 operations per output element)
     "quantize_rows": ("avatar_tpu/ops/int8_matmul.py:231", 3),
     "rms_mod_quant": ("avatar_tpu/ops/int8_matmul.py:305", 8),
-    "act_quant": ("avatar_tpu/ops/int8_matmul.py:392", 12),
+    # K's operations are the instructions its function needs per element,
+    # counted from the SASS of this run's build of a loop that does that
+    # work alone (avatar_tpu_torch/tools/act_quant_work.cu, counted by
+    # act_quant_sass.py): accurate tanhf and erff take tens each, where 12
+    # f32 operations per element were counted before
+    "act_quant_sm90": ("avatar_tpu/ops/int8_matmul.py:392", None),
 }
+ROW_QUANT_SOURCE = "avatar_tpu_torch/csrc/row_quant.cu"
+
+
+def _rowblock_act_quant(h, act):
+    """K's row-block kernel (``act_quant`` of csrc/row_quant.cu) through its
+    C entry, no counter: to compare and time it on the inputs the Hopper
+    route takes."""
+    import torch
+
+    from avatar_tpu_torch.ops import int8_matmul as i8
+
+    fn = i8._entry("act_quant", [i8._P] * 3 + [i8._I] * 4 + [i8._P])
+    b, n, c2 = h.shape
+    width = c2 // 2 if act == "geglu" else c2
+    q = torch.empty((b * n, width), device="cuda", dtype=torch.int8)
+    s = torch.empty((b * n, 1), device="cuda", dtype=torch.float32)
+    err = fn(h.data_ptr(), q.data_ptr(), s.data_ptr(), b * n, c2, i8.ACTIVATIONS[act],
+             int(h.dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"act_quant (row block) failed with {err}")
+    return q, s
 
 
 def check_row_quant_kernels(peaks):
     """Kernels I, J and K against their plain versions at the DiT's long
     shapes (I [5376, 2048]; J [1, 5376, 2048] with and without shift; K
-    [1, 5376, 8192] for each activation), and at a ragged batch of 2 x 1001
-    rows with a zero row. The scales within SCALE_RTOL, the int8 at most one
-    level apart on at most LEVEL_FRACTION of the elements. Then the times
-    and the bound (bytes: the input read once, the int8 and scales written
-    once). No single library call computes any of them."""
+    [1, 5376, 8192] for each activation on its Hopper route), and at a
+    ragged batch of 2 x 1001 rows with a zero row; K also on its row-block
+    route at a width of 8190 (not a multiple of 8). The scales within
+    SCALE_RTOL, the int8 at most one level apart on at most LEVEL_FRACTION
+    of the elements; every K call must launch the route ``act_quant_impl``
+    names. Then the times (device time; K's two routes for each activation
+    on the same inputs, the row-block kernel through its C entry, and
+    whether their outputs are equal) and the bound: bytes (the input read
+    once, the int8 and scales written once) for I and J; for K the larger
+    of that and the SASS instructions its function needs per element
+    (``act_quant_sass.count_work``, apart from either kernel's own code)
+    over the SMs' issue rate at the card's top SM clock; each kernel's own
+    count beside it. No single library call computes any of them."""
     import torch
 
     from avatar_tpu_torch.ops import int8_matmul as i8
+    from avatar_tpu_torch.tools import act_quant_sass
 
     g = torch.Generator(device="cuda").manual_seed(12)
 
@@ -1397,7 +1561,8 @@ def check_row_quant_kernels(peaks):
     h = randn(1, LONG_TOKENS, 4 * WIDTH, scale=2.0)
     h_r = randn(2, 1001, 4 * WIDTH, scale=2.0)
     h_r[0, 3] = 0.0
-    cases = {"quantize_rows": {}, "rms_mod_quant": {}, "act_quant": {}}
+    h_odd = randn(1, 333, 4 * WIDTH - 2, scale=2.0)
+    cases = {"quantize_rows": {}, "rms_mod_quant": {}, "act_quant_sm90": {}}
     for label, xx in ((f"{LONG_TOKENS}x{WIDTH}", x), ("ragged 2x1001, zero row", x_r)):
         flat = xx.reshape(-1, WIDTH)
         cases["quantize_rows"][label] = (
@@ -1409,15 +1574,25 @@ def check_row_quant_kernels(peaks):
             lambda a=args: i8.fused_rms_mod_quant(*a, eps=1e-6),
             lambda a=args: i8._row_quant_plain(i8._rms_mod_plain(*a, 1e-6)))
     for act in i8.ACTIVATIONS:
-        for label, hh in ((act, h), (f"{act}, ragged 2x1001, zero row", h_r)):
-            cases["act_quant"][label] = (
+        for label, hh in ((act, h), (f"{act}, ragged 2x1001, zero row", h_r),
+                          (f"{act}, row block, width 8190", h_odd)):
+            cases["act_quant_sm90"][label] = (
                 lambda hh=hh, act=act: i8.fused_act_quant(hh, act),
                 lambda hh=hh, act=act: i8._row_quant_plain(i8._act_plain(hh, act)))
     rows = []
     for name, named in cases.items():
         levels, fractions, scale_errs = {}, {}, {}
         for label, (kernel, plain) in named.items():
+            before = dict(i8.launch_counts)
             out = kernel()
+            torch.cuda.synchronize()
+            if name == "act_quant_sm90":
+                width = out.q.shape[1]
+                route = f"act_quant_{i8.act_quant_impl(width, torch.bfloat16)}"
+                launched = {n: c - before[n] for n, c in i8.launch_counts.items()
+                            if c > before[n]}
+                if launched != {"act_quant": 1, route: 1}:
+                    fail(f"act_quant {label}: launched {launched}, expected {route}")
             q, s = (out.q, out.s) if isinstance(out, i8.PrequantRows) else out
             ref_q, ref_s = plain()
             diff = (q.int() - ref_q.int()).abs()
@@ -1429,23 +1604,56 @@ def check_row_quant_kernels(peaks):
                 fail(f"{name} {label}: {levels[label]} levels on "
                      f"{fractions[label]} of the elements, scales {scale_errs[label]}")
         kernel, plain = next(iter(named.values()))
-        inp = h if name == "act_quant" else x
+        inp = h if name == "act_quant_sm90" else x
         rows_n, width = inp.shape[1], inp.shape[2]
-        out_width = width
-        nbytes = rows_n * width * 2 + rows_n * out_width + rows_n * 4
+        nbytes = rows_n * width * 2 + rows_n * width + rows_n * 4
         if name == "rms_mod_quant":
             nbytes += 2 * width * 4
         replaces, per_elem = ROW_QUANT_KERNELS[name]
-        bound_ms, bound_by = bound(per_elem * rows_n * out_width, nbytes, peaks, peaks[3])
         extra = {"events_ms_per_call": time_ms(kernel)}
-        if name == "act_quant":
-            extra.update({f"ms_{act}": device_ms(
-                lambda act=act: i8.fused_act_quant(h, act), "act_quant_kernel")
-                for act in i8.ACTIVATIONS})
-        ms = device_ms(kernel, f"{name}_kernel")
+        if name == "act_quant_sm90":
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            clock = act_quant_sass.max_sm_clock_mhz()
+            work = act_quant_sass.count_work()
+            counts = act_quant_sass.count_act_quant()
+            by_act = {}
+            for act in i8.ACTIVATIONS:
+                out_w = act_quant_sass.out_width(act, width)
+                act_bytes = rows_n * width * 2 + rows_n * out_w + rows_n * 4
+                pq = i8.fused_act_quant(h, act)
+                block_q, block_s = _rowblock_act_quant(h, act)
+                res = {"ms": device_ms(lambda act=act: i8.fused_act_quant(h, act),
+                                       "act_quant_regs_kernel"),
+                       "rowblock_ms_same_inputs": device_ms(
+                           lambda act=act: _rowblock_act_quant(h, act), "act_quant_kernel"),
+                       "events_ms": time_ms(lambda act=act: i8.fused_act_quant(h, act)),
+                       "equal_to_rowblock": bool(torch.equal(pq.q, block_q)
+                                                 and torch.equal(pq.s, block_s)),
+                       "bytes_bound_ms": bound(0.0, act_bytes, peaks)[0]}
+                for route in ("sm90", "rowblock"):
+                    per = counts[act][route]["per_element"]
+                    res[f"{route}_instructions_per_element"] = per
+                    res[f"{route}_issue_ms"] = act_quant_sass.issue_bound_ms(
+                        per, rows_n * out_w, sms, clock)
+                res["work_instructions_per_element"] = work[act]["per_element"]
+                res["issue_bound_ms"] = act_quant_sass.issue_bound_ms(
+                    work[act]["per_element"], rows_n * out_w, sms, clock)
+                res["bound_ms"], res["bound_by"] = bound(
+                    work[act]["per_element"] * rows_n * out_w, act_bytes, peaks,
+                    sms * act_quant_sass.INSTRUCTIONS_PER_CLOCK * clock * 1e6)
+                # "operations" here are issued instructions
+                res["fraction_of_bound"] = res["bound_ms"] / res["ms"]
+                by_act[act] = res
+                del pq, block_q, block_s
+            extra.update({"by_activation": by_act, "sms": sms, "max_sm_clock_mhz": clock,
+                          "sass_work": work, "sass_counts": counts})
+            top = by_act["gelu-approximate"]
+            ms, bound_ms, bound_by = top["ms"], top["bound_ms"], top["bound_by"]
+        else:
+            ms = device_ms(kernel, f"{name}_kernel")
+            bound_ms, bound_by = bound(per_elem * rows_n * width, nbytes, peaks, peaks[3])
         plain_ms = time_ms(plain, reps=5, batches=3)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "avatar_tpu_torch/csrc/row_quant.cu",
+        rows.append({"name": name, "route": "cuda", "source": ROW_QUANT_SOURCE,
                      "replaces": replaces, "max_abs_err": max(levels.values()),
                      "err_unit": "int8 levels",
                      "tol": f"1 level on <= {LEVEL_FRACTION} of elements",
@@ -1651,7 +1859,7 @@ def check_reference_guided():
     settings = dict(GUIDED, skip_layer_strategy=SkipLayerStrategy.AttentionValues)
     flash = dict(attention_impl="flash", rope_split=False)
     token_major32 = ("rope_fused_attention", "rope_fused_attention_wmma",
-                     "fused_token_attention")
+                     "fused_token_attention", "fused_token_attention_wmma")
     # in f32 the reference's sublane of 8 (16 in bf16) lets the 40-key
     # caption take the token-major kernel B at 1280 queries
     runs = {
@@ -1662,10 +1870,12 @@ def check_reference_guided():
                          ("flash_single", "flash_single_wmma")),
         "flash_bounded": (_tiny_models(), 256, 153, 40, flash, False,
                           ("flash_bounded", "flash_bounded_sm90"),
-                          ("flash_bounded", "flash_bounded_wmma", "fused_token_attention")),
+                          ("flash_bounded", "flash_bounded_wmma", "fused_token_attention",
+                           "fused_token_attention_wmma")),
         "flash_online": (_tiny_models(qk_norm=None), 256, 153, 40, flash, False,
                          ("flash_online", "flash_online_sm90"),
-                         ("flash_online", "flash_online_wmma", "fused_token_attention")),
+                         ("flash_online", "flash_online_wmma", "fused_token_attention",
+                          "fused_token_attention_wmma")),
     }
     results, total, total32 = {}, {}, {}
     for label, (models, size, frames, caption, ctor, encode, kernels,
@@ -1778,8 +1988,9 @@ def check_reference_w8a8():
             "w8a8_matmul": 8 * per_video, "w8a8_matmul_sm90": 8 * per_video,
             "quantize_rows": 3 * per_video,
             "rms_mod_quant": 2 * per_video, "act_quant": per_video,
+            "act_quant_sm90": per_video,
             "flash_bounded": per_video, "flash_bounded_sm90": per_video,
-            "fused_token_attention": per_video}),
+            "fused_token_attention": per_video, "fused_token_attention_sm90": per_video}),
         "short_route": (_tiny_models(), 64, 25, "w8a8", True, token_major),
         "w8": (_tiny_models(heads=8), 64, 25, "w8", True, token_major),
     }
@@ -1874,12 +2085,13 @@ def _bwd_case(g, b, lq, lk, kept=None, empty_row=False, bounded=False, d=HEAD_DI
 def _bwd_work(q, k, mask):
     """(dkv operations, dq operations, dkv bytes, dq bytes) of the flash
     backward: 4 (dkv) or 3 (dq) products of 2 * Lq * D per kept key and
-    head; each input read once and each gradient written once."""
+    head; each input read once (k and v of the kept keys) and each gradient
+    written once."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    kept = b * lk if mask is None else float((mask > 0.5).sum())
+    kept = _kept_keys(b, lk, mask)
     product = 2.0 * h * lq * d * kept
-    reads = (2 * b * h * lq * d + 2 * b * h * lk * d) * 2 + 2 * b * h * lq * 4 + (
+    reads = (2 * b * h * lq * d + 2 * h * kept * d) * 2 + 2 * b * h * lq * 4 + (
         0 if mask is None else b * lk * 4)
     return 4 * product, 3 * product, reads + 2 * b * h * lk * d * 2, reads + b * h * lq * d * 2
 
@@ -2071,7 +2283,7 @@ def check_attention_gradients():
         "fused_token_attention": ((tq, tk, tv), lambda q, k, v: fa.fused_token_attention(
             q, k, v, tmask, HEADS, scale, True),
             lambda q, k, v: fa._token_attention_plain(q, k, v, tmask, HEADS, scale, True),
-            "fused_token_attention"),
+            "fused_token_attention_sm90"),
     }
     for bounded, mode in ((True, "bounded"), (False, "online")):
         cases[f"flash_attention {mode}"] = (
@@ -2566,7 +2778,8 @@ def check_reference_train():
     setup = _tiny_train_setup()
     layers, micro_steps = TINY_TRAIN_DIT["num_layers"], 2 * TRAIN_ACCUM
     per_micro = {"lora_audio": {name: layers for name in TOKEN_MAJOR_BF16},
-                 "full": {"fused_token_attention": 2 * layers}}
+                 "full": {"fused_token_attention": 2 * layers,
+                          "fused_token_attention_sm90": 2 * layers}}
     apply = tt.dit_apply
 
     def rounded_t(params, cfg, hidden, coords, t, *a, **kw):
@@ -2688,7 +2901,7 @@ def run_train(pipe):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     micro_steps = TRAIN_STEPS * TRAIN_ACCUM
     backwards = backward_recomputes("lora_audio", LAYERS)
-    # A, E and F on the Hopper kernels only: any WMMA launch fails below
+    # A, B, E and F on the Hopper kernels only: any WMMA launch fails below
     per_micro = {**{name: LAYERS for name in TOKEN_MAJOR_BF16},
                  "flash_single": backwards, "flash_single_sm90": backwards,
                  "flash_bwd_dkv": backwards, "flash_bwd_dq": backwards,
@@ -2724,7 +2937,8 @@ def run_train(pipe):
         one, args, micro_s, {"flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
                              "flash_bwd_dq": "flash_bwd_dq_sm90_kernel",
                              "flash_single_sm90": "flash_sm90_kernel<2",
-                             "rope_fused_attention_sm90": "rope_sm90_kernel"})})
+                             "rope_fused_attention_sm90": "rope_sm90_kernel",
+                             "fused_token_attention_sm90": "token_sm90_kernel"})})
     return launches
 
 
@@ -2790,7 +3004,7 @@ def check_train_cli():
     if not (first_step == 4 and second_step == 6 and logged == [1, 2, 3, 4, 5, 6]
             and len(exports) == 2 and len(exports_after) == 3):
         fail(f"train_cli: expected steps 4 then 6, two exports then three: {res}")
-    if not {"rope_fused_attention_sm90", "fused_token_attention", "flash_single_sm90",
+    if not {"rope_fused_attention_sm90", "fused_token_attention_sm90", "flash_single_sm90",
             "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"} <= set(launches) or any(
                 "wmma" in name for name in launches):
         fail(f"train_cli: the training path did not launch the kernels: {launches}")
@@ -3088,13 +3302,14 @@ def main() -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     # the default build: every source's bf16 / 64 library, the Hopper
-    # kernels at head dim 128 and the WMMA A and E at head dim 128 (timed
+    # kernels at head dim 128 and the WMMA A, B and E at head dim 128 (timed
     # beside them), one nvcc each, all in parallel
     t0 = time.perf_counter()
     kernel_build.build_all(list(kernel_build.KERNEL_SOURCES)
                            + [(name, ("ATTN_D=128",)) for name in (
-                               "rope_attention_sm90", "flash_forward_sm90",
-                               "flash_backward_sm90", "rope_attention", "flash_forward")])
+                               "rope_attention_sm90", "token_attention_sm90",
+                               "flash_forward_sm90", "flash_backward_sm90",
+                               "rope_attention", "token_attention", "flash_forward")])
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in kernel_build.build_logs.items()}
@@ -3134,7 +3349,7 @@ def main() -> int:
     shipped = dict(guidance_scale=3.0, stg_scale=1.0, rescaling_scale=0.7,
                    skip_block_list=[19],
                    skip_layer_strategy=SkipLayerStrategy.AttentionValues)
-    # A on the Hopper kernel at every launch, none on the WMMA one
+    # A and B on the Hopper kernels at every launch, none on the WMMA ones
     # (run_pipeline holds every other counter to 0)
     short_attention = {name: every for name in TOKEN_MAJOR_BF16}
     by_path["pipeline"], plain_s, _ = run_pipeline(
@@ -3142,7 +3357,7 @@ def main() -> int:
     # the long path's self-attention: every launch on the Hopper kernel,
     # none on the WMMA one (run_pipeline holds every other counter to 0)
     long_attention = {"flash_bounded": every, "flash_bounded_sm90": every,
-                      "fused_token_attention": every}
+                      "fused_token_attention": every, "fused_token_attention_sm90": every}
     by_path["pipeline_long"], long_s, long_latents = run_pipeline(
         pipe, "pipeline_long", 512, 161, plain, long_attention, 3)
     by_path["pipeline_guided"], guided_s, _ = run_pipeline(
@@ -3179,7 +3394,8 @@ def main() -> int:
         pipe_w8a8, "pipeline_long_w8a8", 512, 161, plain,
         {"w8a8_matmul": 8 * every, "w8a8_matmul_sm90": 8 * every,
          "quantize_rows": 3 * every,
-         "rms_mod_quant": 2 * every, "act_quant": every, **long_attention}, 3,
+         "rms_mod_quant": 2 * every, "act_quant": every, "act_quant_sm90": every,
+         **long_attention}, 3,
         extra={"bf16_total_s": long_s})
     # a finding, not a gate: how far int8 moves the 2B latents from bf16's
     emit({"phase": "pipeline_long_w8a8_vs_bf16",

@@ -1,6 +1,6 @@
 """Which CUDA attention kernel and which build variant each (dtype, head
 dim) takes, on the CPU (the decisions are Python, made before a launch):
-the Hopper kernels for A, C, D, E, the backward F and the dense-bias G
+the Hopper kernels for A, B, C, D, E, the backward F and the dense-bias G
 (there with Lk % 4 == 0) at bf16 with head dim 64 or 128, the WMMA tile
 code built per (dtype, padded head dim) for everything else; and the head
 dims and dtypes the wrappers accept on the card are exactly those the
@@ -40,6 +40,19 @@ def test_rope_implementation_of_each_admitted_head_dim(dtype, jdtype, d):
     assert _accepts(lambda: tfa._split_heads("A", d, 1, dtype, 16))
     hopper = dtype == torch.bfloat16 and d in (64, 128)
     assert tfa.rope_impl(dtype, d) == ("sm90" if hopper else "wmma")
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.bfloat16, jnp.bfloat16),
+                                          (torch.float32, jnp.float32)])
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+def test_token_implementation_of_each_admitted_head_dim(dtype, jdtype, d):
+    """B at every head dim ``fused_supports`` admits (multiples of 8 up to
+    256): the wrapper accepts it, and it runs the Hopper kernel at bf16 with
+    head dim 64 or 128 and its WMMA variant otherwise."""
+    assert jfa.fused_supports(64, 64, 1, d, jdtype)
+    assert _accepts(lambda: tfa._split_heads("B", d, 1, dtype, 8))
+    hopper = dtype == torch.bfloat16 and d in (64, 128)
+    assert tfa.token_impl(dtype, d) == ("sm90" if hopper else "wmma")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -154,3 +167,26 @@ def test_a_size_one_dimension_gets_a_stride_tma_accepts():
     t = t.as_strided((1, 3, 1, 64), (3, 64, 1, 1))
     sb, sh, sl = tfa._tma_strides(t)
     assert (sb, sh, sl) == (3 * 64, 64, 64)
+
+
+@pytest.mark.parametrize("b,length,heads,d", [
+    (2, 832, 32, 64),   # the DiT's queries
+    (1, 256, 32, 64),   # batch 1: the caption of one prompt
+    (3, 1, 32, 64),     # one token per sample
+    (1, 1, 16, 128),    # both
+    (8, 480, 16, 128),
+    (2, 77, 1, 64),     # one head
+    (1, 1, 1, 128),
+])
+def test_token_major_strides(b, length, heads, d):
+    """The strides the Hopper B's tensor maps read a token-major [B, L,
+    H*d] tensor with, computed from its shape: those :func:`_tma_strides`
+    gives its head-major view, (L*C, d, C) where no dimension is 1."""
+    c = heads * d
+    t = torch.zeros(b, length, c, dtype=torch.bfloat16)
+    view = t.view(b, length, heads, d).transpose(1, 2)
+    strides = tfa.token_major_strides(b, length, c, heads)
+    assert strides == tfa._tma_strides(view)
+    for i in range(3):
+        if view.shape[i] > 1:
+            assert strides[i] == view.stride(i)

@@ -326,6 +326,75 @@ def test_hopper_rope_kernel_matches_plain_and_wmma(gen, d, bounded, b, length):
     assert _close(out, wmma, torch.bfloat16)
 
 
+def _wmma_token(q, k, v, mask, heads, scale, bounded):
+    """B's WMMA kernel (csrc/token_attention.cu) through its C entry, on the
+    inputs the Hopper kernel took."""
+    b, lq, c = q.shape
+    d = c // heads
+    suffix, defines = fa.kernel_variant(q.dtype, d)
+    fn = fa._c_entry("token_attention", f"token_attention_{suffix}", 5, 5, defines=defines)
+    out = torch.empty_like(q)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              None if mask is None else mask.data_ptr(), out.data_ptr(), b, lq,
+              k.shape[1], heads, d, scale, int(bounded),
+              torch.cuda.current_stream().cuda_stream) == 0
+    return out
+
+
+# B's cases (batch, queries, keys, kept keys per sample, -1: every key; 0:
+# a fully masked sample): the four the DiT paths give it (short 832 x 256,
+# guided batch 3, long 5376 x 256, training 8 x 480 x 256 with one sample's
+# caption masked), a ragged 77-key caption and 512 keys (four key tiles)
+TOKEN_CASES = {"832x256": (1, 832, 256, (200,)), "batch 3": (3, 832, 256, (120, 200, 200)),
+               "5376x256": (1, 5376, 256, (200,)),
+               "train 8x480x256": (8, 480, 256, (200,) * 7 + (0,)),
+               "ragged Lk=77": (2, 96, 77, (50, 0)), "Lk=512": (2, 1024, 512, (-1, 300))}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bounded", [True, False])
+@pytest.mark.parametrize("case", list(TOKEN_CASES))
+def test_hopper_token_kernel_matches_plain_and_wmma(gen, d, bounded, case):
+    """B on the Hopper kernel (bf16, head dim 64 / 128, the DiT's 2,048
+    columns) against its plain version within 2 bf16 ulps and against the
+    WMMA kernel it replaced on the same inputs; a fully masked sample is
+    exactly 0."""
+    b, lq, lk, kept = TOKEN_CASES[case]
+    heads = 2048 // d
+    assert fa.token_impl(torch.bfloat16, d) == "sm90"
+    q, k = _rows(gen, b, lq, 2048), _rows(gen, b, lk, 2048)
+    v = torch.randn(b, lk, 2048, generator=gen, device="cuda").bfloat16()
+    mask = torch.ones(b, lk, device="cuda")
+    for i, n in enumerate(kept):
+        if n >= 0:
+            mask[i, n:] = 0.0
+    before = dict(fa.launch_counts)
+    out = fa.fused_token_attention(q, k, v, mask, heads, d**-0.5, bounded)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+    assert launched == {"fused_token_attention": 1, "fused_token_attention_sm90": 1}
+    ref = fa._token_attention_plain(q, k, v, mask, heads, d**-0.5, bounded)
+    assert _close(out, ref, torch.bfloat16)
+    for i, n in enumerate(kept):
+        if n == 0:
+            assert bool((out[i] == 0).all())
+    wmma = _wmma_token(q, k, v, mask, heads, d**-0.5, bounded)
+    torch.cuda.synchronize()
+    assert _close(out, wmma, torch.bfloat16)
+
+
+@pytest.mark.parametrize("lq,lk", [(1, 256), (16, 16), (128, 300)])
+def test_hopper_token_kernel_without_a_mask(gen, lq, lk):
+    """B on the Hopper kernel without a mask: one query, 16 keys (one
+    ragged tile) and 300 keys (the two-pass whole-row max)."""
+    q, k = _rows(gen, 1, lq, 2048), _rows(gen, 1, lk, 2048)
+    v = torch.randn(1, lk, 2048, generator=gen, device="cuda").bfloat16()
+    for bounded in (True, False):
+        out = fa.fused_token_attention(q, k, v, None, 32, 0.125, bounded)
+        assert _close(out, fa._token_attention_plain(q, k, v, None, 32, 0.125, bounded),
+                      torch.bfloat16)
+
+
 # E's cases: training self-attention, cross-attention to 256 keys with 200
 # kept and the last sample fully masked, ragged 100 x 77, a long row whose
 # keys stream twice (1000 x 900), head-major views of token-major tensors
@@ -818,6 +887,58 @@ def test_act_quant_kernel_matches_plain(gen, act):
     width = 512 if act == "geglu" else 1024
     assert pq.shape == (1, 203, width) and pq.q.shape == (203, width)
     _assert_rows_match(pq, *i8._row_quant_plain(i8._act_plain(h, act)))
+
+
+def _rowblock_act_quant(h, act):
+    """K's row-block kernel (``act_quant``) through its C entry, on the
+    inputs the Hopper route took."""
+    fn = i8._entry("act_quant", [i8._P] * 3 + [i8._I] * 4 + [i8._P])
+    b, n, c2 = h.shape
+    width = c2 // 2 if act == "geglu" else c2
+    q = torch.empty((b * n, width), device="cuda", dtype=torch.int8)
+    s = torch.empty((b * n, 1), device="cuda", dtype=torch.float32)
+    assert fn(h.data_ptr(), q.data_ptr(), s.data_ptr(), b * n, c2, i8.ACTIVATIONS[act], 0,
+              torch.cuda.current_stream().cuda_stream) == 0
+    return q, s
+
+
+@pytest.mark.parametrize("act", ["gelu-approximate", "gelu", "geglu"])
+@pytest.mark.parametrize("b,n,width", [(2, 1001, 8192), (1, 64, 16384), (1, 37, 2056)])
+def test_hopper_act_quant_matches_plain_and_the_rowblock_kernel(gen, act, b, n, width):
+    """K on its Hopper route (bf16, output width a multiple of 8): the DiT's
+    FF width over a ragged 2 x 1,001 batch with a zero row, the widest row
+    (16,384) and a width of 2,056 (257 chunks of 8), geglu over inputs twice
+    as wide, against the plain version (one level on at most
+    LEVEL_FRACTION, scales within 1e-6) and equal bit for bit to the
+    row-block kernel."""
+    shape = (b, n, 2 * width if act == "geglu" else width)
+    h = (2.0 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+    h[0, 3] = 0.0
+    assert i8.act_quant_impl(width, torch.bfloat16) == "sm90"
+    before = dict(i8.launch_counts)
+    pq = i8.fused_act_quant(h, act)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in i8.launch_counts.items() if c > before[n]}
+    assert launched == {"act_quant": 1, "act_quant_sm90": 1}
+    assert pq.shape == (b, n, width)
+    _assert_rows_match(pq, *i8._row_quant_plain(i8._act_plain(h, act)))
+    assert bool((pq.q[3] == 0).all())
+    q, s = _rowblock_act_quant(h, act)
+    assert torch.equal(pq.q, q) and torch.equal(pq.s, s)
+
+
+@pytest.mark.parametrize("width,dtype", [(1001, torch.bfloat16), (1028, torch.bfloat16),
+                                         (8192, torch.float32)])
+def test_act_quant_rowblock_route(gen, width, dtype):
+    """Widths that are not a multiple of 8, and f32 rows, take the row-block
+    kernel (``act_quant_rowblock``), held to the plain version."""
+    h = torch.randn(1, 33, width, generator=gen, device="cuda").to(dtype)
+    assert i8.act_quant_impl(width, dtype) == "rowblock"
+    before = i8.launch_counts["act_quant_rowblock"]
+    pq = i8.fused_act_quant(h, "gelu-approximate")
+    torch.cuda.synchronize()
+    assert i8.launch_counts["act_quant_rowblock"] == before + 1
+    _assert_rows_match(pq, *i8._row_quant_plain(i8._act_plain(h, "gelu-approximate")))
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(gen):

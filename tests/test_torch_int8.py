@@ -251,6 +251,21 @@ def test_w8a8_matmul_plain_matches_pallas(m, k, n, use_bias, bk):
                                atol=MATMUL_ATOL)
 
 
+@pytest.mark.parametrize("width,dtype,impl", [
+    (8192, torch.bfloat16, "sm90"),      # the DiT's FF activation
+    (16384, torch.bfloat16, "sm90"),     # the widest row
+    (2056, torch.bfloat16, "sm90"),      # 257 chunks of 8
+    (1001, torch.bfloat16, "rowblock"),  # not a multiple of 8
+    (4096, torch.bfloat16, "sm90"),      # geglu's half of 8192
+    (1028, torch.bfloat16, "rowblock"),  # geglu's half of 2056
+    (8192, torch.float32, "rowblock"),
+])
+def test_act_quant_implementation_by_width(width, dtype, impl):
+    """K's route on the card: the register kernel for bf16 rows whose
+    output width is a multiple of 8, the row-block kernel otherwise."""
+    assert ti8.act_quant_impl(width, dtype) == impl
+
+
 @pytest.mark.parametrize("m,n,sms,tile_n", [
     # the DiT's W8A8 shapes on 132 SMs: 336 and 1,344 tiles of 256 columns
     (5376, 2048, 132, 256), (5376, 8192, 132, 256),

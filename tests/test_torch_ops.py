@@ -117,7 +117,8 @@ def test_launch_counts_untouched_on_cpu():
     torch.autograd.grad(out.sum(), heads)  # the flash backward's plain version
     assert set(tfa.launch_counts) == {
         "rope_fused_attention", "fused_token_attention", "rope_fused_attention_sm90",
-        "rope_fused_attention_wmma", "flash_bounded", "flash_online", "flash_single",
+        "rope_fused_attention_wmma", "fused_token_attention_sm90",
+        "fused_token_attention_wmma", "flash_bounded", "flash_online", "flash_single",
         "flash_bounded_sm90", "flash_online_sm90", "flash_single_sm90",
         "flash_bounded_wmma", "flash_online_wmma", "flash_single_wmma",
         "flash_bwd_dkv", "flash_bwd_dq",
