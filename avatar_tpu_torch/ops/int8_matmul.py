@@ -9,7 +9,11 @@
 - :func:`quantize_rows_pallas` (``csrc/row_quant.cu``, replacing
   ``_quant_rows_kernel``): per-row int8 quantization in one pass;
 - :func:`fused_rms_mod_quant` (replacing ``_rms_mod_quant_kernel``):
-  rms-norm, AdaLN modulate and the row quantization in one pass;
+  rms-norm, AdaLN modulate and the row quantization in one pass; bf16 rows
+  whose width is a multiple of 8 (the DiT's) take the register kernel
+  (``rms_mod_quant_sm90``: a warp a row up to 2,048 values, cvec and shift
+  staged once per CTA, no barrier a row), every other width and f32 the
+  row-block kernel (``rms_mod_quant``), by :func:`rms_mod_quant_impl`;
 - :func:`fused_act_quant` (replacing ``_act_quant_kernel``): the FF
   activation (gelu-tanh, gelu-erf or geglu) and the row quantization; bf16
   rows whose output width is a multiple of 8 (the DiT's) take the
@@ -18,9 +22,10 @@
   kernel (``act_quant``), by :func:`act_quant_impl`.
 
 The row quantization is ``s = max(max|y|, 1e-30) / 127`` and
-``q = clip(round(y * (1 / s)), -127, 127)``, rounding half to even. The
-weight operand is ``[N, K]`` int8, the port's ``[out, in]`` layout (see
-``utils/quantize.py``).
+``q = clip(round(y * (1 / s)), -127, 127)``, rounding half to even; a row
+with a NaN or an inf gets scale NaN or inf and level 0 everywhere, as the
+reference's does. The weight operand is ``[N, K]`` int8, the port's
+``[out, in]`` layout (see ``utils/quantize.py``).
 
 On a CUDA tensor a wrapper checks dtype, shape and alignment, then
 launches its kernel or raises; on a CPU tensor it runs the plain PyTorch
@@ -55,11 +60,13 @@ MAX_ROW_WIDTH = 16384
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # w8a8_matmul and w8a8_matmul_sm90 both count the Hopper kernel's launches:
 # the first names the function, the second the kernel, as the attention
-# kernels' _sm90 counters do; act_quant counts every launch of K and
-# act_quant_sm90 / act_quant_rowblock split them by route.
+# kernels' _sm90 counters do; rms_mod_quant and act_quant count every
+# launch of J and K, and rms_mod_quant_sm90 / _rowblock and act_quant_sm90
+# / _rowblock split them by route.
 launch_counts: Dict[str, int] = {
     "w8a8_matmul": 0, "w8a8_matmul_sm90": 0,
-    "quantize_rows": 0, "rms_mod_quant": 0, "act_quant": 0,
+    "quantize_rows": 0, "rms_mod_quant": 0,
+    "rms_mod_quant_sm90": 0, "rms_mod_quant_rowblock": 0, "act_quant": 0,
     "act_quant_sm90": 0, "act_quant_rowblock": 0,
 }
 
@@ -182,6 +189,15 @@ def act_quant_impl(width: int, dtype: torch.dtype) -> str:
     registers and 16-byte loads) for bf16 with ``width % 8 == 0``, which
     keeps every row and both of geglu's halves 16-byte aligned; else
     "rowblock" (``act_quant``, the row through shared memory)."""
+    return "sm90" if dtype == torch.bfloat16 and width % 8 == 0 else "rowblock"
+
+
+def rms_mod_quant_impl(width: int, dtype: torch.dtype) -> str:
+    """Which kernel runs J on the card for rows of ``width`` in ``dtype``:
+    "sm90" (``rms_mod_quant_sm90``, the row in registers, a warp a row up
+    to 2,048 values) for bf16 with ``width % 8 == 0``, which keeps every
+    row 16-byte aligned; else "rowblock" (``rms_mod_quant``, the row
+    through shared memory)."""
     return "sm90" if dtype == torch.bfloat16 and width % 8 == 0 else "rowblock"
 
 
@@ -321,11 +337,17 @@ def fused_rms_mod_quant(
         _check("shift", shift, (b, c), (torch.float32,))
     q = torch.empty((b * n, c), device=x.device, dtype=torch.int8)
     s = torch.empty((b * n, 1), device=x.device, dtype=torch.float32)
-    fn = _entry("rms_mod_quant", [_P] * 5 + [_I] * 3 + [_F, _I, _P])
-    err = fn(x.data_ptr(), cvec.data_ptr(),
-             None if shift is None else shift.data_ptr(), q.data_ptr(), s.data_ptr(),
-             b, n, c, float(eps), int(x.dtype == torch.float32), _stream(x))
+    args = (x.data_ptr(), cvec.data_ptr(), None if shift is None else shift.data_ptr(),
+            q.data_ptr(), s.data_ptr(), b, n, c, float(eps))
+    impl = rms_mod_quant_impl(c, x.dtype)
+    if impl == "sm90":
+        fn = _entry("rms_mod_quant_sm90", [_P] * 5 + [_I] * 3 + [_F, _P])
+        err = fn(*args, _stream(x))
+    else:
+        fn = _entry("rms_mod_quant", [_P] * 5 + [_I] * 3 + [_F, _I, _P])
+        err = fn(*args, int(x.dtype == torch.float32), _stream(x))
     _launched(err, "rms_mod_quant")
+    launch_counts[f"rms_mod_quant_{impl}"] += 1
     return PrequantRows(q, s, tuple(x.shape), x.dtype)
 
 

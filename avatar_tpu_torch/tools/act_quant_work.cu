@@ -37,7 +37,7 @@ __global__ void act_work(const __nv_bfloat16* __restrict__ h, int n, float inv,
         y = gelu_erf(x);
       else
         y = gelu_tanh(x);
-      amax = fmaxf(amax, fabsf(y));
+      amax = max_nan(amax, fabsf(y));
       acc ^= __float2int_rn(__fmul_rn(y, inv));
     } else {
       acc ^= static_cast<int>(__bfloat16_as_ushort(xv)) ^

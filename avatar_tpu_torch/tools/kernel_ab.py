@@ -2,8 +2,8 @@
 
     python3 -m avatar_tpu_torch.tools.kernel_ab [FAMILY ...]
 
-FAMILY is one of rope (A), flash (C, D, E), dense (G), int8 (H), token (B)
-and act (K); every family by default. Run it from the repo root (the
+FAMILY is one of rope (A), flash (C, D, E), dense (G), int8 (H), token (B),
+act (K) and rmsq (J); every family by default. Run it from the repo root (the
 shapes of ``chip_smoke.py`` are imported from it).
 
 A variant is a data entry of ``VARIANTS``: the source it patches, the
@@ -42,7 +42,15 @@ Variants and the further calls of each family:
 - act, K's register kernel at [1, 5376, 8192] for each activation:
   ``rows128`` (128 threads a row of twice the chunks, not 256),
   ``clip_level`` (each level as rintf, the clip and a conversion, as the
-  row-block kernel computes it, not one rounding conversion).
+  row-block kernel computes it, not one rounding conversion);
+- rmsq, J's register kernel at [1, 5376, 2048] with and without shift:
+  ``block_row`` (256 threads a row, K's layout, not a warp a row; the sum
+  of squares is added in another order, so not compared), ``cvec_global``
+  (cvec and shift read from global memory for every row, not staged in
+  shared memory once per CTA); and on I's input, [5376, 2048], the
+  committed I against ``i_on_j`` (J's kernel with the norm and modulation
+  compiled out, y = x: I's function), whose levels and scales must equal
+  I's.
 
 Prints the card's name and power limit, then one JSON line of
 milliseconds. Needs a CUDA card and ``nvcc``.
@@ -117,11 +125,20 @@ VARIANTS: Dict[str, Dict[str, Variant]] = {
             ("      const int level = __float2int_rn(__fmul_rn(y[c][e], inv));",
              "      const int level = __float2int_rn(\n"
              "          fminf(fmaxf(rintf(__fmul_rn(y[c][e], inv)), -127.0f), 127.0f));"),))},
+    "rmsq": {
+        "block_row": Variant("row_quant.cu", (
+            ("  int group = 1;  // warps a row", "  int group = kWarps;  // warps a row"),),
+            rule="none"),
+        "cvec_global": Variant("row_quant.cu", (
+            ("constexpr bool kStageModulation = true;",
+             "constexpr bool kStageModulation = false;"),)),
+        "i_on_j": Variant("row_quant.cu", (
+            ("constexpr bool kNormModulate = true;", "constexpr bool kNormModulate = false;"),))},
 }
 # each family's committed library
 COMMITTED = {"rope": "rope_attention_sm90", "flash": "flash_forward_sm90",
              "dense": "flash_dense_sm90", "int8": "int8_matmul_sm90",
-             "token": "token_attention_sm90", "act": "row_quant"}
+             "token": "token_attention_sm90", "act": "row_quant", "rmsq": "row_quant"}
 
 
 def _patched(text: str, subs) -> str:
@@ -254,6 +271,23 @@ def act_caller(lib, act: str):
         b, n, c2 = h.shape
         fn(h.data_ptr(), q.data_ptr(), s.data_ptr(), b * n, c2, i8.ACTIVATIONS[act])
     return call
+
+
+def rmsq_caller(lib):
+    fn = _entry(lib, "rms_mod_quant_sm90", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                + [ctypes.c_float, ctypes.c_void_p])
+
+    def call(x, cvec, shift, q, s):
+        b, n, c = x.shape
+        fn(x.data_ptr(), cvec.data_ptr(), None if shift is None else shift.data_ptr(),
+           q.data_ptr(), s.data_ptr(), b, n, c, 1e-6)
+    return call
+
+
+def quantize_rows_caller(lib):
+    fn = _entry(lib, "quantize_rows", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+    return lambda x, q, s: fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), *x.shape, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -407,8 +441,36 @@ def act_cases(g, libs):
         yield f"K {act}", Case(calls, outs, "act_quant_regs_kernel", _rules("act", libs))
 
 
+def rmsq_cases(g, libs):
+    from chip_smoke import LONG_TOKENS, WIDTH
+
+    x = torch.randn(1, LONG_TOKENS, WIDTH, generator=g, device="cuda").bfloat16()
+    cvec = 1.0 + 0.3 * torch.randn(1, WIDTH, generator=g, device="cuda")
+    shift = 0.2 * torch.randn(1, WIDTH, generator=g, device="cuda")
+
+    def outs_of(names):
+        return {n: (torch.empty(LONG_TOKENS, WIDTH, device="cuda", dtype=torch.int8),
+                    torch.empty(LONG_TOKENS, 1, device="cuda")) for n in names}
+
+    fns = {n: rmsq_caller(lib) for n, lib in libs.items() if n != "i_on_j"}
+    for label, sh in (("shift", shift), ("no shift", None)):
+        outs = outs_of(fns)
+        calls = {n: (lambda fn=fn, o=outs[n], sh=sh: fn(x, cvec, sh, *o))
+                 for n, fn in fns.items()}
+        yield f"J [1, {LONG_TOKENS}, {WIDTH}], {label}", Case(
+            calls, outs, "rms_mod_quant_regs_kernel", _rules("rmsq", fns))
+    # I's function on J's kernel, against the committed I
+    i_fn, j_fn = quantize_rows_caller(libs["committed"]), rmsq_caller(libs["i_on_j"])
+    outs = outs_of(("committed", "i_on_j"))
+    calls = {"committed": lambda: i_fn(x[0], *outs["committed"]),
+             "i_on_j": lambda: j_fn(x, cvec, None, *outs["i_on_j"])}
+    yield f"I [{LONG_TOKENS}, {WIDTH}], committed I against i_on_j", Case(
+        calls, outs, {"committed": "quantize_rows_kernel",
+                      "i_on_j": "rms_mod_quant_regs_kernel"}, {"i_on_j": "exact"})
+
+
 CASES = {"rope": rope_cases, "flash": flash_cases, "dense": dense_cases, "int8": int8_cases,
-         "token": token_cases, "act": act_cases}
+         "token": token_cases, "act": act_cases, "rmsq": rmsq_cases}
 
 
 # ---------------------------------------------------------------------------

@@ -29,10 +29,12 @@ Phases, each printing one JSON line as soon as it has its numbers:
    kernel's, each timed beside it and ``torch._int_mm``; the W8A8
    crossover, ``linear`` on the kernel route against the short route at
    832, 3328 and 5376 tokens) and the three row-quant kernels (at most one
-   int8 level apart on a stated fraction, scales at rtol 1e-6; K on its
-   Hopper route, ``act_quant_sm90``, for each activation beside its
+   int8 level apart on a stated fraction, scales at rtol 1e-6; J on its
+   Hopper route, ``rms_mod_quant_sm90``, beside its row-block kernel; K on
+   its Hopper route, ``act_quant_sm90``, for each activation beside its
    row-block kernel, and its bound from the SASS instructions it issues,
-   ``avatar_tpu_torch/tools/act_quant_sass.py``); the flash
+   ``avatar_tpu_torch/tools/act_quant_sass.py``; I, J and K on rows with a
+   NaN or an inf, exactly as their plain versions); the flash
    backward's two kernels
    (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) on the Hopper
    kernels (``flash_bwd_*_sm90``) at the training shapes, at 5376 tokens
@@ -95,7 +97,8 @@ Phases, each printing one JSON line as soon as it has its numbers:
 10. pipeline_long_w8a8: the long path with the DiT quantized W8A8 (from
    the same bf16 weights): every block linear through the int8 kernels
    (the product on the Hopper kernel, 8,960 launches, none of the
-   ``mma.sync`` one), launches checked per kernel, profile of 3 steps
+   ``mma.sync`` one; J on its Hopper kernel, 2,240 launches, none of the
+   row-block one), launches checked per kernel, profile of 3 steps
    (device ms by kernel), and the latents''
    relative RMS against the bf16 long path's (printed, not held);
 11. reference_train (run after phase 6): a tiny DiT (heads of 64, 128
@@ -1526,19 +1529,126 @@ def _rowblock_act_quant(h, act):
     return q, s
 
 
+def _rowblock_rms_mod_quant(x, cvec, shift, eps=1e-6):
+    """J's row-block kernel (``rms_mod_quant`` of csrc/row_quant.cu) through
+    its C entry, no counter: to compare and time it on the inputs the
+    Hopper route takes."""
+    import torch
+
+    from avatar_tpu_torch.ops import int8_matmul as i8
+
+    fn = i8._entry("rms_mod_quant", [i8._P] * 5 + [i8._I] * 3 + [i8._F, i8._I, i8._P])
+    b, n, c = x.shape
+    cvec = cvec.float().reshape(b, c).contiguous()
+    shift = None if shift is None else shift.float().reshape(b, c).contiguous()
+    q = torch.empty((b * n, c), device="cuda", dtype=torch.int8)
+    s = torch.empty((b * n, 1), device="cuda", dtype=torch.float32)
+    err = fn(x.data_ptr(), cvec.data_ptr(), None if shift is None else shift.data_ptr(),
+             q.data_ptr(), s.data_ptr(), b, n, c, eps, int(x.dtype == torch.float32),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"rms_mod_quant (row block) failed with {err}")
+    return q, s
+
+
+def _rows_differ(q, s, ref_q, ref_s):
+    """(largest level difference, fraction of elements off, largest scale
+    relative error) of int8 rows against a reference."""
+    diff = (q.int() - ref_q.int()).abs()
+    return (diff.max().item(), (diff > 0).float().mean().item(),
+            ((s - ref_s).abs() / ref_s.abs()).max().item())
+
+
+# one NaN, +inf and -inf element in rows 3, 5 and 8 of 16 rows
+NONFINITE_ROWS = {3: float("nan"), 5: float("inf"), 8: float("-inf")}
+
+
+def check_nonfinite_rows():
+    """I, J (both routes) and K (both kernels, each activation) on rows with
+    one NaN, +inf or -inf element beside finite rows, at the DiT's widths,
+    against the plain versions on the card: on those rows the levels
+    exactly equal (all 0) and the scales equal, NaN to NaN and inf to inf;
+    the finite rows to the usual rule; K's two kernels equal bit for bit
+    (levels, and the scales' bits). Any failure stops the run."""
+    import torch
+
+    from avatar_tpu_torch.ops import int8_matmul as i8
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    bad = sorted(NONFINITE_ROWS)
+    finite = [i for i in range(16) if i not in NONFINITE_ROWS]
+
+    def rows(width):
+        x = torch.randn(1, 16, width, generator=g, device="cuda")
+        for row, value in NONFINITE_ROWS.items():
+            x[0, row, 17] = value
+        return x.bfloat16()
+
+    def same_scales(a, b):
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+    x, h = rows(WIDTH), rows(4 * WIDTH)
+    cvec = torch.randn(1, 1, WIDTH, generator=g, device="cuda") * 0.3 + 1.0
+    shift = torch.randn(1, 1, WIDTH, generator=g, device="cuda") * 0.2
+
+    def prequant(pq):
+        return pq.q, pq.s
+
+    j_plain = i8._row_quant_plain(i8._rms_mod_plain(x, cvec, shift, 1e-6))
+    cases = {
+        "quantize_rows": (lambda: i8.quantize_rows_pallas(x[0]),
+                          i8._row_quant_plain(x[0].float())),
+        "rms_mod_quant_sm90": (lambda: prequant(i8.fused_rms_mod_quant(x, cvec, shift)),
+                               j_plain),
+        "rms_mod_quant_rowblock": (lambda: _rowblock_rms_mod_quant(x, cvec, shift), j_plain)}
+    for act in i8.ACTIVATIONS:
+        ref = i8._row_quant_plain(i8._act_plain(h, act))
+        cases[f"act_quant_sm90 {act}"] = (lambda act=act: prequant(i8.fused_act_quant(h, act)),
+                                          ref)
+        cases[f"act_quant_rowblock {act}"] = (lambda act=act: _rowblock_act_quant(h, act), ref)
+    results, outs = {}, {}
+    for label, (kernel, (ref_q, ref_s)) in cases.items():
+        q, s = outs[label] = kernel()
+        torch.cuda.synchronize()
+        levels, fraction, scale_err = _rows_differ(q[finite], s[finite], ref_q[finite],
+                                                   ref_s[finite])
+        res = {"scales": [s[i].item() for i in bad],
+               "levels_equal": bool(torch.equal(q[bad], ref_q[bad])),
+               "levels_all_zero": not bool(q[bad].any()),
+               "scales_equal": same_scales(s[bad], ref_s[bad]),
+               "finite_rows": {"levels": levels, "fraction": fraction,
+                               "scale_rel_err": scale_err}}
+        if label.startswith("act_quant_rowblock"):
+            q90, s90 = outs[label.replace("rowblock", "sm90")]
+            res["equal_to_sm90_bits"] = bool(torch.equal(q, q90) and torch.equal(
+                s.view(torch.int32), s90.view(torch.int32)))
+        results[label] = res
+        if not (res["levels_equal"] and res["levels_all_zero"] and res["scales_equal"]
+                and res.get("equal_to_sm90_bits", True) and levels <= 1
+                and fraction <= LEVEL_FRACTION and scale_err <= SCALE_RTOL):
+            fail(f"{label} on rows that are not finite: {res}")
+    emit({"phase": "row_quant_nonfinite", "rows": {"nan": 3, "inf": 5, "-inf": 8},
+          "results": results})
+
+
 def check_row_quant_kernels(peaks):
     """Kernels I, J and K against their plain versions at the DiT's long
-    shapes (I [5376, 2048]; J [1, 5376, 2048] with and without shift; K
-    [1, 5376, 8192] for each activation on its Hopper route), and at a
-    ragged batch of 2 x 1001 rows with a zero row; K also on its row-block
-    route at a width of 8190 (not a multiple of 8). The scales within
-    SCALE_RTOL, the int8 at most one level apart on at most LEVEL_FRACTION
-    of the elements; every K call must launch the route ``act_quant_impl``
-    names. Then the times (device time; K's two routes for each activation
-    on the same inputs, the row-block kernel through its C entry, and
-    whether their outputs are equal) and the bound: bytes (the input read
-    once, the int8 and scales written once) for I and J; for K the larger
-    of that and the SASS instructions its function needs per element
+    shapes (I [5376, 2048]; J [1, 5376, 2048] with and without shift on its
+    Hopper route; K [1, 5376, 8192] for each activation on its Hopper
+    route), and at a ragged batch of 2 x 1001 rows with a zero row; J also
+    at a width of 2056 (its Hopper route, not a multiple of 32) and in f32
+    (its row-block route), and on its Hopper route against its row-block
+    kernel on the same inputs (the sums of squares in another order); K
+    also on its row-block route at a width of 8190 (not a multiple of 8).
+    The scales within SCALE_RTOL, the int8 at most one level apart on at
+    most LEVEL_FRACTION of the elements; every J and K call must launch
+    the route ``rms_mod_quant_impl`` / ``act_quant_impl`` names. Then
+    (``check_nonfinite_rows``) rows with a NaN or an inf. Then the times
+    (device time; J's and K's two kernels on the same inputs, the
+    row-block kernel through its C entry, and for K whether their outputs
+    are equal) and the bound: bytes (the input read once, the int8 and
+    scales written once) for I and J; for K the larger of that and the
+    SASS instructions its function needs per element
     (``act_quant_sass.count_work``, apart from either kernel's own code)
     over the SMs' issue rate at the card's top SM clock; each kernel's own
     count beside it. No single library call computes any of them."""
@@ -1562,17 +1672,24 @@ def check_row_quant_kernels(peaks):
     h_r = randn(2, 1001, 4 * WIDTH, scale=2.0)
     h_r[0, 3] = 0.0
     h_odd = randn(1, 333, 4 * WIDTH - 2, scale=2.0)
+    x_2056 = randn(1, 333, WIDTH + 8)
+    cvec_2056, shift_2056 = (randn(1, 1, WIDTH + 8, scale=0.3, offset=1.0),
+                             randn(1, 1, WIDTH + 8, scale=0.2))
     cases = {"quantize_rows": {}, "rms_mod_quant": {}, "act_quant_sm90": {}}
     for label, xx in ((f"{LONG_TOKENS}x{WIDTH}", x), ("ragged 2x1001, zero row", x_r)):
         flat = xx.reshape(-1, WIDTH)
         cases["quantize_rows"][label] = (
             lambda flat=flat: i8.quantize_rows_pallas(flat),
             lambda flat=flat: i8._row_quant_plain(flat.float()))
-    for label, args in {"shift": (x, cvec, shift), "no shift": (x, cvec, None),
-                        "ragged 2x1001, zero row, shift": (x_r, cvec_r, shift_r)}.items():
+    j_args = {"shift": (x, cvec, shift), "no shift": (x, cvec, None),
+              "ragged 2x1001, zero row, shift": (x_r, cvec_r, shift_r),
+              "width 2056, shift": (x_2056, cvec_2056, shift_2056),
+              "f32 (row block), shift": (x_r[:1, :333].float(), cvec, shift)}
+    for label, args in j_args.items():
         cases["rms_mod_quant"][label] = (
             lambda a=args: i8.fused_rms_mod_quant(*a, eps=1e-6),
             lambda a=args: i8._row_quant_plain(i8._rms_mod_plain(*a, 1e-6)))
+    rowblock_diffs = {}
     for act in i8.ACTIVATIONS:
         for label, hh in ((act, h), (f"{act}, ragged 2x1001, zero row", h_r),
                           (f"{act}, row block, width 8190", h_odd)):
@@ -1586,19 +1703,28 @@ def check_row_quant_kernels(peaks):
             before = dict(i8.launch_counts)
             out = kernel()
             torch.cuda.synchronize()
+            launched = {n: c - before[n] for n, c in i8.launch_counts.items()
+                        if c > before[n]}
             if name == "act_quant_sm90":
                 width = out.q.shape[1]
                 route = f"act_quant_{i8.act_quant_impl(width, torch.bfloat16)}"
-                launched = {n: c - before[n] for n, c in i8.launch_counts.items()
-                            if c > before[n]}
                 if launched != {"act_quant": 1, route: 1}:
                     fail(f"act_quant {label}: launched {launched}, expected {route}")
+            if name == "rms_mod_quant":
+                impl = i8.rms_mod_quant_impl(out.shape[-1], j_args[label][0].dtype)
+                route = f"rms_mod_quant_{impl}"
+                if launched != {"rms_mod_quant": 1, route: 1}:
+                    fail(f"rms_mod_quant {label}: launched {launched}, expected {route}")
+                if impl == "sm90":  # against the row-block kernel on the same inputs
+                    rowblock_diffs[label] = _rows_differ(
+                        out.q, out.s, *_rowblock_rms_mod_quant(*j_args[label]))
+                    lv, fr, se = rowblock_diffs[label]
+                    if not (lv <= 1 and fr <= LEVEL_FRACTION and se <= SCALE_RTOL):
+                        fail(f"rms_mod_quant {label} against the row-block kernel: "
+                             f"{lv} levels on {fr} of the elements, scales {se}")
             q, s = (out.q, out.s) if isinstance(out, i8.PrequantRows) else out
-            ref_q, ref_s = plain()
-            diff = (q.int() - ref_q.int()).abs()
-            levels[label] = diff.max().item()
-            fractions[label] = (diff > 0).float().mean().item()
-            scale_errs[label] = ((s - ref_s).abs() / ref_s.abs()).max().item()
+            levels[label], fractions[label], scale_errs[label] = _rows_differ(
+                q, s, *plain())
             if not (levels[label] <= 1 and fractions[label] <= LEVEL_FRACTION
                     and scale_errs[label] <= SCALE_RTOL):
                 fail(f"{name} {label}: {levels[label]} levels on "
@@ -1649,6 +1775,29 @@ def check_row_quant_kernels(peaks):
                           "sass_work": work, "sass_counts": counts})
             top = by_act["gelu-approximate"]
             ms, bound_ms, bound_by = top["ms"], top["bound_ms"], top["bound_by"]
+        elif name == "rms_mod_quant":
+            ms = device_ms(kernel, "rms_mod_quant_regs_kernel")
+            bound_ms, bound_by = bound(per_elem * rows_n * width, nbytes, peaks, peaks[3])
+            rowblock_ms = device_ms(lambda: _rowblock_rms_mod_quant(x, cvec, shift),
+                                    "rms_mod_quant_kernel")
+            # the same with the 50 MB L2 written over before each launch:
+            # the 22 MB input otherwise stays there from call to call
+            flush = torch.empty(64 << 20, device="cuda", dtype=torch.uint8)
+            extra.update({
+                "l2_cold_ms": device_ms(
+                    lambda: (flush.zero_(), i8.fused_rms_mod_quant(x, cvec, shift)),
+                    "rms_mod_quant_regs_kernel"),
+                "rowblock_l2_cold_ms": device_ms(
+                    lambda: (flush.zero_(), _rowblock_rms_mod_quant(x, cvec, shift)),
+                    "rms_mod_quant_kernel"),
+                "rowblock_ms_same_inputs": rowblock_ms,
+                "no_shift_ms": device_ms(lambda: i8.fused_rms_mod_quant(x, cvec, None),
+                                         "rms_mod_quant_regs_kernel"),
+                "against_rowblock": {k: dict(zip(("levels", "fraction", "scale_rel_err"), v))
+                                     for k, v in rowblock_diffs.items()},
+                "fraction_of_bound": bound_ms / ms,
+                "at_least_half_of_bound": bound_ms / ms >= 0.5,
+                "faster_than_rowblock": ms < rowblock_ms})
         else:
             ms = device_ms(kernel, f"{name}_kernel")
             bound_ms, bound_by = bound(per_elem * rows_n * width, nbytes, peaks, peaks[3])
@@ -1659,10 +1808,14 @@ def check_row_quant_kernels(peaks):
                      "tol": f"1 level on <= {LEVEL_FRACTION} of elements",
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+        if name == "rms_mod_quant":
+            rows[-1].update({"kernel": "rms_mod_quant_regs_kernel",
+                             "rowblock_ms_same_inputs": extra["rowblock_ms_same_inputs"]})
         emit({"phase": f"kernel_{name}", "levels": levels, "level_fractions": fractions,
               "scale_rel_errs": scale_errs, "ms": ms, "plain_ms": plain_ms,
               "library_ms": None, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
               "bytes": nbytes, "shape": list(inp.shape), **extra})
+    check_nonfinite_rows()
     return rows
 
 
@@ -1987,8 +2140,8 @@ def check_reference_w8a8():
         "kernel_route": (_tiny_models(), 512, 129, "w8a8", False, {
             "w8a8_matmul": 8 * per_video, "w8a8_matmul_sm90": 8 * per_video,
             "quantize_rows": 3 * per_video,
-            "rms_mod_quant": 2 * per_video, "act_quant": per_video,
-            "act_quant_sm90": per_video,
+            "rms_mod_quant": 2 * per_video, "rms_mod_quant_sm90": 2 * per_video,
+            "act_quant": per_video, "act_quant_sm90": per_video,
             "flash_bounded": per_video, "flash_bounded_sm90": per_video,
             "fused_token_attention": per_video, "fused_token_attention_sm90": per_video}),
         "short_route": (_tiny_models(), 64, 25, "w8a8", True, token_major),
@@ -3394,7 +3547,8 @@ def main() -> int:
         pipe_w8a8, "pipeline_long_w8a8", 512, 161, plain,
         {"w8a8_matmul": 8 * every, "w8a8_matmul_sm90": 8 * every,
          "quantize_rows": 3 * every,
-         "rms_mod_quant": 2 * every, "act_quant": every, "act_quant_sm90": every,
+         "rms_mod_quant": 2 * every, "rms_mod_quant_sm90": 2 * every,
+         "act_quant": every, "act_quant_sm90": every,
          **long_attention}, 3,
         extra={"bf16_total_s": long_s})
     # a finding, not a gate: how far int8 moves the 2B latents from bf16's

@@ -941,6 +941,121 @@ def test_act_quant_rowblock_route(gen, width, dtype):
     _assert_rows_match(pq, *i8._row_quant_plain(i8._act_plain(h, "gelu-approximate")))
 
 
+def _rowblock_rms_mod_quant(x, cvec, shift, eps=1e-6):
+    """J's row-block kernel (``rms_mod_quant``) through its C entry, on
+    inputs the Hopper route takes."""
+    fn = i8._entry("rms_mod_quant", [i8._P] * 5 + [i8._I] * 3 + [i8._F, i8._I, i8._P])
+    b, n, c = x.shape
+    cvec = cvec.float().reshape(b, c).contiguous()
+    shift = None if shift is None else shift.float().reshape(b, c).contiguous()
+    q = torch.empty((b * n, c), device="cuda", dtype=torch.int8)
+    s = torch.empty((b * n, 1), device="cuda", dtype=torch.float32)
+    assert fn(x.data_ptr(), cvec.data_ptr(), None if shift is None else shift.data_ptr(),
+              q.data_ptr(), s.data_ptr(), b, n, c, eps, int(x.dtype == torch.float32),
+              torch.cuda.current_stream().cuda_stream) == 0
+    return q, s
+
+
+def _rms_mod_inputs(gen, b, n, c, dtype=torch.bfloat16):
+    x = torch.randn(b, n, c, generator=gen, device="cuda").to(dtype)
+    cvec = (1.0 + 0.3 * torch.randn(b, 1, c, generator=gen, device="cuda")).bfloat16()
+    shift = (0.2 * torch.randn(b, 1, c, generator=gen, device="cuda")).bfloat16()
+    return x, cvec, shift
+
+
+# the DiT's 2 x 1,001 rows of 2,048 (a warp a row), the widest row (16,384:
+# 8 warps a row), 2,056 (257 chunks of 8: 2 warps a row, not a multiple of
+# 32), 4,096 (above one warp's 2,048: 2 warps a row) and a tiny DiT's 128
+@pytest.mark.parametrize("with_shift", [True, False])
+@pytest.mark.parametrize("b,n,width", [(2, 1001, 2048), (1, 64, 16384), (1, 37, 2056),
+                                       (3, 50, 4096), (2, 17, 128)])
+def test_hopper_rms_mod_quant_matches_plain_and_the_rowblock_kernel(gen, with_shift, b, n,
+                                                                      width):
+    """J on its Hopper route (bf16, width a multiple of 8) with a zero row,
+    against the plain version and against the row-block kernel on the same
+    inputs, each to one level on at most LEVEL_FRACTION and scales within
+    1e-6: the sums of squares are added in another order, so bit equality
+    is not expected."""
+    x, cvec, shift = _rms_mod_inputs(gen, b, n, width)
+    x[0, 7] = 0.0  # zero row: quantizes the shift vector
+    shift = shift if with_shift else None
+    assert i8.rms_mod_quant_impl(width, torch.bfloat16) == "sm90"
+    before = dict(i8.launch_counts)
+    pq = i8.fused_rms_mod_quant(x, cvec, shift, eps=1e-6)
+    torch.cuda.synchronize()
+    launched = {k: c - before[k] for k, c in i8.launch_counts.items() if c > before[k]}
+    assert launched == {"rms_mod_quant": 1, "rms_mod_quant_sm90": 1}
+    assert pq.shape == (b, n, width) and pq.q.shape == (b * n, width)
+    _assert_rows_match(pq, *i8._row_quant_plain(i8._rms_mod_plain(x, cvec, shift, 1e-6)))
+    _assert_rows_match(pq, *_rowblock_rms_mod_quant(x, cvec, shift))
+    if not with_shift:
+        assert bool((pq.q[7] == 0).all())
+
+
+@pytest.mark.parametrize("width,dtype", [(1001, torch.bfloat16), (2052, torch.bfloat16),
+                                         (2048, torch.float32)])
+def test_rms_mod_quant_rowblock_route(gen, width, dtype):
+    """Widths that are not a multiple of 8, and f32 rows, take J's row-block
+    kernel (``rms_mod_quant_rowblock``), held to the plain version."""
+    x, cvec, shift = _rms_mod_inputs(gen, 2, 33, width, dtype)
+    assert i8.rms_mod_quant_impl(width, dtype) == "rowblock"
+    before = dict(i8.launch_counts)
+    pq = i8.fused_rms_mod_quant(x, cvec, shift, eps=1e-6)
+    torch.cuda.synchronize()
+    launched = {k: c - before[k] for k, c in i8.launch_counts.items() if c > before[k]}
+    assert launched == {"rms_mod_quant": 1, "rms_mod_quant_rowblock": 1}
+    _assert_rows_match(pq, *i8._row_quant_plain(i8._rms_mod_plain(x, cvec, shift, 1e-6)))
+
+
+# one NaN, +inf and -inf element in rows 3, 5 and 8 of 16
+NONFINITE = {3: float("nan"), 5: float("inf"), 8: float("-inf")}
+NONFINITE_KERNELS = ["quantize_rows", "rms_mod_quant sm90", "rms_mod_quant rowblock"] + [
+    f"act_quant {act}" for act in ("gelu-approximate", "gelu", "geglu")]
+
+
+@pytest.mark.parametrize("kernel", NONFINITE_KERNELS)
+def test_row_quant_kernels_carry_nonfinite_rows(gen, kernel):
+    """I, J (both routes) and K (both kernels) on rows with one NaN, +inf or
+    -inf element beside finite rows, against the plain version: on those
+    rows the levels exactly equal (all 0) and the scales equal, NaN to NaN
+    and inf to inf (equal_nan on these rows only); the finite rows to the
+    usual rule. K's two kernels equal bit for bit on every row."""
+    n, c = 16, 2048
+    x = torch.randn(1, n, 2 * c if kernel.endswith("geglu") else c, generator=gen,
+                    device="cuda")
+    for row, value in NONFINITE.items():
+        x[0, row, 17] = value
+    x = x.bfloat16()
+    _, cvec, shift = _rms_mod_inputs(gen, 1, 1, c)
+    if kernel == "quantize_rows":
+        out = i8.quantize_rows_pallas(x[0])
+        ref = i8._row_quant_plain(x[0].float())
+    elif kernel.startswith("rms_mod_quant"):
+        ref = i8._row_quant_plain(i8._rms_mod_plain(x, cvec, shift, 1e-6))
+        if kernel.endswith("sm90"):
+            before = i8.launch_counts["rms_mod_quant_sm90"]
+            pq = i8.fused_rms_mod_quant(x, cvec, shift, eps=1e-6)
+            assert i8.launch_counts["rms_mod_quant_sm90"] == before + 1
+            out = (pq.q, pq.s)
+        else:
+            out = _rowblock_rms_mod_quant(x, cvec, shift)
+    else:
+        act = kernel.split()[1]
+        pq = i8.fused_act_quant(x, act)
+        out = (pq.q, pq.s)
+        ref = i8._row_quant_plain(i8._act_plain(x, act))
+        block = _rowblock_act_quant(x, act)
+        assert torch.equal(out[0], block[0])
+        torch.testing.assert_close(out[1], block[1], rtol=0, atol=0, equal_nan=True)
+    torch.cuda.synchronize()
+    bad = sorted(NONFINITE)
+    finite = [i for i in range(n) if i not in NONFINITE]
+    _assert_rows_match((out[0][finite], out[1][finite]), ref[0][finite], ref[1][finite])
+    assert torch.equal(out[0][bad], ref[0][bad]) and not out[0][bad].any()
+    torch.testing.assert_close(out[1][bad], ref[1][bad], rtol=0, atol=0, equal_nan=True)
+    assert not torch.isfinite(out[1][bad]).any()
+
+
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(gen):
     x_q, w_q = _int8(gen, 64, 40), _int8(gen, 32, 40)  # K not a multiple of 16
     ones = torch.ones(64, 1, device="cuda")

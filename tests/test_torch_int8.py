@@ -227,6 +227,69 @@ def test_fused_act_quant_plain_matches_pallas(act):
     _assert_rows_match(out.q, out.s, ref.q, ref.s)
 
 
+# Rows that are not finite: one NaN, +inf or -inf element each, beside
+# finite rows. The reference keeps a NaN through its max (scale NaN) and
+# its cast turns a NaN level into 0; an inf gives scale inf (I, K) and
+# level 0 everywhere. The one difference is kept on purpose (ROADMAP §3):
+# gelu-erf of -inf (K's gelu, and geglu's gate), where XLA's CPU erf(-inf)
+# is not exactly -1, so the reference's gelu is -inf * (1 + erf) = -inf and
+# its scale inf, while torch's erf(-inf) is -1 and the port's gelu NaN
+# (-inf * 0), its scale NaN.
+NONFINITE = {3: np.nan, 5: np.inf, 8: -np.inf}
+NONFINITE_CASES = ["quantize_rows", "rms_mod_quant shift", "rms_mod_quant",
+                   "gelu-approximate", "gelu", "geglu", "geglu gate"]
+
+
+@pytest.mark.parametrize("case", NONFINITE_CASES)
+def test_nonfinite_rows_plain_match_pallas(case):
+    """The port's plain versions of I, J and K against the Pallas kernels in
+    interpret mode on rows with one NaN, +inf or -inf element: those rows'
+    levels exactly equal (all 0) and their scales equal, NaN to NaN and inf
+    to inf (but for K gelu's -inf row, held as it stands); the finite rows
+    beside them to the usual rule."""
+    rng = np.random.default_rng(4)
+    b, n, c = 1, 16, 256
+    act = case.split()[0]
+    x = rng.standard_normal((b, n, c)).astype(np.float32)
+    for row, value in NONFINITE.items():
+        # "geglu gate": the element in the gate half (c / 2 on)
+        x[0, row, c // 2 + 17 if case == "geglu gate" else 17] = value
+    jx, tx = _bf16_pair(x)
+    if case == "quantize_rows":
+        ref = ji8.quantize_rows_pallas(jx.reshape(n, c), interpret=True)
+        q, s = ti8.quantize_rows_pallas(tx.reshape(n, c))
+    elif case.startswith("rms_mod_quant"):
+        cvec = (1.0 + 0.3 * rng.standard_normal((b, 1, c))).astype(np.float32)
+        shift = (0.2 * rng.standard_normal((b, 1, c))).astype(np.float32)
+        (jc, tc), (js, ts) = _bf16_pair(cvec), _bf16_pair(shift)
+        with_shift = case.endswith("shift")
+        r = ji8.fused_rms_mod_quant(jx, jc, js if with_shift else None, eps=1e-6,
+                                    interpret=True)
+        out = ti8.fused_rms_mod_quant(tx, tc, ts if with_shift else None, eps=1e-6)
+        ref, (q, s) = (r.q, r.s), (out.q, out.s)
+    else:
+        r = ji8.fused_act_quant(jx, act, interpret=True)
+        out = ti8.fused_act_quant(tx, act)
+        ref, (q, s) = (r.q, r.s), (out.q, out.s)
+    q, s = np.asarray(q).astype(np.int32), np.asarray(s, np.float32)[:, 0]
+    ref_q, ref_s = np.asarray(ref[0]).astype(np.int32), np.asarray(ref[1], np.float32)[:, 0]
+    bad = sorted(NONFINITE)
+    finite = [i for i in range(n) if i not in NONFINITE]
+    _assert_rows_match(q[finite], s[finite], ref_q[finite], ref_s[finite])
+    np.testing.assert_array_equal(q[bad], ref_q[bad])
+    assert not q[bad].any()
+    expected_s = {  # the scales of the NaN, +inf and -inf rows
+        "quantize_rows": (np.nan, np.inf, np.inf),
+        "rms_mod_quant shift": (np.nan,) * 3, "rms_mod_quant": (np.nan,) * 3,
+        "gelu-approximate": (np.nan, np.inf, np.nan), "gelu": (np.nan, np.inf, np.nan),
+        "geglu": (np.nan, np.inf, np.inf), "geglu gate": (np.nan, np.inf, np.nan)}[case]
+    np.testing.assert_array_equal(s[bad], np.float32(expected_s))
+    if case in ("gelu", "geglu gate"):  # the reference's erf(-inf): inf, the port NaN
+        np.testing.assert_array_equal(ref_s[bad], np.float32((np.nan, np.inf, np.inf)))
+    else:
+        np.testing.assert_array_equal(ref_s[bad], s[bad])
+
+
 @pytest.mark.parametrize("m,k,n,use_bias,bk", [
     (832, 256, 512, True, None), (100, 512, 256, False, None),
     (320, 2048, 128, True, 512),  # bk: the k-split kernel
@@ -264,6 +327,22 @@ def test_act_quant_implementation_by_width(width, dtype, impl):
     """K's route on the card: the register kernel for bf16 rows whose
     output width is a multiple of 8, the row-block kernel otherwise."""
     assert ti8.act_quant_impl(width, dtype) == impl
+
+
+@pytest.mark.parametrize("width,dtype,impl", [
+    (2048, torch.bfloat16, "sm90"),      # the DiT's width: a warp a row
+    (128, torch.bfloat16, "sm90"),       # the tiny W8A8 DiT's (2 heads of 64)
+    (16384, torch.bfloat16, "sm90"),     # the widest row: 8 warps a row
+    (2056, torch.bfloat16, "sm90"),      # 257 chunks of 8, not a multiple of 32
+    (4096, torch.bfloat16, "sm90"),      # above one warp's 2,048: 2 warps a row
+    (1001, torch.bfloat16, "rowblock"),  # not a multiple of 8
+    (2052, torch.bfloat16, "rowblock"),
+    (2048, torch.float32, "rowblock"),
+])
+def test_rms_mod_quant_implementation_by_width(width, dtype, impl):
+    """J's route on the card: the register kernel for bf16 rows whose width
+    is a multiple of 8, the row-block kernel otherwise."""
+    assert ti8.rms_mod_quant_impl(width, dtype) == impl
 
 
 @pytest.mark.parametrize("m,n,sms,tile_n", [

@@ -2,7 +2,8 @@
 the bf16 error probe; the SASS counting of ``tools/act_quant_sass.py`` on
 listings in ``cuobjdump -sass``'s format; the source variants of
 ``tools/kernel_ab.py`` against the committed sources (a variant whose patch
-no longer applies would fail only on the card)."""
+no longer applies would fail only on the card); ``tools/w8a8_path.py``
+refuses to run without a card."""
 
 import json
 
@@ -14,6 +15,7 @@ from avatar_tpu_torch.ops import kernel_build  # noqa: E402
 from avatar_tpu_torch.tools import act_quant_sass as sass  # noqa: E402
 from avatar_tpu_torch.tools import bf16_error  # noqa: E402
 from avatar_tpu_torch.tools import kernel_ab  # noqa: E402
+from avatar_tpu_torch.tools import w8a8_path  # noqa: E402
 
 
 def test_bf16_error_probe_names_the_timestep_rounding(capsys):
@@ -139,3 +141,11 @@ def test_kernel_ab_variant_applies_to_the_committed_source(family, name):
     header = (kernel_build.CSRC / kernel_ab.HEADER).read_text()
     assert (kernel_ab._patched(header, variant.header_subs) != header) == bool(
         variant.header_subs)
+
+
+def test_w8a8_path_needs_a_card(monkeypatch, capsys):
+    """The path's timing tool measures a card or nothing: without one it
+    exits 1 before it imports or builds anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert w8a8_path.main(["this"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
