@@ -203,9 +203,10 @@ def init_dit(
                 "proj_in": init_linear(inner, inner * cfg.ff_mult, gen, **kw),
                 "proj_out": init_linear(inner * cfg.ff_mult, inner, gen, **kw),
             },
-            "scale_shift_table": init_normal(
-                (_n_ada(cfg), inner), inner**-0.5, gen, **kw),
         }
+        if cfg.adaptive_norm != "none":
+            block["scale_shift_table"] = init_normal(
+                (_n_ada(cfg), inner), inner**-0.5, gen, **kw)
         if cfg.norm_elementwise_affine:
             block["norm1"] = {"scale": torch.ones(inner, **kw)}
             block["norm2"] = {"scale": torch.ones(inner, **kw)}
@@ -385,11 +386,14 @@ def _feed_forward(params: dict, x, cfg: DiTConfig):
 
 
 def _norm_modulate(norm_params, x, scale, shift, cfg, fused_quant):
-    """``norm(x) * (1 + scale) (+ shift)``; with ``fused_quant`` one kernel
-    that also quantizes the rows, fed ``cvec`` = (1 + scale) * norm scale
-    formed in x's dtype, as in the JAX package."""
+    """``norm(x) * (1 + scale) (+ shift)`` (the plain norm without AdaLN,
+    ``scale`` None); with ``fused_quant`` one kernel that also quantizes
+    the rows, fed ``cvec`` = (1 + scale) * norm scale formed in x's dtype,
+    as in the JAX package."""
     if not fused_quant:
-        out = _std_norm(norm_params, x, cfg) * (1 + scale)
+        out = _std_norm(norm_params, x, cfg)
+        if scale is not None:
+            out = out * (1 + scale)
         return out if shift is None else out + shift
     cvec = 1 + scale
     norm_scale = None if not norm_params else norm_params.get("scale")
@@ -398,16 +402,22 @@ def _norm_modulate(norm_params, x, scale, shift, cfg, fused_quant):
     return int8_matmul.fused_rms_mod_quant(x, cvec, shift, eps=cfg.norm_eps)
 
 
+def _gated(gate, out):
+    return out if gate is None else gate * out
+
+
 def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
                  skip_layer_mask=None, skip_layer_strategy=None,
                  attention_impl="auto", rope_split=False, lora=None,
                  lora_scale=1.0):
     """BasicTransformerBlock with AdaLN-single; ``timestep`` is the
     [B, 1 or N, n_ada*inner] AdaLN embedding, ``skip_layer_mask`` this
-    block's [B] row of the STG mask.
+    block's [B] row of the STG mask. With ``adaptive_norm="none"`` the
+    norms are plain, the residuals ungated, and the cross-attention input
+    is normed where the block holds an ``attn2_norm``.
 
     The fused W8A8 route, under the JAX package's conditions (rms-norm,
-    one AdaLN row per sample, a per-sample sequence of at least
+    AdaLN, one AdaLN row per sample, a per-sample sequence of at least
     ``W8A8_PALLAS_MIN_TOKENS``, W8A8 ``attn1.to_q``, no skip mask): the
     norm, the modulation and the row quantization before self-attention
     and before the FF run as one kernel (``fused_rms_mod_quant``), whose
@@ -416,38 +426,41 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
     b = x.shape[0]
     lora = lora or {}
     original_x = x
-    if cfg.adaptive_norm not in ("single_scale_shift", "single_scale"):
-        raise NotImplementedError(f"adaptive_norm={cfg.adaptive_norm!r}")
+    adaln = cfg.adaptive_norm != "none"
     fused_quant_norm = (
-        cfg.standardization_norm == "rms_norm"
+        adaln
+        and cfg.standardization_norm == "rms_norm"
         and timestep.shape[1] == 1
         and x.ndim == 3 and x.shape[1] >= int8_matmul.W8A8_PALLAS_MIN_TOKENS
         and "kernel_q8" in params["attn1"]["to_q"]
         and skip_layer_mask is None)
-    n_ada = params["scale_shift_table"].shape[0]
-    ada = params["scale_shift_table"].to(x.dtype)[None, None] + timestep.reshape(
-        b, timestep.shape[1], n_ada, -1).to(x.dtype)
-    if cfg.adaptive_norm == "single_scale_shift":
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
-            ada[:, :, i] for i in range(6))
-    else:
-        scale_msa, gate_msa, scale_mlp, gate_mlp = (ada[:, :, i] for i in range(4))
-        shift_msa = shift_mlp = None
+    shift_msa = scale_msa = gate_msa = shift_mlp = scale_mlp = gate_mlp = None
+    if adaln:
+        n_ada = params["scale_shift_table"].shape[0]
+        ada = params["scale_shift_table"].to(x.dtype)[None, None] + timestep.reshape(
+            b, timestep.shape[1], n_ada, -1).to(x.dtype)
+        if cfg.adaptive_norm == "single_scale_shift":
+            shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
+                ada[:, :, i] for i in range(6))
+        else:
+            scale_msa, gate_msa, scale_mlp, gate_mlp = (ada[:, :, i] for i in range(4))
     norm_x = _norm_modulate(params.get("norm1"), x, scale_msa, shift_msa, cfg,
                             fused_quant_norm)
 
-    x = x + gate_msa * _attention(
+    x = x + _gated(gate_msa, _attention(
         params["attn1"], norm_x, cfg, freqs_cis=freqs_cis,
         skip_layer_mask=skip_layer_mask, skip_layer_strategy=skip_layer_strategy,
         attention_impl=attention_impl, rope_split=rope_split,
-        lora=lora.get("attn1"), lora_scale=lora_scale)
-    x = x + _attention(params["attn2"], x, cfg, kv_mask=kv_mask,
+        lora=lora.get("attn1"), lora_scale=lora_scale))
+    attn_in = x if adaln or "attn2_norm" not in params else _std_norm(
+        params["attn2_norm"], x, cfg)
+    x = x + _attention(params["attn2"], attn_in, cfg, kv_mask=kv_mask,
                        attention_impl=attention_impl, cross_kv=cross_kv,
                        lora=lora.get("attn2"), lora_scale=lora_scale)
 
     norm_x = _norm_modulate(params.get("norm2"), x, scale_mlp, shift_mlp, cfg,
                             fused_quant_norm and "kernel_q8" in params["ff"]["proj_in"])
-    x = x + gate_mlp * _feed_forward(params["ff"], norm_x, cfg)
+    x = x + _gated(gate_mlp, _feed_forward(params["ff"], norm_x, cfg))
     if (skip_layer_mask is not None
             and skip_layer_strategy == SkipLayerStrategy.TransformerBlock):
         x = _stg_mix(x, original_x, skip_layer_mask)

@@ -114,6 +114,29 @@ def linear(params: dict, x) -> torch.Tensor:
     return F.linear(x, weight, None if bias is None else bias.to(x.dtype))
 
 
+def group_norm(params: dict, x: torch.Tensor, num_groups: int, eps: float = 1e-6,
+               dim: int = -1) -> torch.Tensor:
+    """GroupNorm over channel axis ``dim`` with f32 statistics: group g
+    holds channels [g*C/G, (g+1)*C/G), normalized over them and every
+    non-batch position; then the optional ``scale`` / ``bias`` of
+    ``params``."""
+    dim = dim % x.ndim
+    xf = x.float().movedim(dim, -1)
+    c = xf.shape[-1]
+    grouped = xf.reshape(xf.shape[0], -1, num_groups, c // num_groups)
+    mean = grouped.mean(dim=(1, 3), keepdim=True)
+    var = (grouped - mean).square().mean(dim=(1, 3), keepdim=True)
+    out = ((grouped - mean) * (var + eps) ** -0.5).reshape(xf.shape)
+    out = out.movedim(-1, dim).to(x.dtype)
+    shape = [1] * x.ndim
+    shape[dim] = c
+    if "scale" in params:
+        out = out * params["scale"].to(x.dtype).reshape(shape)
+    if "bias" in params:
+        out = out + params["bias"].to(x.dtype).reshape(shape)
+    return out
+
+
 def sinusoidal_timestep_embedding(
     timesteps: torch.Tensor,
     embedding_dim: int,

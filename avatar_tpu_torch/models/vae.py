@@ -5,12 +5,15 @@ The public functions (:func:`vae_encode`, :func:`vae_decode`,
 channels-last [B, F, H, W, C] layout; inside, activations are NCDHW,
 the layout cuDNN's 3D convolutions take.
 
-Ported block kinds: ``res_x`` (mid block, with timestep conditioning in
-the decoder), ``res_x_y``, ``compress_{time,space,all}`` (strided conv in
-the encoder, depth-to-space in the decoder) and
-``compress_{time,space,all}_res`` (space-to-depth in the encoder).
-Attention blocks (``attn_res_x``) and decoder noise injection are not on
-the main path and are not ported.
+Block kinds: ``res_x`` (mid block, with timestep conditioning in the
+decoder), ``attn_res_x`` (a decoder mid block with a self-attention block
+after each resnet when it names ``attention_head_dim``), ``res_x_y``,
+``compress_{time,space,all}`` (strided conv in the encoder, depth-to-space
+in the decoder) and ``compress_{time,space,all}_res`` (space-to-depth in
+the encoder); the JAX package's encoder takes no ``attn_res_x`` and
+neither does this one. Norms: pixel, group or layer norm. Decoder blocks
+with ``inject_noise`` add per-channel scaled spatial noise after each conv
+when the decode is given a generator or the noise itself.
 """
 
 from __future__ import annotations
@@ -23,14 +26,17 @@ import torch
 import torch.nn.functional as F
 
 from avatar_tpu_torch.models.layers import (
+    group_norm,
     init_conv3d,
     init_linear,
     init_normal,
     init_timestep_embedder,
+    linear,
     timestep_embedder,
 )
+from avatar_tpu_torch.ops.attention import scaled_dot_product_attention
 from avatar_tpu_torch.ops.causal_conv3d import conv3d_params
-from avatar_tpu_torch.ops.normalization import layer_norm, pixel_norm
+from avatar_tpu_torch.ops.normalization import layer_norm, pixel_norm, rms_norm
 from avatar_tpu_torch.ops.pixel_shuffle import (
     patchify_pixels,
     pixel_shuffle_3d,
@@ -109,6 +115,26 @@ class VAEConfig:
             scaling_factor=config.get("scaling_factor", 1.0),
             normalize_latent_channels=config.get("normalize_latent_channels", False),
         )
+
+    def to_dict(self) -> dict:
+        """The reference config schema, as the JAX package writes it."""
+        return {
+            "_class_name": "CausalVideoAutoencoder",
+            "dims": 3,
+            "in_channels": self.in_channels,
+            "out_channels": self.out_channels,
+            "latent_channels": self.latent_channels,
+            "encoder_blocks": [list(b) for b in self.encoder_blocks],
+            "decoder_blocks": [list(b) for b in self.decoder_blocks],
+            "scaling_factor": self.scaling_factor,
+            "norm_layer": self.norm_layer,
+            "patch_size": self.patch_size,
+            "latent_log_var": self.latent_log_var,
+            "use_quant_conv": self.use_quant_conv,
+            "causal_decoder": self.causal_decoder,
+            "timestep_conditioning": self.timestep_conditioning,
+            "normalize_latent_channels": self.normalize_latent_channels,
+        }
 
     @property
     def spatial_downscale_factor(self) -> int:
@@ -222,34 +248,51 @@ def _decoder_channel_walk(cfg: VAEConfig) -> List[Tuple[str, dict, int, int]]:
 # ---------------------------------------------------------------------------
 
 
-def _check_norm(cfg: VAEConfig):
-    if cfg.norm_layer != "pixel_norm":
-        raise NotImplementedError(f"norm_layer={cfg.norm_layer!r} is not ported yet")
+def _init_norm(ch, cfg: VAEConfig, kw) -> dict:
+    if cfg.norm_layer == "pixel_norm":
+        return {}
+    return {"scale": torch.ones(ch, **kw), "bias": torch.zeros(ch, **kw)}
 
 
-def _init_resnet(in_ch, out_ch, gen, kw, timestep_conditioning=False) -> dict:
+def _init_resnet(in_ch, out_ch, cfg, gen, kw, inject_noise=False,
+                 timestep_conditioning=False) -> dict:
     p = {
-        "norm1": {},
+        "norm1": _init_norm(in_ch, cfg, kw),
         "conv1": init_conv3d(in_ch, out_ch, gen, **kw),
-        "norm2": {},
+        "norm2": _init_norm(out_ch, cfg, kw),
         "conv2": init_conv3d(out_ch, out_ch, gen, **kw),
     }
     if in_ch != out_ch:
         p["conv_shortcut"] = init_linear(in_ch, out_ch, gen, **kw)
         p["norm3"] = {"scale": torch.ones(in_ch, **kw),
                       "bias": torch.zeros(in_ch, **kw)}
+    if inject_noise:
+        p["per_channel_scale1"] = torch.zeros(out_ch, 1, 1, **kw)
+        p["per_channel_scale2"] = torch.zeros(out_ch, 1, 1, **kw)
     if timestep_conditioning:
         p["scale_shift_table"] = init_normal((4, in_ch), in_ch**-0.5, gen, **kw)
     return p
 
 
-def _init_mid_block(ch, num_layers, gen, kw, timestep_conditioning=False) -> dict:
+def _init_vae_attention(ch, gen, kw) -> dict:
+    p = {name: init_linear(ch, ch, gen, **kw)
+         for name in ("to_q", "to_k", "to_v", "to_out")}
+    p["q_norm"] = {"scale": torch.ones(ch, **kw)}
+    p["k_norm"] = {"scale": torch.ones(ch, **kw)}
+    return p
+
+
+def _init_mid_block(ch, num_layers, cfg, gen, kw, inject_noise=False,
+                    timestep_conditioning=False, attention_head_dim=-1) -> dict:
     p = {"res_blocks": [
-        _init_resnet(ch, ch, gen, kw, timestep_conditioning)
+        _init_resnet(ch, ch, cfg, gen, kw, inject_noise, timestep_conditioning)
         for _ in range(num_layers)
     ]}
     if timestep_conditioning:
         p["time_embedder"] = init_timestep_embedder(ch * 4, gen, **kw)
+    if attention_head_dim > 0:
+        p["attention_blocks"] = [_init_vae_attention(ch, gen, kw)
+                                 for _ in range(num_layers)]
     return p
 
 
@@ -268,7 +311,6 @@ def init_vae(
     dtype: torch.dtype = torch.float32,
 ) -> dict:
     """Seeded random params at the JAX init's scales, drawn on ``device``."""
-    _check_norm(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kw = dict(device=device, dtype=dtype)
@@ -276,9 +318,9 @@ def init_vae(
     enc_blocks = []
     for name, p, bin_ch, bout_ch in _encoder_channel_walk(cfg):
         if name == "res_x":
-            enc_blocks.append(_init_mid_block(bin_ch, p["num_layers"], gen, kw))
+            enc_blocks.append(_init_mid_block(bin_ch, p["num_layers"], cfg, gen, kw))
         elif name == "res_x_y":
-            enc_blocks.append(_init_resnet(bin_ch, bout_ch, gen, kw))
+            enc_blocks.append(_init_resnet(bin_ch, bout_ch, cfg, gen, kw))
         elif name in _DOWN_STRIDE:
             enc_blocks.append(init_conv3d(bin_ch, bout_ch, gen, **kw))
         elif name in _RES_DOWN_STRIDE:
@@ -286,36 +328,38 @@ def init_vae(
             enc_blocks.append({"conv": init_conv3d(
                 bin_ch, bout_ch // int(np.prod(stride)), gen, **kw)})
         else:
-            raise NotImplementedError(f"encoder block {name!r}")
+            raise ValueError(f"unknown encoder block: {name}")
     enc_walk = _encoder_channel_walk(cfg)
     enc_out = enc_walk[-1][3] if enc_walk else cfg.base_channels
     encoder = {
         "conv_in": init_conv3d(cfg.in_channels * cfg.patch_size**2,
                                cfg.base_channels, gen, **kw),
         "blocks": enc_blocks,
-        "conv_norm_out": {},
+        "conv_norm_out": _init_norm(enc_out, cfg, kw),
         "conv_out": init_conv3d(enc_out, _conv_out_channels(cfg), gen, **kw),
     }
 
     dec_blocks = []
     walk = _decoder_channel_walk(cfg)
     for name, p, bin_ch, bout_ch in walk:
-        if name == "res_x":
+        if name in ("res_x", "attn_res_x"):
             dec_blocks.append(_init_mid_block(
-                bin_ch, p["num_layers"], gen, kw, cfg.timestep_conditioning))
+                bin_ch, p["num_layers"], cfg, gen, kw, p.get("inject_noise", False),
+                cfg.timestep_conditioning, p.get("attention_head_dim", -1)))
         elif name == "res_x_y":
-            dec_blocks.append(_init_resnet(bin_ch, bout_ch, gen, kw))
+            dec_blocks.append(_init_resnet(bin_ch, bout_ch, cfg, gen, kw,
+                                           p.get("inject_noise", False)))
         elif name in _UP_STRIDE:
             out_ch = int(np.prod(_UP_STRIDE[name])) * bin_ch // p.get("multiplier", 1)
             dec_blocks.append({"conv": init_conv3d(bin_ch, out_ch, gen, **kw)})
         else:
-            raise NotImplementedError(f"decoder block {name!r}")
+            raise ValueError(f"unknown decoder block: {name}")
     final_ch = walk[-1][3] if walk else _decoder_initial_channels(cfg)
     decoder = {
         "conv_in": init_conv3d(cfg.latent_channels, _decoder_initial_channels(cfg),
                                gen, **kw),
         "blocks": dec_blocks,
-        "conv_norm_out": {},
+        "conv_norm_out": _init_norm(final_ch, cfg, kw),
         "conv_out": init_conv3d(final_ch, cfg.out_channels * cfg.patch_size**2,
                                 gen, **kw),
     }
@@ -325,7 +369,7 @@ def init_vae(
         decoder["last_time_embedder"] = init_timestep_embedder(final_ch * 2, gen, **kw)
         decoder["last_scale_shift_table"] = init_normal(
             (2, final_ch), final_ch**-0.5, gen, **kw)
-    return {
+    params = {
         "encoder": encoder,
         "decoder": decoder,
         "per_channel_statistics": {
@@ -333,6 +377,13 @@ def init_vae(
             "mean_of_means": torch.zeros(cfg.latent_channels, **kw),
         },
     }
+    if cfg.normalize_latent_channels:
+        # BatchNorm running statistics of the latent means
+        params["latent_norm"] = {
+            "running_mean": torch.zeros(cfg.latent_channels, **kw),
+            "running_var": torch.ones(cfg.latent_channels, **kw),
+        }
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -345,11 +396,55 @@ def _chan(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return t.to(x.dtype).reshape(t.shape[0], t.shape[1], 1, 1, 1)
 
 
-def _apply_resnet(params, x, cfg, causal, timestep_embed=None):
-    """ResnetBlock3D: norm, [AdaLN], silu, conv, norm, [AdaLN], silu, conv,
-    plus a (layer-normed, projected) shortcut."""
+def _apply_norm(params: dict, x: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
+    if cfg.norm_layer == "pixel_norm":
+        return pixel_norm(x, dim=1)
+    if cfg.norm_layer == "group_norm":
+        return group_norm(params, x, cfg.norm_num_groups, dim=1)
+    if cfg.norm_layer == "layer_norm":
+        return layer_norm(x, params.get("scale"), params.get("bias"), eps=1e-6, dim=1)
+    raise ValueError(cfg.norm_layer)
+
+
+class _SpatialNoise:
+    """The decoder's injected noise: called with the activation h [B, C,
+    F, H, W], the next [H, W] draw, taken from ``given`` in the order the
+    decoder consumes it (block by block, resnet by resnet, conv1 before
+    conv2) or else drawn from ``generator``."""
+
+    def __init__(self, generator: Optional[torch.Generator],
+                 given: Optional[Sequence[torch.Tensor]]):
+        self.generator = generator
+        self.given = None if given is None else iter(given)
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        shape = tuple(h.shape[3:])
+        if self.given is None:
+            noise = torch.randn(shape, generator=self.generator, device=h.device,
+                                dtype=torch.float32)
+        else:
+            noise = next(self.given, None)
+            if noise is None or tuple(noise.shape) != shape:
+                raise ValueError(f"spatial noise: expected a {shape} draw, got "
+                                 f"{None if noise is None else tuple(noise.shape)}")
+        return noise.to(h.device, h.dtype)
+
+    def check_used_up(self):
+        if self.given is not None and next(self.given, None) is not None:
+            raise ValueError("spatial noise: more draws given than the decoder takes")
+
+
+def _feed_spatial_noise(h, per_channel_scale, noise):
+    """h + noise [H, W] scaled per channel ([C, 1, 1], the torch layout)."""
+    return h + noise[None, None, None] * per_channel_scale.to(h.dtype).reshape(
+        1, -1, 1, 1, 1)
+
+
+def _apply_resnet(params, x, cfg, causal, timestep_embed=None, draw=None):
+    """ResnetBlock3D: norm, [AdaLN], silu, conv, [noise], norm, [AdaLN],
+    silu, conv, [noise], plus a (layer-normed, projected) shortcut."""
     conv_kw = dict(causal=causal, spatial_padding_mode=cfg.spatial_padding_mode)
-    h = pixel_norm(x, dim=1)
+    h = _apply_norm(params["norm1"], x, cfg)
     ada = None
     if "scale_shift_table" in params and timestep_embed is not None:
         c = params["scale_shift_table"].shape[-1]
@@ -358,10 +453,14 @@ def _apply_resnet(params, x, cfg, causal, timestep_embed=None):
         shift1, scale1, shift2, scale2 = (ada[:, i] for i in range(4))
         h = h * (1 + _chan(scale1, h)) + _chan(shift1, h)
     h = conv3d_params(params["conv1"], F.silu(h), **conv_kw)
-    h = pixel_norm(h, dim=1)
+    if "per_channel_scale1" in params and draw is not None:
+        h = _feed_spatial_noise(h, params["per_channel_scale1"], draw(h))
+    h = _apply_norm(params["norm2"], h, cfg)
     if ada is not None:
         h = h * (1 + _chan(scale2, h)) + _chan(shift2, h)
     h = conv3d_params(params["conv2"], F.silu(h), **conv_kw)
+    if "per_channel_scale2" in params and draw is not None:
+        h = _feed_spatial_noise(h, params["per_channel_scale2"], draw(h))
 
     shortcut = x
     if "norm3" in params:
@@ -375,13 +474,35 @@ def _apply_resnet(params, x, cfg, causal, timestep_embed=None):
     return shortcut + h
 
 
-def _apply_mid_block(params, x, cfg, causal, timestep=None):
+def _apply_vae_attention(params, x):
+    """Self-attention over the flattened video tokens with q/k rms-norm,
+    ``C // 64`` heads of 64 (one head of C below), and a residual. On the
+    card the head-major forward kernels run it where "auto" routes it."""
+    b, c = x.shape[:2]
+    tokens = x.permute(0, 2, 3, 4, 1).reshape(b, -1, c)
+    q = rms_norm(linear(params["to_q"], tokens), params["q_norm"]["scale"], eps=1e-5)
+    k = rms_norm(linear(params["to_k"], tokens), params["k_norm"]["scale"], eps=1e-5)
+    v = linear(params["to_v"], tokens)
+    heads = c // 64 if c % 64 == 0 and c >= 64 else 1
+
+    def split(t):
+        return t.reshape(b, -1, heads, c // heads).transpose(1, 2)
+
+    out = scaled_dot_product_attention(split(q), split(k), split(v))
+    out = linear(params["to_out"], out.transpose(1, 2).reshape(b, -1, c)) + tokens
+    return out.reshape(b, *x.shape[2:], c).permute(0, 4, 1, 2, 3)
+
+
+def _apply_mid_block(params, x, cfg, causal, timestep=None, draw=None):
     timestep_embed = None
     if "time_embedder" in params and timestep is not None:
         timestep_embed = timestep_embedder(
             params["time_embedder"], timestep.flatten(), dtype=x.dtype)  # [B, 4C]
-    for res in params["res_blocks"]:
-        x = _apply_resnet(res, x, cfg, causal, timestep_embed)
+    attn_blocks = params.get("attention_blocks")
+    for i, res in enumerate(params["res_blocks"]):
+        x = _apply_resnet(res, x, cfg, causal, timestep_embed, draw)
+        if attn_blocks is not None:
+            x = _apply_vae_attention(attn_blocks[i], x)
     return x
 
 
@@ -430,8 +551,8 @@ def _encode_ncdhw(params, cfg, x):
             x = _apply_space_to_depth_down(block, x, _RES_DOWN_STRIDE[name], cfg,
                                            causal=True)
         else:
-            raise NotImplementedError(f"encoder block {name!r}")
-    x = F.silu(pixel_norm(x, dim=1))
+            raise ValueError(name)
+    x = F.silu(_apply_norm(params["conv_norm_out"], x, cfg))
     x = conv3d_params(params["conv_out"], x, **conv_kw)
     if cfg.latent_log_var == "uniform":
         x = torch.cat([x, x[:, -1:].expand(-1, x.shape[1] - 2, -1, -1, -1)], dim=1)
@@ -441,7 +562,7 @@ def _encode_ncdhw(params, cfg, x):
     return x
 
 
-def _decode_ncdhw(params, cfg, x, timestep):
+def _decode_ncdhw(params, cfg, x, timestep, draw):
     causal = cfg.causal_decoder
     conv_kw = dict(causal=causal, spatial_padding_mode=cfg.spatial_padding_mode)
     x = conv3d_params(params["conv_in"], x, **conv_kw)
@@ -452,10 +573,10 @@ def _decode_ncdhw(params, cfg, x, timestep):
         scaled_t = timestep * params["timestep_scale_multiplier"]
     walk = _decoder_channel_walk(cfg)
     for block, (name, bparams, _, _) in zip(params["blocks"], walk, strict=True):
-        if name == "res_x":
-            x = _apply_mid_block(block, x, cfg, causal, timestep=scaled_t)
+        if name in ("res_x", "attn_res_x"):
+            x = _apply_mid_block(block, x, cfg, causal, timestep=scaled_t, draw=draw)
         elif name == "res_x_y":
-            x = _apply_resnet(block, x, cfg, causal)
+            x = _apply_resnet(block, x, cfg, causal, draw=draw)
         elif name in _UP_STRIDE:
             x = _apply_depth_to_space_up(
                 block, x, _UP_STRIDE[name], cfg, causal,
@@ -463,8 +584,8 @@ def _decode_ncdhw(params, cfg, x, timestep):
                 out_channels_reduction_factor=bparams.get("multiplier", 1),
             )
         else:
-            raise NotImplementedError(f"decoder block {name!r}")
-    x = pixel_norm(x, dim=1)
+            raise ValueError(name)
+    x = _apply_norm(params["conv_norm_out"], x, cfg)
     if cfg.timestep_conditioning:
         embedded = timestep_embedder(params["last_time_embedder"],
                                      scaled_t.flatten(), dtype=x.dtype)
@@ -486,7 +607,6 @@ def _to_ndhwc(x: torch.Tensor) -> torch.Tensor:
 
 def encoder_apply(params: dict, cfg: VAEConfig, sample: torch.Tensor) -> torch.Tensor:
     """[B, F, H, W, 3] -> moments [B, F', H', W', 2*latent_channels]."""
-    _check_norm(cfg)
     return _to_ndhwc(_encode_ncdhw(params, cfg, _to_ncdhw(sample)))
 
 
@@ -495,10 +615,19 @@ def decoder_apply(
     cfg: VAEConfig,
     sample: torch.Tensor,
     timestep: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    spatial_noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """[B, F', H', W', latent_channels] -> [B, F, H, W, 3]."""
-    _check_norm(cfg)
-    return _to_ndhwc(_decode_ncdhw(params, cfg, _to_ncdhw(sample), timestep))
+    """[B, F', H', W', latent_channels] -> [B, F, H, W, 3]. Blocks with
+    ``inject_noise`` add noise only when ``generator`` or ``spatial_noise``
+    (the [H, W] draws in the order the decoder takes them) is given, as
+    the JAX decoder does only when given a key."""
+    if generator is None and spatial_noise is None:
+        return _to_ndhwc(_decode_ncdhw(params, cfg, _to_ncdhw(sample), timestep, None))
+    draw = _SpatialNoise(generator, spatial_noise)
+    out = _decode_ncdhw(params, cfg, _to_ncdhw(sample), timestep, draw)
+    draw.check_used_up()
+    return _to_ndhwc(out)
 
 
 def posterior_mode(moments: torch.Tensor) -> torch.Tensor:
@@ -541,10 +670,16 @@ def vae_encode(
     """media [B, F, H, W, 3] -> normalized latents [B, F', H', W', C].
 
     A sampled posterior draws its noise from ``generator`` unless ``noise``
-    ([B, F', H', W', C]) is given."""
-    if cfg.normalize_latent_channels:
-        raise NotImplementedError("normalize_latent_channels is not ported yet")
+    ([B, F', H', W', C]) is given. With ``normalize_latent_channels`` (and
+    its running statistics) the mean half of the moments is batch-normed
+    first."""
     moments = encoder_apply(params["encoder"], cfg, media)
+    if cfg.normalize_latent_channels and "latent_norm" in params:
+        c = moments.shape[-1] // 2
+        ln = params["latent_norm"]
+        mean_half = (moments[..., :c] - ln["running_mean"].to(moments.dtype)) * (
+            ln["running_var"].to(moments.dtype) + 1e-5) ** -0.5
+        moments = torch.cat([mean_half, moments[..., c:]], dim=-1)
     if sample_posterior:
         if noise is None:
             shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
@@ -562,9 +697,15 @@ def vae_decode(
     latents: torch.Tensor,
     timestep: Optional[torch.Tensor] = None,
     per_channel_normalize: bool = False,
+    generator: Optional[torch.Generator] = None,
+    spatial_noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Normalized latents [B, F', H', W', C] -> pixels [B, F, H, W, 3]."""
-    if cfg.normalize_latent_channels:
-        raise NotImplementedError("normalize_latent_channels is not ported yet")
+    """Normalized latents [B, F', H', W', C] -> pixels [B, F, H, W, 3];
+    ``generator`` / ``spatial_noise`` as in :func:`decoder_apply`."""
     z = un_normalize_latents(latents, params, cfg, per_channel_normalize)
-    return decoder_apply(params["decoder"], cfg, z, timestep=timestep)
+    if cfg.normalize_latent_channels and "latent_norm" in params:
+        ln = params["latent_norm"]
+        z = z * torch.sqrt(ln["running_var"].to(z.dtype) + 1e-5) + ln[
+            "running_mean"].to(z.dtype)
+    return decoder_apply(params["decoder"], cfg, z, timestep=timestep,
+                         generator=generator, spatial_noise=spatial_noise)

@@ -102,6 +102,20 @@ class GenerationParams:
     solver: str = "euler"
 
 
+def adain_filter_latent(latents: torch.Tensor, reference_latents: torch.Tensor,
+                        factor: float = 1.0) -> torch.Tensor:
+    """Per-(batch, channel) AdaIN of [B, F, H, W, C] latents toward the
+    reference's mean and std (unbiased) over (F, H, W), blended by
+    ``factor``."""
+    dims = (1, 2, 3)
+    r_mean = reference_latents.mean(dim=dims, keepdim=True)
+    r_std = reference_latents.std(dim=dims, keepdim=True, correction=1)
+    i_mean = latents.mean(dim=dims, keepdim=True)
+    i_std = latents.std(dim=dims, keepdim=True, correction=1)
+    result = (latents - i_mean) / i_std * r_std + r_mean
+    return latents + factor * (result - latents)
+
+
 def _guidance_mapping(timesteps: np.ndarray,
                       guidance_timesteps: Sequence[float]) -> List[int]:
     """Index of the guidance entry that applies at each schedule step: the
@@ -706,8 +720,10 @@ class LTXVideoPipeline:
         if pose_frames is not None:
             pose_lat = self.encode_media(pose_frames.to(dtype), generator,
                                          pose_noise, pcn)
-        if (ref_lat is None) != (pose_lat is None):
-            raise ValueError("the avatar lerp needs both ref and pose latents")
+        if ref_lat is None or pose_lat is None:
+            # the avatar lerp needs both; with one, the JAX package encodes
+            # it and runs without the lerp, and so does the port
+            ref_lat = pose_lat = None
         t0 = mark("encode_s", t0)
 
         init = self.prepare_latents(

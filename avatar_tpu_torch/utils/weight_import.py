@@ -24,8 +24,8 @@ transformer, VAE and scheduler configs, with the transformer's state under
 ``model.diffusion_model.`` and the VAE's under ``vae.``, in the reference's
 parameter names and torch layouts (:func:`import_transformer_state`,
 :func:`export_transformer_state`, :func:`load_single_file_checkpoint`,
-:func:`save_single_file_checkpoint`). The VAE's state passes through as
-it is read.
+:func:`save_single_file_checkpoint`; the VAE's by :func:`import_vae_state`
+and :func:`export_vae_state`).
 """
 
 from __future__ import annotations
@@ -38,7 +38,11 @@ import numpy as np
 import torch
 
 from avatar_tpu_torch.models.dit import DiTConfig
-from avatar_tpu_torch.models.vae import VAEConfig
+from avatar_tpu_torch.models.vae import (
+    VAEConfig,
+    _decoder_channel_walk,
+    _encoder_channel_walk,
+)
 from avatar_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
 
 
@@ -106,8 +110,14 @@ def vae_params_from_numpy(tree: dict, cfg: VAEConfig, device="cuda",
                           dtype: torch.dtype = torch.float32) -> dict:
     """JAX VAE params (numpy leaves) -> the port's tree. Scalars (the
     decoder's timestep multiplier) stay f32."""
-    if cfg.normalize_latent_channels and "latent_norm" in tree:
-        raise NotImplementedError("normalize_latent_channels is not ported yet")
+    return _convert(tree, device, dtype)
+
+
+def latent_upsampler_params_from_numpy(tree: dict, device="cuda",
+                                       dtype: torch.dtype = torch.float32) -> dict:
+    """JAX latent-upsampler params (numpy leaves, ``avatar_tpu/models/
+    latent_upsampler.py``'s tree) -> the port's: conv kernels [kt, kh, kw,
+    in, out] become weights [out, in, kt, kh, kw]."""
     return _convert(tree, device, dtype)
 
 
@@ -266,6 +276,217 @@ def export_transformer_state(params: dict, cfg: DiTConfig) -> Dict[str, torch.Te
         for norm in ("norm1", "norm2"):
             if norm in block:
                 s[f"{pre}.{norm}.weight"] = block[norm]["scale"]
+    return {k: v.detach().cpu().contiguous() for k, v in s.items()}
+
+
+# ---------------------------------------------------------------------------
+# VAE state (reference names, torch layouts) <-> the port's VAE tree
+# ---------------------------------------------------------------------------
+
+
+def _conv_from_state(s, prefix: str) -> dict:
+    """A CausalConv3d (its ``.conv`` submodule) or a plain conv."""
+    key = f"{prefix}.conv.weight" if f"{prefix}.conv.weight" in s else f"{prefix}.weight"
+    p = {"weight": s[key]}
+    bkey = key.replace("weight", "bias")
+    if bkey in s:
+        p["bias"] = s[bkey]
+    return p
+
+
+def _norm_from_state(s, prefix: str) -> dict:
+    p = {}
+    if f"{prefix}.weight" in s:
+        p["scale"] = s[f"{prefix}.weight"]
+    if f"{prefix}.bias" in s:
+        p["bias"] = s[f"{prefix}.bias"]
+    return p
+
+
+def _resnet_from_state(s, prefix: str) -> dict:
+    p: Dict[str, Any] = {
+        "norm1": _norm_from_state(s, f"{prefix}.norm1"),
+        "conv1": _conv_from_state(s, f"{prefix}.conv1"),
+        "norm2": _norm_from_state(s, f"{prefix}.norm2"),
+        "conv2": _conv_from_state(s, f"{prefix}.conv2"),
+    }
+    if f"{prefix}.conv_shortcut.weight" in s:
+        # a 1x1x1 conv, kept as the linear [out, in] it is
+        p["conv_shortcut"] = {"weight": s[f"{prefix}.conv_shortcut.weight"][:, :, 0, 0, 0]}
+        if f"{prefix}.conv_shortcut.bias" in s:
+            p["conv_shortcut"]["bias"] = s[f"{prefix}.conv_shortcut.bias"]
+        p["norm3"] = {"scale": s[f"{prefix}.norm3.norm.weight"],
+                      "bias": s[f"{prefix}.norm3.norm.bias"]}
+    for name in ("scale_shift_table", "per_channel_scale1", "per_channel_scale2"):
+        if f"{prefix}.{name}" in s:
+            p[name] = s[f"{prefix}.{name}"]
+    return p
+
+
+def _timestep_embedder_from_state(s, prefix: str) -> dict:
+    return {name: _linear_from_state(s, f"{prefix}.timestep_embedder.{name}")
+            for name in ("linear_1", "linear_2")}
+
+
+def _mid_block_from_state(s, prefix: str, num_layers: int, has_attn: bool = False) -> dict:
+    p: Dict[str, Any] = {"res_blocks": [
+        _resnet_from_state(s, f"{prefix}.res_blocks.{j}") for j in range(num_layers)]}
+    if f"{prefix}.time_embedder.timestep_embedder.linear_1.weight" in s:
+        p["time_embedder"] = _timestep_embedder_from_state(s, f"{prefix}.time_embedder")
+    if has_attn or f"{prefix}.attention_blocks.0.to_q.weight" in s:
+        attn, j = [], 0
+        while f"{prefix}.attention_blocks.{j}.to_q.weight" in s:
+            attn.append(_attn_from_state(s, f"{prefix}.attention_blocks.{j}"))
+            j += 1
+        p["attention_blocks"] = attn
+    return p
+
+
+def import_vae_state(state: Dict[str, torch.Tensor], cfg: VAEConfig,
+                     strict: bool = True, device="cuda",
+                     dtype: Optional[torch.dtype] = None) -> dict:
+    """A reference-named VAE state dict -> the port's VAE tree, each
+    tensor moved to ``device`` and, if given, ``dtype`` (scalars stay f32).
+    ``strict``: raise on a key the tree does not take."""
+    s = _TrackedState({k: v.to(device=device, dtype=dtype if dtype is not None and v.ndim
+                                else None) for k, v in state.items()})
+
+    def coder(side: str, walk, blocks_key: str) -> dict:
+        p: Dict[str, Any] = {
+            "conv_in": _conv_from_state(s, f"{side}.conv_in"),
+            "conv_norm_out": _norm_from_state(s, f"{side}.conv_norm_out"),
+            "conv_out": _conv_from_state(s, f"{side}.conv_out"),
+            "blocks": [],
+        }
+        for i, (name, bparams, _, _) in enumerate(walk):
+            prefix = f"{side}.{blocks_key}.{i}"
+            if name in ("res_x", "attn_res_x"):
+                p["blocks"].append(_mid_block_from_state(
+                    s, prefix, bparams["num_layers"], has_attn=name == "attn_res_x"))
+            elif name == "res_x_y":
+                p["blocks"].append(_resnet_from_state(s, prefix))
+            elif name.startswith("compress") and (name.endswith("_res")
+                                                  or side == "decoder"):
+                p["blocks"].append({"conv": _conv_from_state(s, f"{prefix}.conv")})
+            elif name.startswith("compress"):
+                p["blocks"].append(_conv_from_state(s, prefix))  # a strided conv
+            else:
+                raise ValueError(name)
+        return p
+
+    params: Dict[str, Any] = {
+        "encoder": coder("encoder", _encoder_channel_walk(cfg), "down_blocks"),
+        "decoder": coder("decoder", _decoder_channel_walk(cfg), "up_blocks"),
+    }
+    dec = params["decoder"]
+    if "decoder.timestep_scale_multiplier" in s:
+        # a scalar, which some writers store with shape [1]
+        dec["timestep_scale_multiplier"] = s["decoder.timestep_scale_multiplier"].float(
+            ).reshape(())
+    if "decoder.last_time_embedder.timestep_embedder.linear_1.weight" in s:
+        dec["last_time_embedder"] = _timestep_embedder_from_state(
+            s, "decoder.last_time_embedder")
+        dec["last_scale_shift_table"] = s["decoder.last_scale_shift_table"]
+    if "latent_norm_out.running_mean" in s:
+        params["latent_norm"] = {"running_mean": s["latent_norm_out.running_mean"],
+                                 "running_var": s["latent_norm_out.running_var"]}
+        if "latent_norm_out.num_batches_tracked" in s:
+            _ = s["latent_norm_out.num_batches_tracked"]  # consumed, unused
+    stats = {}
+    for key, ours in (("std-of-means", "std_of_means"), ("mean-of-means", "mean_of_means")):
+        if f"{PER_CHANNEL_STATISTICS_PREFIX}{key}" in s:
+            stats[ours] = s[f"{PER_CHANNEL_STATISTICS_PREFIX}{key}"]
+    if stats:
+        stats.setdefault("mean_of_means", torch.zeros_like(stats["std_of_means"]))
+        params["per_channel_statistics"] = stats
+    if strict and s.unused():
+        raise ValueError(f"Unconsumed VAE checkpoint keys: {sorted(s.unused())[:10]} ...")
+    return params
+
+
+def export_vae_state(params: dict, cfg: VAEConfig) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`import_vae_state`: reference names, CPU
+    tensors in their dtypes."""
+    s: Dict[str, torch.Tensor] = {}
+
+    def put(key, p, names=(("weight", "weight"), ("bias", "bias"))):
+        for ours, theirs in names:
+            if ours in p:
+                s[f"{key}.{theirs}"] = p[ours]
+
+    def put_conv(key, p):
+        put(f"{key}.conv", p)
+
+    def put_norm(key, p):
+        put(key, p, (("scale", "weight"), ("bias", "bias")))
+
+    def put_resnet(prefix, p):
+        put_norm(f"{prefix}.norm1", p["norm1"])
+        put_conv(f"{prefix}.conv1", p["conv1"])
+        put_norm(f"{prefix}.norm2", p["norm2"])
+        put_conv(f"{prefix}.conv2", p["conv2"])
+        if "conv_shortcut" in p:
+            s[f"{prefix}.conv_shortcut.weight"] = p["conv_shortcut"]["weight"][
+                :, :, None, None, None]
+            if "bias" in p["conv_shortcut"]:
+                s[f"{prefix}.conv_shortcut.bias"] = p["conv_shortcut"]["bias"]
+            put_norm(f"{prefix}.norm3.norm", p["norm3"])
+        for name in ("scale_shift_table", "per_channel_scale1", "per_channel_scale2"):
+            if name in p:
+                s[f"{prefix}.{name}"] = p[name]
+
+    def put_embedder(prefix, p):
+        for name in ("linear_1", "linear_2"):
+            put(f"{prefix}.timestep_embedder.{name}", p[name])
+
+    def put_mid(prefix, p):
+        for j, rb in enumerate(p["res_blocks"]):
+            put_resnet(f"{prefix}.res_blocks.{j}", rb)
+        if "time_embedder" in p:
+            put_embedder(f"{prefix}.time_embedder", p["time_embedder"])
+        for j, a in enumerate(p.get("attention_blocks") or []):
+            pre = f"{prefix}.attention_blocks.{j}"
+            for proj in ("to_q", "to_k", "to_v"):
+                put(f"{pre}.{proj}", a[proj])
+            put(f"{pre}.to_out.0", a["to_out"])
+            for norm in ("q_norm", "k_norm"):
+                if norm in a:
+                    put_norm(f"{pre}.{norm}", a[norm])
+
+    for side, walk, blocks_key in (
+        ("encoder", _encoder_channel_walk(cfg), "down_blocks"),
+        ("decoder", _decoder_channel_walk(cfg), "up_blocks"),
+    ):
+        p = params[side]
+        put_conv(f"{side}.conv_in", p["conv_in"])
+        put_norm(f"{side}.conv_norm_out", p["conv_norm_out"])
+        put_conv(f"{side}.conv_out", p["conv_out"])
+        for i, (name, _, _, _) in enumerate(walk):
+            prefix, bp = f"{side}.{blocks_key}.{i}", p["blocks"][i]
+            if name in ("res_x", "attn_res_x"):
+                put_mid(prefix, bp)
+            elif name == "res_x_y":
+                put_resnet(prefix, bp)
+            elif name.startswith("compress") and (name.endswith("_res")
+                                                  or side == "decoder"):
+                put_conv(f"{prefix}.conv", bp["conv"])
+            elif name.startswith("compress"):
+                put_conv(prefix, bp)
+            else:
+                raise ValueError(name)
+    dec = params["decoder"]
+    if "timestep_scale_multiplier" in dec:
+        s["decoder.timestep_scale_multiplier"] = dec["timestep_scale_multiplier"]
+    if "last_time_embedder" in dec:
+        put_embedder("decoder.last_time_embedder", dec["last_time_embedder"])
+        s["decoder.last_scale_shift_table"] = dec["last_scale_shift_table"]
+    if "latent_norm" in params:
+        s["latent_norm_out.running_mean"] = params["latent_norm"]["running_mean"]
+        s["latent_norm_out.running_var"] = params["latent_norm"]["running_var"]
+    if "per_channel_statistics" in params:
+        st = params["per_channel_statistics"]
+        s[f"{PER_CHANNEL_STATISTICS_PREFIX}std-of-means"] = st["std_of_means"]
+        s[f"{PER_CHANNEL_STATISTICS_PREFIX}mean-of-means"] = st["mean_of_means"]
     return {k: v.detach().cpu().contiguous() for k, v in s.items()}
 
 

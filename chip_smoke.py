@@ -69,7 +69,11 @@ Phases, each printing one JSON line as soon as it has its numbers:
    reference_conditioned: conditioning items (first frame resized up with
    the image-conditioning noise; off-centre beside a sequence at frame 8
    with its prefix tokens) and ``media_items`` with skipped initial steps,
-   the same four ways;
+   the same four ways; reference_vae_variants: a VAE with group norm,
+   timestep conditioning, decoder noise injection and ``attn_res_x``
+   blocks at 192 and 1280 tokens (E and D on the Hopper kernel), its decode
+   in bf16 on the card against f32 on the CPU, and a tiny pipeline whose
+   DiT has ``adaptive_norm="none"`` the four ways above;
 6. reference_w8a8: tiny quantized pipelines in bf16 on the card against
    f32 on the CPU, same int8 weights and noise: W8A8 at 4352 tokens (the
    int8 kernels), W8A8 at 16 tokens (the library int8 product) and
@@ -101,13 +105,25 @@ Phases, each printing one JSON line as soon as it has its numbers:
    row-block one), launches checked per kernel, profile of 3 steps
    (device ms by kernel), and the latents''
    relative RMS against the bf16 long path's (printed, not held);
-11. reference_train (run after phase 6): a tiny DiT (heads of 64, 128
+11. cli, cli_long_video, cli_multiscale: the inference CLI
+   (``avatar_tpu_torch.cli.infer.generate``) on a single-file checkpoint
+   the port exports from the same 2B models, the ``t5`` embeddings as its
+   ``prompt_embeds_path`` and the shipped ``configs/inference-avatars.yaml``
+   (held here as a dict: the card's machine has no PyYAML) at the CLI's
+   defaults (192 x 320, 121 frames, 40 steps): one pass (960 tokens, A and
+   B), 185 frames as two windows of 97 (780 tokens: E for both attentions,
+   as the route predicates send a length that is not a multiple of 16),
+   and the multi-scale pipeline with a random ``LatentUpsamplerConfig()``
+   (a 384-token pass on A and B, a 1536-token pass on C and B); load,
+   warm-up and video seconds, frames / s, peak memory, launches exactly as
+   ``dit_route_counts`` names them;
+12. reference_train (run after phase 6): a tiny DiT (heads of 64, 128
    tokens) trained 2 steps with accumulation 2, "lora_audio" and "full",
    bf16 on the card against f32 on the CPU and against the card without
    the kernels, same weights, t and noise; train_cli: the port's
    ``train_loop`` writing, exporting and resuming in a temporary
    directory;
-12. train: the full-width 2B DiT trained in "lora_audio" mode at the
+13. train: the full-width 2B DiT trained in "lora_audio" mode at the
    training point (batch 8, 480 tokens, caption 256, accumulation 2, 3
    optimizer steps): losses, launches per micro-step (A, B, E and F on the
    Hopper kernels only), seconds per step, peak memory and a profile of
@@ -392,6 +408,52 @@ def _wmma_rope_entry(dtype_name="bf16", defines=()):
     return call
 
 
+# The inference CLI's latent grids (frames, height, width) at its default
+# 192 x 320: one pass of 121 frames, a window of 97 frames, and the
+# multi-scale passes at 128 x 192 and 256 x 384 (121 frames)
+CLI_GRIDS = {"one pass": (16, 6, 10), "window": (13, 6, 10),
+             "multi-scale first pass": (16, 4, 6), "multi-scale second pass": (16, 8, 12)}
+
+
+def dit_routes(tokens: int, caption: int):
+    """[(counter, implementation)] of one block of the 2B DiT (bf16, 32
+    heads of 64, q/k-normed: bounded logits) at ``tokens`` self-attention
+    tokens and ``caption`` caption keys, self-attention first, as
+    ``models/dit.py:_attention``'s route predicates name them: A where
+    ``rope_fused_supports`` holds, else the head-major forward mode of
+    ``flash_mode``; B where ``fused_supports`` holds, else the same."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    if fa.rope_fused_supports(tokens, HEADS, HEAD_DIM, bf16):
+        routes = [("rope_fused_attention", fa.rope_impl(bf16, HEAD_DIM))]
+    else:
+        mode = fa.flash_mode(tokens, tokens, True)
+        routes = [(f"flash_{mode}", fa.forward_impl(mode, bf16, HEAD_DIM))]
+    if fa.fused_supports(tokens, caption, HEADS, HEAD_DIM, bf16):
+        return routes + [("fused_token_attention", fa.token_impl(bf16, HEAD_DIM))]
+    mode = fa.flash_mode(tokens, caption, True)
+    return routes + [(f"flash_{mode}", fa.forward_impl(mode, bf16, HEAD_DIM))]
+
+
+def cli_shapes(counter: str):
+    """The attention calls of the CLI phases that ``dit_routes`` sends to
+    ``counter``: [(label, tokens, keys, grid)], keys the tokens for the
+    self-attention and the 256 caption keys (200 kept, as the ``t5``
+    phase's prompt) for the cross-attention."""
+    out = []
+    for label, grid in CLI_GRIDS.items():
+        n = math.prod(grid)
+        (self_name, _), (cross_name, _) = dit_routes(n, CAPTION)
+        if self_name == counter:
+            out.append((f"cli {label} self {n}", n, n, grid))
+        if cross_name == counter:
+            out.append((f"cli {label} cross {n}x{CAPTION}", n, CAPTION, grid))
+    return out
+
+
 # A's shapes on the driven paths: (batch, tokens, grid) of the short path,
 # the guided path's three conds, the training forward and the long path's
 # length (which the reference's 6 MiB cap sends to C instead)
@@ -404,9 +466,10 @@ def check_rope_kernel(peaks):
     """A on the Hopper kernel (bf16, head dim 64 and 128) against its plain
     version, bounded and unbounded (the two-pass whole-row max): the short
     path's 832 tokens, the guided batch 3, the training batch 8 x 480, a
-    ragged L = 80 and the largest length the reference's cap admits (1248);
-    every call must launch ``rope_fused_attention_sm90``. Then at each
-    shape of ROPE_SHAPES and at head dim 128: the kernel's time, the bound
+    ragged L = 80, the largest length the reference's cap admits (1248) and
+    the CLI phases' lengths that reach A (``cli_shapes``); every call must
+    launch ``rope_fused_attention_sm90``. Then at each shape of ROPE_SHAPES,
+    the CLI's and at head dim 128: the kernel's time, the bound
     and its fraction, ``scaled_dot_product_attention`` on q and k rotated
     beforehand (head-major, contiguous), and the WMMA kernel it replaces on
     the same inputs; the plain version's time at 832 tokens."""
@@ -437,6 +500,9 @@ def check_rope_kernel(peaks):
         "d=128 832": d128(main),
         "d=128 ragged L=80, batch 2": d128(inputs(80, (5, 4, 4), batch=2)),
     }
+    # the CLI phases' self-attention that the route predicates send to A
+    cli = {label: (1, n, grid) for label, n, _, grid in cli_shapes("rope_fused_attention")}
+    cases.update({label: (inputs(n, grid), HEADS, scale) for label, (_, n, grid) in cli.items()})
     errors = KernelErrors("rope_fused_attention_sm90")
     for label, (args, heads, sc) in cases.items():
         for bounded in (True, False):
@@ -484,8 +550,9 @@ def check_rope_kernel(peaks):
         return res
 
     shapes = {}
-    for label, (b, length, grid) in ROPE_SHAPES.items():
-        args = main if label == "832" else inputs(length, grid, batch=b)
+    for label, (b, length, grid) in {**ROPE_SHAPES, **cli}.items():
+        args = main if label == "832" else (
+            cases[label][0] if label in cli else inputs(length, grid, batch=b))
         shapes[label] = timings(args, HEADS, scale, wmma64)
         if length == LONG_TOKENS:
             # what the long path runs instead (the reference's 6 MiB cap):
@@ -566,12 +633,13 @@ TOKEN_SHAPES = {"832x256": (1, TOKENS, (200,)), "batch 3": (3, TOKENS, (120, 200
 def check_token_kernel(peaks):
     """B on the Hopper kernel (bf16, head dim 64 and 128) against its plain
     version, bounded and unbounded (the two-pass whole-row max), with and
-    without a mask, at every shape of TOKEN_SHAPES, a ragged Lk = 77 with a
-    fully masked sample, Lk = 512 (four key tiles) and head dim 128; every call must launch
-    ``fused_token_attention_sm90`` and a fully masked sample must be 0.
-    Then at each shape of TOKEN_SHAPES and at head dim 128: the kernel's
-    device time, the WMMA kernel it replaced on the same inputs (through its
-    C entry), ``scaled_dot_product_attention`` on head-major contiguous
+    without a mask, at every shape of TOKEN_SHAPES and of the CLI phases
+    that reach B (``cli_shapes``), a ragged Lk = 77 with a fully masked
+    sample, Lk = 512 (four key tiles) and head dim 128; every call must
+    launch ``fused_token_attention_sm90`` and a fully masked sample must be
+    0. Then at each shape of TOKEN_SHAPES and the CLI's, and at head dim
+    128: the kernel's device time, the WMMA kernel it replaced on the same
+    inputs (through its C entry), ``scaled_dot_product_attention`` on head-major contiguous
     copies with the same keep-mask (all three by the profiler's device
     time, each also by CUDA events), and the bound over the kept keys; the
     plain version's time at 832 tokens."""
@@ -594,6 +662,9 @@ def check_token_kernel(peaks):
                 randn(b, lk, WIDTH), mask)
 
     shapes = {label: inputs(b, lq, kept) for label, (b, lq, kept) in TOKEN_SHAPES.items()}
+    # the CLI phases' cross-attention that the route predicates send to B
+    shapes.update({label: inputs(1, n, (T5_KEPT[0],), lk=lk)
+                   for label, n, lk, _ in cli_shapes("fused_token_attention")})
     q, k, v, mask = shapes["832x256"]
     cases = {label: (args, HEADS, scale) for label, args in shapes.items()}
     cases.update({
@@ -744,13 +815,15 @@ def check_flash_kernel(mode, peaks):
     """One forward kernel (head-major, O and lse) on the Hopper kernel
     against its plain version: unmasked, masked (a tail and a band of
     keys), a fully masked batch row, ragged lengths, head dim 128 and q, k,
-    v as head-major views of token-major tensors (read in place); the
+    v as head-major views of token-major tensors (read in place), and the
+    CLI phases' shapes that reach this mode (``cli_shapes``); the
     whole-row mode (E) also at the training shapes, the caption's with a
     fully masked sample. Then the times at its
-    main-path shapes (E: SINGLE_SHAPES): the kernel, the WMMA kernel it
-    replaces on the same inputs, ``scaled_dot_product_attention``, the bound
-    and its fraction, and at head dim 128; the plain version's time; for C
-    and D also the kernel on transposed views."""
+    main-path shapes (E: SINGLE_SHAPES and the CLI's): the kernel, the WMMA
+    kernel it replaces on the same inputs, ``scaled_dot_product_attention``,
+    the bound and its fraction, and at head dim 128; the plain version's
+    time; for C and D also the kernel on transposed views and at the CLI's
+    shapes (kernel and bound)."""
     import torch
     import torch.nn.functional as F
 
@@ -822,8 +895,15 @@ def check_flash_kernel(mode, peaks):
             "d=128 5000x333 ragged, band, masked row": (
                 qkv(2, 5000, 333, 128), keep_mask(2, 333, 300, 1, (40, 90)), 1),
         }
-    errors, lse_errs = KernelErrors(f"flash {mode}"), {}
+    # the CLI phases' attention that the route predicates send to this mode:
+    # q, k, v as the DiT hands them over (head-major views of token-major
+    # tensors), the caption's keys with the prompt's mask
     mode_counter = f"flash_{mode}"
+    cli = {label: (qkv(1, n, lk, token_major=True),
+                   None if lk == n else keep_mask(1, lk, T5_KEPT[0]))
+           for label, n, lk, _ in cli_shapes(mode_counter)}
+    cases.update({label: (args, mask, None) for label, (args, mask) in cli.items()})
+    errors, lse_errs = KernelErrors(f"flash {mode}"), {}
     for label, ((q, k, v), mask, empty_row) in cases.items():
         d = q.shape[-1]
         scale = d**-0.5
@@ -867,7 +947,9 @@ def check_flash_kernel(mode, peaks):
         def timings(q_, k_, v_, mask, wmma):
             b_, h_, lq_, d_ = q_.shape
             sc = d_**-0.5
-            qs, out = q_ * sc, torch.empty_like(q_)
+            # the WMMA kernel reads contiguous tensors (its route copies views)
+            qs, kc, vc = (q_ * sc).contiguous(), k_.contiguous(), v_.contiguous()
+            out = torch.empty_like(qs)
             lse = torch.empty(b_, h_, lq_, device="cuda")
             keep = None if mask is None else (mask > 0.5)[:, None, None, :]
 
@@ -883,14 +965,15 @@ def check_flash_kernel(mode, peaks):
                    "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
                        q_, k_, v_, attn_mask=keep)),
                    "wmma_ms_same_inputs": device_ms(
-                       lambda: wmma(qs, k_, v_, out, lse, mask), "flash_forward_kernel",
+                       lambda: wmma(qs, kc, vc, out, lse, mask), "flash_forward_kernel",
                        reps=5)}
             res["wmma_over_sm90"] = res["wmma_ms_same_inputs"] / ms_
             res["sm90_over_library"] = ms_ / res["library_ms"]
             return res
 
+        shaped.update(cli)
         shapes = {label: timings(*shaped[label][0], shaped[label][1], wmma64)
-                  for label in SINGLE_SHAPES}
+                  for label in (*SINGLE_SHAPES, *cli)}
         shapes["d=128 637x637"] = timings(*cases["d=128 637x637"][0], None, wmma128)
         shapes["d=128 8x480x256, masked sample"] = timings(
             *cases["d=128 8x480x256, masked sample"][0], cross_mask, wmma128)
@@ -920,6 +1003,12 @@ def check_flash_kernel(mode, peaks):
             "bound_ms_d128": bound(*_attention_work(*q128.shape[:3], lq, 128), peaks)[0],
             "wmma_ms_same_inputs": time_ms(lambda: wmma(qs, k, v, out, lse), reps=5, batches=3),
             "fraction_of_bound": bound_ms / ms,
+            "shapes": {label: {
+                "shape": list(q_.shape) + [k_.shape[2]],
+                "ms": time_ms(lambda: fa.flash_attention(
+                    q_, k_, v_, kv_mask=m_, scale=scale, bounded_logits=bounded)),
+                "bound_ms": bound(*_forward_work(q_, k_, m_), peaks)[0]}
+                for label, ((q_, k_, v_), m_) in cli.items()},
         }
         del qs, out, lse
     row = {"name": row_name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3430,6 +3519,349 @@ def profile_denoise(pipe, p, embeds, mask, ref, pose, step_s, steps):
     }
 
 
+# ---------------------------------------------------------------------------
+# The VAE / DiT variants and the inference CLI
+# ---------------------------------------------------------------------------
+
+# A decoder with the variant blocks, in the reference's block order (the
+# decoder walks it backwards): an attention block at the latent size (192
+# tokens: E), an up-conv, an attention block with noise at 1280 tokens (D),
+# an up-conv to 64 channels, a noisy resnet, an up-conv; group norm and
+# timestep conditioning throughout. Attention at 128 channels: 2 heads of 64.
+VAE_VARIANT = {
+    "latent_channels": 16, "encoder_base_channels": 32, "decoder_base_channels": 64,
+    "patch_size": 4, "norm_layer": "group_norm", "timestep_conditioning": True,
+    "latent_log_var": "uniform",
+    "encoder_blocks": [("res_x", {"num_layers": 1}), ("compress_all", {}),
+                       ("res_x_y", {"multiplier": 2}), ("compress_all", {}),
+                       ("compress_all", {}), ("res_x", {"num_layers": 1})],
+    "decoder_blocks": [("compress_all", {}),
+                       ("res_x", {"num_layers": 1, "inject_noise": True}),
+                       ("compress_all", {"residual": True, "multiplier": 2}),
+                       ("attn_res_x", {"num_layers": 1, "attention_head_dim": 64,
+                                       "inject_noise": True}),
+                       ("compress_all", {}),
+                       ("attn_res_x", {"num_layers": 1, "attention_head_dim": 64})],
+}
+VAE_VARIANT_LATENT = (1, 3, 8, 8, 16)  # -> 17 frames at 256 px
+# The variant decode in bf16 on the card against f32 on the CPU, relative
+# RMS of the pixels: bf16 rounds each of about 20 convs' inputs and the
+# attention's p and o (0.012 measured in bf16 on the CPU)
+VAE_VARIANT_TOL = 0.03
+# The inference CLI's shipped pipeline config, configs/inference-avatars.yaml
+# as yaml.safe_load reads it (the card's machine has no PyYAML;
+# tests/test_torch_imports.py holds the two equal)
+INFERENCE_AVATARS_YAML = {
+    "pipeline_type": "base",
+    "checkpoint_path": "ltxv-2b-0.9.6-dev-04-25.safetensors",
+    "vae_checkpoint_path": "ltxv-2b-0.9.6-dev-04-25.safetensors",
+    "guidance_scale": 1, "stg_scale": 0, "rescaling_scale": 1, "skip_block_list": [19],
+    "num_inference_steps": 40, "stg_mode": "attention_values", "decode_timestep": 0.05,
+    "decode_noise_scale": 0.025, "precision": "bfloat16", "sampler": "from_checkpoint",
+    "stochastic_sampling": False, "output_path": "./result", "seed": 171198,
+    "spatial_upscaler_model_path": None,
+    "text_encoder_model_name_or_path": "PixArt-alpha/PixArt-XL-2-1024-MS",
+}
+
+
+def _variant_decode(vcfg, params, latents, t, noise, device, dtype):
+    """The variant VAE's decode on ``device`` in ``dtype`` with the given
+    injected noise; (pixels on the CPU in f32, launches)."""
+    import torch
+
+    from avatar_tpu_torch.models.vae import vae_decode
+
+    reset_counts()
+    out = vae_decode(_tree_to(params, device, dtype), vcfg, latents.to(device, dtype),
+                     t.to(device), spatial_noise=[n.to(device, dtype) for n in noise])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out.float().cpu(), {k: n for k, n in read_counts().items() if n}
+
+
+def _variant_noise(vcfg, params, latent_shape, seed=6):
+    """[H, W] draws for each noisy conv of the decode, in its order."""
+    import torch
+
+    from avatar_tpu_torch.models.vae import _UP_STRIDE, _decoder_channel_walk
+
+    g = torch.Generator().manual_seed(seed)
+    h, w = latent_shape[2:4]
+    noise = []
+    for bp, (name, _, _, _) in zip(params["decoder"]["blocks"], _decoder_channel_walk(vcfg)):
+        if name in _UP_STRIDE:
+            h, w = h * _UP_STRIDE[name][1], w * _UP_STRIDE[name][2]
+            continue
+        for res in bp.get("res_blocks", [bp]):
+            noise += [torch.randn(h, w, generator=g) for n in (1, 2)
+                      if f"per_channel_scale{n}" in res]
+    return noise
+
+
+def check_reference_vae_variants():
+    """The variants the shipped 2B models leave out, bf16 on the card
+    against f32 on the CPU, same weights and noise: the variant VAE's decode
+    (group norm, timestep conditioning, noise injection, attention blocks
+    at 192 and 1280 tokens: E and D on the Hopper kernel, exactly as
+    ``flash_mode`` and ``forward_impl`` route them), and a tiny pipeline
+    whose DiT has ``adaptive_norm="none"`` and whose VAE is the variant one
+    (``_reference_run``: A and B)."""
+    import dataclasses
+
+    import torch
+
+    from avatar_tpu_torch.models.dit import DiTConfig, init_dit
+    from avatar_tpu_torch.models.vae import VAEConfig, init_vae
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    vcfg = VAEConfig.from_dict(VAE_VARIANT)
+    vae = _tree_to(init_vae(vcfg, 3, device="cpu"), "cpu", torch.float32)
+    g = torch.Generator().manual_seed(8)
+    # norm affines and injected-noise scales away from their init (1, 0)
+    for name, leaf in _named_leaves(vae):
+        if "per_channel_scale" in name or ("norm" in name and leaf.ndim == 1):
+            leaf += 0.1 * torch.randn(leaf.shape, generator=g)
+    latents = torch.randn(VAE_VARIANT_LATENT, generator=g)
+    t = torch.tensor([0.05])
+    noise = _variant_noise(vcfg, vae, VAE_VARIANT_LATENT)
+    cpu, _ = _variant_decode(vcfg, vae, latents, t, noise, "cpu", torch.float32)
+    card, launches = _variant_decode(vcfg, vae, latents, t, noise, "cuda", torch.bfloat16)
+    expect = {}
+    for tokens in (3 * 8 * 8, 5 * 16 * 16):  # the two attention blocks
+        mode = fa.flash_mode(tokens, tokens, False)
+        impl = fa.forward_impl(mode, torch.bfloat16, HEAD_DIM)
+        for name in (f"flash_{mode}", f"flash_{mode}_{impl}"):
+            expect[name] = expect.get(name, 0) + 1
+    decode = {"shape": list(card.shape), "rel_rms_err": _rel_rms(card, cpu),
+              "max_abs_err": (card - cpu).abs().max().item(), "tol": VAE_VARIANT_TOL,
+              "noise_draws": len(noise), "launches": launches, "expected": expect}
+    emit({"phase": "reference_vae_variants_decode", **decode})
+    if tuple(card.shape) != (1, 17, 256, 256, 3) or not math.isfinite(decode["rel_rms_err"]):
+        fail(f"reference_vae_variants: decode {decode}")
+    if launches != expect:
+        fail(f"reference_vae_variants: the VAE launched {launches}, expected {expect}")
+    if decode["rel_rms_err"] > VAE_VARIANT_TOL:
+        fail(f"reference_vae_variants: the card's bf16 decode disagrees with f32: {decode}")
+
+    dcfg = DiTConfig(num_attention_heads=2, attention_head_dim=64, in_channels=16,
+                     out_channels=16, num_layers=2, cross_attention_dim=128,
+                     caption_channels=64, adaptive_norm="none",
+                     norm_elementwise_affine=True)
+    tiny_vcfg = dataclasses.replace(vcfg, decoder_base_channels=32)
+    res = _reference_run(
+        "reference_vae_variants", (dcfg, init_dit(dcfg, 2, device="cpu"), tiny_vcfg,
+                                   init_vae(tiny_vcfg, 3, device="cpu")),
+        64, 25, 48, dict(guidance_scale=1.0, stg_scale=0.0, rescaling_scale=1.0), {},
+        TOKEN_MAJOR_BF16)
+    emit({"phase": "reference_vae_variants", **res, "rel_rms_tol": REFERENCE_TOL,
+          "vs_no_kernel_tol": KERNEL_PATH_TOL, "dit": "adaptive_norm none",
+          "vae": "VAE_VARIANT"})
+    return _merge_counts(launches, res["launches"])
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def dit_route_counts(tokens: int, caption: int, calls: int) -> dict:
+    """The launches of ``calls`` block calls of the 2B DiT at ``tokens``
+    self-attention tokens and ``caption`` caption keys, per counter, as
+    ``dit_routes`` names them."""
+    counts = {}
+    for name, impl in dit_routes(tokens, caption):
+        for key in (name, f"{name}_{impl}"):
+            counts[key] = counts.get(key, 0) + calls
+    return counts
+
+
+def _merge_counts(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def export_cli_assets(pipe, t5_embeds, t5_mask, tmp):
+    """The files the CLI phases read, in ``tmp``: the 2B DiT and VAE as one
+    single-file checkpoint written by the port's
+    ``save_single_file_checkpoint``, the ``t5`` phase's embeddings (prompt
+    and negative prompt) by its ``save_safetensors``, and a random-init
+    ``LatentUpsamplerConfig()`` with its config metadata. Returns the paths
+    and the seconds each write took."""
+    import json
+    from pathlib import Path
+
+    import torch
+
+    from avatar_tpu_torch.models.latent_upsampler import (
+        LatentUpsamplerConfig,
+        export_latent_upsampler_state,
+        init_latent_upsampler,
+    )
+    from avatar_tpu_torch.utils.safetensors_io import save_safetensors
+    from avatar_tpu_torch.utils.weight_import import (
+        export_vae_state,
+        save_single_file_checkpoint,
+    )
+
+    tmp = Path(tmp)
+    paths, seconds = {}, {}
+    t0 = time.perf_counter()
+    paths["checkpoint"] = tmp / "ltxv-2b-random.safetensors"
+    save_single_file_checkpoint(
+        paths["checkpoint"], pipe.raw_dit_params, pipe.dit_cfg,
+        vae_state=export_vae_state(pipe.vae_params, pipe.vae_cfg),
+        vae_config=pipe.vae_cfg.to_dict(),
+        scheduler_config={"_class_name": "RectifiedFlowScheduler",
+                          "num_train_timesteps": 1000, "sampler": "Uniform",
+                          "shifting": "SD3", "target_shift_terminal": 0.1})
+    seconds["checkpoint"] = time.perf_counter() - t0
+    paths["embeds"] = tmp / "t5_embeds.safetensors"
+    save_safetensors({"prompt_embeds": t5_embeds[:1], "prompt_attention_mask": t5_mask[:1],
+                      "negative_prompt_embeds": t5_embeds[1:],
+                      "negative_prompt_attention_mask": t5_mask[1:]}, paths["embeds"])
+    t0 = time.perf_counter()
+    up_cfg = LatentUpsamplerConfig()
+    paths["upsampler"] = tmp / "latent-upsampler-random.safetensors"
+    save_safetensors(export_latent_upsampler_state(
+        init_latent_upsampler(up_cfg, seed=4, device=pipe.device, dtype=torch.bfloat16)),
+        paths["upsampler"], metadata={"config": json.dumps(up_cfg.to_dict())})
+    seconds["upsampler"] = time.perf_counter() - t0
+    paths["checkpoint_gib"] = paths["checkpoint"].stat().st_size / 2**30
+    return paths, seconds
+
+
+def run_cli(phase, paths, expect, num_frames=121, window_frames=0, multiscale=False):
+    """One talking-avatar video through the inference CLI's ``generate`` at
+    its defaults (192 x 320, seed 171198, frame rate 20) and the shipped
+    pipeline yaml (40 steps, guidance 1), from the exported checkpoint and
+    embeddings, conditioned on a reference image and ``num_frames`` pose
+    frames handed over already loaded (``generate(conditioning=...)``; the
+    card's machine has no PIL or cv2 to read image files): random pixels in
+    [-1, 1] made on the host from a seed, which the pipeline encodes with the
+    VAE and lerps into every step. The pipeline is loaded once by
+    ``load_pipeline`` (timed), a 1-step video warms up, then the timed video
+    runs with the launch counts from 0, then the same video without the
+    reference and pose frames (timed, not counted). Fails unless the frames are uint8 of
+    the asked shape, every denoised latent is finite and each counter moved
+    exactly as ``expect`` says (0 for every other, every WMMA counter among
+    them)."""
+    import numpy as np
+    import torch
+
+    from avatar_tpu_torch.cli.infer import InferenceConfig, generate, load_pipeline
+
+    pcfg = dict(INFERENCE_AVATARS_YAML, checkpoint_path=str(paths["checkpoint"]),
+                vae_checkpoint_path=str(paths["checkpoint"]))
+    if multiscale:
+        pcfg.update(pipeline_type="multi-scale",
+                    spatial_upscaler_model_path=str(paths["upsampler"]))
+    config = InferenceConfig(prompt_embeds_path=str(paths["embeds"]), device="cuda",
+                             num_frames=num_frames, window_frames=window_frames,
+                             overlap_frames=9 if window_frames else 0)
+    rng = np.random.default_rng(12)
+    media = [rng.uniform(-1.0, 1.0, (1, f, config.height, config.width, 3)).astype(np.float32)
+             for f in (1, num_frames)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = load_pipeline(pcfg, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    video_pipe = pipe.video_pipeline if multiscale else pipe
+    finite = []
+    decode = video_pipe.decode_latents
+
+    def checked_decode(latents, *args, **kw):
+        finite.append(bool(torch.isfinite(latents).all()))
+        return decode(latents, *args, **kw)
+
+    video_pipe.decode_latents = checked_decode
+    t0 = time.perf_counter()
+    generate(config, dict(pcfg, num_inference_steps=1), pipeline=pipe, conditioning=media)
+    warm_s = time.perf_counter() - t0
+    finite.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    frames = generate(config, pcfg, pipeline=pipe, conditioning=media)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k: n for k, n in read_counts().items() if n}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finite_checked = list(finite)
+    # the same video without the reference and pose frames: what they cost
+    t0 = time.perf_counter()
+    generate(config, pcfg, pipeline=pipe)
+    torch.cuda.synchronize()
+    text_only_s = time.perf_counter() - t0
+    shape = (1, num_frames, config.height, config.width, 3)
+    res = {"phase": phase, "num_frames": num_frames, "height": config.height,
+           "width": config.width, "steps": pcfg["num_inference_steps"],
+           "window_frames": window_frames, "multiscale": multiscale,
+           "conditioning": [list(m.shape) for m in media], "load_s": load_s,
+           "warmup_s": warm_s, "total_s": total_s, "frames_per_s": num_frames / total_s,
+           "text_only_total_s": text_only_s, "shape": list(frames.shape),
+           "dtype": str(frames.dtype), "latents_finite": finite_checked,
+           "frames_mean": float(frames.mean()), "frames_std": float(frames.std()),
+           "max_memory_allocated_gib": peak_gib,
+           "clock_max_clock_power_temperature_after": card_state(),
+           "launches": launches, "expected": expect}
+    emit(res)
+    if tuple(frames.shape) != shape or frames.dtype.name != "uint8":
+        fail(f"{phase}: frames {frames.dtype} {frames.shape}, expected uint8 {shape}")
+    if not finite_checked or not all(finite_checked) or not res["frames_std"] > 0:
+        fail(f"{phase}: latents finite {finite_checked}, frames std {res['frames_std']}")
+    if launches != expect:
+        fail(f"{phase}: launched {launches}, expected {expect}")
+    # the wrapper holds the pipeline's own bound method: a reference cycle
+    # that would keep these weights on the card until the garbage collector
+    # runs, counted in the next phase's peak memory
+    del video_pipe.decode_latents
+    del pipe, video_pipe
+    torch.cuda.empty_cache()
+    return launches, total_s
+
+
+def run_cli_phases(pipe, t5_embeds, t5_mask) -> dict:
+    """The inference CLI on the card at full width (the 2B DiT and VAE of
+    ``make_full_pipeline``), each over CLI_GRIDS' tokens with the launches
+    its routes name: one pass of 121 frames, 185 frames as two windows of
+    97 overlapping by 9, and the multi-scale pipeline (a 128 x 192 pass,
+    then 256 x 384)."""
+    import tempfile
+
+    from avatar_tpu_torch.pipelines.long_video import window_starts
+
+    tokens = {label: math.prod(grid) for label, grid in CLI_GRIDS.items()}
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, seconds = export_cli_assets(pipe, t5_embeds, t5_mask, tmp)
+        emit({"phase": "cli_export", "seconds": seconds,
+              "checkpoint_gib": paths["checkpoint_gib"]})
+        calls = LAYERS * STEPS
+        by_path["cli"], _ = run_cli(
+            "cli", paths, dit_route_counts(tokens["one pass"], CAPTION, calls))
+        windows = len(window_starts(185, 97, 9))
+        by_path["cli_long_video"], _ = run_cli(
+            "cli_long_video", paths,
+            dit_route_counts(tokens["window"], CAPTION, windows * calls),
+            num_frames=185, window_frames=97)
+        by_path["cli_multiscale"], _ = run_cli(
+            "cli_multiscale", paths, _merge_counts(*(
+                dit_route_counts(tokens[f"multi-scale {p} pass"], CAPTION, calls)
+                for p in ("first", "second"))),
+            multiscale=True)
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3490,6 +3922,7 @@ def main() -> int:
                "reference": check_reference()}
     by_path["reference_guided"], by_path["reference_guided_f32"] = check_reference_guided()
     by_path.update({"reference_conditioned": check_reference_conditioned(),
+               "reference_vae_variants": check_reference_vae_variants(),
                "reference_w8a8": check_reference_w8a8(),
                "reference_train": check_reference_train(),
                "train_cli": check_train_cli()})
@@ -3535,7 +3968,6 @@ def main() -> int:
                     negative_prompt_embeds=t5_embeds[1:],
                     negative_prompt_attention_mask=t5_mask[1:],
                     conditioning_items=[ConditioningItem(image, 0, 1.0)]))
-    del t5_embeds
     # W8A8 from the same raw (unpermuted, bf16) tree: only the int8 copies
     # of the block linears and the permuted q/k are new
     t0 = time.perf_counter()
@@ -3556,6 +3988,9 @@ def main() -> int:
           "rel_rms": _rel_rms(w8a8_latents.float(), long_latents.float())})
     del pipe_w8a8, w8a8_latents, long_latents
     torch.cuda.empty_cache()
+    # the inference CLI from a checkpoint exported from these models
+    by_path.update(run_cli_phases(pipe, t5_embeds, t5_mask))
+    del t5_embeds
     by_path["train"] = run_train(pipe)
     for row in rows:
         row["launches_by_path"] = {
