@@ -12,9 +12,9 @@ or a transformer-only export with ``vae_checkpoint_path``), and, with
 (``spatial_upscaler_model_path``). :func:`generate` runs the pipeline from
 an already parsed config and returns the cropped uint8 frames;
 :func:`write_outputs` writes them (PIL / cv2); :func:`infer` does both.
-Not ported yet: ``--text`` (FaceFormer pose frames; ROADMAP queue 1, the
-pose path) and ``quantization_vae`` (ROADMAP queue 1, the int8 VAE); each
-raises.
+``quantization_vae`` (any true value, e.g. "w8a8") builds the pipeline
+with the W8A8 VAE. Not ported yet: ``--text`` (FaceFormer pose frames;
+ROADMAP queue 1, the pose path); it raises.
 """
 
 from __future__ import annotations
@@ -102,10 +102,6 @@ def create_ltx_video_pipeline(
         load_single_file_checkpoint,
     )
 
-    if quantize_vae:
-        raise NotImplementedError(
-            "quantization_vae: the int8 VAE (its int8 conv3d) is not ported yet "
-            "(ROADMAP queue 1, the int8 VAE)")
     dtype = torch.bfloat16 if precision in ("bfloat16", "bf16") else None
     configs, t_state, v_state = load_single_file_checkpoint(ckpt_path)
     dit_cfg = DiTConfig.from_dict(configs["transformer"])
@@ -130,7 +126,7 @@ def create_ltx_video_pipeline(
     return LTXVideoPipeline(
         dit_cfg, dit_params, vae_cfg, vae_params, schedule=schedule,
         attention_impl=attention_impl, quantize_weights=quantize or False,
-        scan_blocks=scan_blocks, device=device)
+        quantize_vae=quantize_vae or False, scan_blocks=scan_blocks, device=device)
 
 
 def load_pipeline(pipeline_config: dict, device="cuda"):

@@ -509,7 +509,8 @@ def _apply_mid_block(params, x, cfg, causal, timestep=None, draw=None):
 def _apply_space_to_depth_down(params, x, stride, cfg, causal):
     if stride[0] == 2:
         x = torch.cat([x[:, :, :1], x], dim=2)  # duplicate the first frame
-    out_ch_conv = params["conv"]["weight"].shape[0]
+    conv = params["conv"]
+    out_ch_conv = conv.get("weight", conv.get("kernel_q8")).shape[0]
     group_size = x.shape[1] // out_ch_conv
     x_in = pixel_unshuffle_3d(x, stride)
     b, c, f, hh, ww = x_in.shape

@@ -49,7 +49,7 @@ from avatar_tpu_torch.ops.rope import (
     precompute_freqs_cis,
     split_freqs,
 )
-from avatar_tpu_torch.utils.quantize import quantize_dit_params
+from avatar_tpu_torch.utils.quantize import quantize_dit_params, quantize_vae_params
 
 OUTPUT_TYPES = ("latent", "np", "uint8", "yuv420")
 T_EPS = 1e-6
@@ -216,8 +216,11 @@ class LTXVideoPipeline:
     ``quantize_weights`` (True or "w8": weight-only int8; "w8a8": int8
     activations and weights in the per-token block linears, see
     ``utils/quantize.py``) quantizes the DiT before the split-RoPE
-    permutation and the stacking; ``quantize_vae`` (the int8 conv3d) is
-    not ported and raises;
+    permutation and the stacking; ``quantize_vae`` (any true value, e.g.
+    "w8a8") makes the VAE's large 3D convolutions W8A8
+    (``quantize_vae_params``: int8 activation levels per tensor, int8
+    weights per output channel in kernel L's layout, kernel L on the
+    card);
     ``scan_blocks`` keeps the transformer blocks stacked on a leading
     layer axis, the layout the JAX package scans over (here walked by the
     same Python loop, slice by slice); ``allowed_inference_steps``, if
@@ -246,10 +249,6 @@ class LTXVideoPipeline:
         self.attention_impl = attention_impl
         self.rope_split = rope_split
         self.scan_blocks = scan_blocks
-        if quantize_vae:
-            raise NotImplementedError(
-                "quantize_vae needs an int8 conv3d (W8A8 convolutions), which "
-                "is not ported yet")
         if quantize_weights:
             mode = "w8" if quantize_weights is True else quantize_weights
             dit_params = quantize_dit_params(dit_params, mode=mode)
@@ -265,6 +264,8 @@ class LTXVideoPipeline:
                               blocks=stack_block_params(dit_params["blocks"]))
         self.dit_params = dit_params
         self.vae_cfg = vae_cfg
+        if quantize_vae:
+            vae_params = quantize_vae_params(vae_params)
         self.vae_params = vae_params
         self.schedule = schedule or RectifiedFlowSchedule.create(
             sampler="Uniform", shifting="SD3", target_shift_terminal=0.1)
@@ -287,13 +288,16 @@ class LTXVideoPipeline:
                         latents: Optional[torch.Tensor] = None,
                         media_items: Optional[torch.Tensor] = None,
                         timestep: float = 1.0, per_channel_normalize: bool = True,
-                        media_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        media_noise: Optional[torch.Tensor] = None,
+                        sample_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
         """Initial latents [B, F, H, W, C]: noise, or ``latents`` (or the
         encoded ``media_items``, with ``media_noise`` as the encoder's draw)
         noised to ``timestep``: t * noise + (1 - t) * latents. The noise is
-        ``noise`` or drawn per sample from a generator seeded from
-        ``generator``, so sample i's noise does not depend on the batch
-        size."""
+        ``noise`` or drawn per sample from a generator seeded with
+        ``sample_seeds[i]`` (one seed per sample: a server's per-request
+        seeds, so that a request's noise depends only on its own seed) or,
+        without them, with a seed drawn from ``generator``; either way sample
+        i's noise does not depend on the batch size."""
         if latents is not None and media_items is not None:
             raise ValueError("give latents or media_items, not both")
         if media_items is not None:
@@ -304,8 +308,11 @@ class LTXVideoPipeline:
                 raise ValueError(f"init noise {tuple(noise.shape)} != {latent_shape}")
             noise = noise.to(self.device, dtype)
         else:
-            seeds = torch.randint(0, 2**62, (latent_shape[0],), generator=generator,
-                                  device=generator.device).tolist()
+            seeds = (torch.randint(0, 2**62, (latent_shape[0],), generator=generator,
+                                   device=generator.device).tolist()
+                     if sample_seeds is None else [int(s) for s in sample_seeds])
+            if len(seeds) != latent_shape[0]:
+                raise ValueError(f"{len(seeds)} sample_seeds for a batch of {latent_shape[0]}")
             out = []
             for seed in seeds:
                 g = torch.Generator(device=self.device)
@@ -635,6 +642,7 @@ class LTXVideoPipeline:
         step_noise: Optional[torch.Tensor] = None,  # [steps, B, N, C]
         decode_noise: Optional[torch.Tensor] = None,
         stage_times: Optional[Dict[str, float]] = None,
+        sample_seeds: Optional[Sequence[int]] = None,
     ) -> torch.Tensor:
         """Generate one batch. ``output_type``: "latent" (denoised latents
         [B, F', H', W', C]), "np" (float frames [B, F, H, W, 3] in [0, 1]),
@@ -645,7 +653,8 @@ class LTXVideoPipeline:
         which ``skip_initial_inference_steps`` moves later; neither may come
         with the other. ``stage_times``, if given, receives the seconds of
         the encode, denoise and decode stages (each ends in a device
-        synchronize)."""
+        synchronize). ``sample_seeds`` ([B] ints) seed each sample's
+        initial noise (see :meth:`prepare_latents`)."""
         p = params
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f"output_type must be one of {OUTPUT_TYPES}")
@@ -729,7 +738,7 @@ class LTXVideoPipeline:
         init = self.prepare_latents(
             generator, latent_shape, dtype, init_noise, latents=latents,
             media_items=media_items, timestep=float(timesteps[0]),
-            per_channel_normalize=pcn, media_noise=media_noise)
+            per_channel_normalize=pcn, media_noise=media_noise, sample_seeds=sample_seeds)
         tokens, pixel_coords, cond_mask, num_cond_latents = self.prepare_conditioning(
             conditioning_items, init, generator, pcn, item_noise, prefix_noise)
         fractional = pixel_coords.float()

@@ -1,6 +1,7 @@
-"""int8 quantization of the DiT's and the T5 encoder's linears (port of
-``avatar_tpu/utils/quantize.py``: ``quantize_linear``,
-``quantize_dit_params`` and ``quantize_t5_params``). Applied once, when a
+"""int8 quantization of the DiT's and the T5 encoder's linears and of the
+VAE's 3D convolutions (port of ``avatar_tpu/utils/quantize.py``:
+``quantize_linear``, ``quantize_dit_params``, ``quantize_t5_params``,
+``quantize_conv3d`` and ``quantize_vae_params``). Applied once, when a
 pipeline or an encoder is built.
 
 - **"w8"** (weight-only): every linear with at least ``min_size`` weight
@@ -18,13 +19,23 @@ Scales are per output channel, ``max|w| / 127`` (1 for a zero channel);
 ``round(w / scale)`` rounds half to even (``torch.round``, as
 ``jnp.round``) and is clipped to +-127, with IEEE divisions on any device
 (``div127``), so the int8 equals the JAX package's bit for bit from the
-same f32 weights. The VAE's int8 conv3d is not ported.
+same f32 weights.
+
+The VAE's W8A8 convolutions (``quantize_vae_params``): every 5-D conv
+weight of at least ``min_size`` elements becomes ``{"kernel_q8": int8
+[out, kt, kh, kw, in padded to 32], "scale": f32 [out]}``, scaled per
+output channel over every other axis and stored in the layout kernel L
+reads (``ops/causal_conv3d.py:int8_conv_layout``);
+``ops/causal_conv3d.py`` quantizes the activation per tensor at conv
+time. Linears, norms and ``per_channel_statistics``
+stay full precision.
 """
 
 from __future__ import annotations
 
 import torch
 
+from avatar_tpu_torch.ops.causal_conv3d import int8_conv_layout
 from avatar_tpu_torch.ops.int8_matmul import div127
 
 W8A8_BLOCK_LINEARS = frozenset({
@@ -86,6 +97,37 @@ def quantize_dit_params(params: dict, min_size: int = 2**18,
             nb[mod_name] = mod
         blocks.append(nb)
     return dict(params, blocks=blocks)
+
+
+def quantize_conv3d(params: dict) -> dict:
+    """``{"weight": [out, in, kt, kh, kw], "bias"?}`` -> ``{"kernel_q8"
+    (int8 [out, kt, kh, kw, padded in]), "scale" (f32 [out]), "bias"?}``:
+    per-output-channel symmetric int8."""
+    w = params["weight"].float()
+    scale = div127(w.abs().amax(dim=(1, 2, 3, 4)))
+    scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    w_q = torch.clamp(torch.round(w / scale[:, None, None, None, None]), -127, 127)
+    out = {"kernel_q8": int8_conv_layout(w_q.to(torch.int8)), "scale": scale}
+    if "bias" in params:
+        out["bias"] = params["bias"]
+    return out
+
+
+def quantize_vae_params(params: dict, min_size: int = 2**16) -> dict:
+    """W8A8-quantize the VAE's 3D convolutions: every conv dict whose 5-D
+    weight has at least ``min_size`` elements. Everything else is shared
+    with ``params``."""
+
+    def walk(node):
+        if isinstance(node, dict) and getattr(node.get("weight"), "ndim", 0) == 5:
+            return quantize_conv3d(node) if node["weight"].numel() >= min_size else node
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
 
 
 def quantize_t5_params(params: dict, mode: str = "w8") -> dict:

@@ -11,7 +11,9 @@ A quantized linear (``avatar_tpu/utils/quantize.py``) carries over with
 its int8 kernel, ``kernel_q`` (weight-only) or ``kernel_q8`` (W8A8), as
 int8 ``[out, in]``, the port's layout (``avatar_tpu_torch/utils/quantize.py``
 makes the same tree), and its ``scale`` in its own dtype: bf16 for w8, f32
-for w8a8.
+for w8a8. A W8A8 conv3d (the int8 VAE's ``kernel_q8``, DHWIO) carries over
+with its f32 ``scale`` as int8 ``[out, kt, kh, kw, in padded to 32]``,
+the port's W8A8 conv layout (``ops/causal_conv3d.py:int8_conv_layout``).
 
 The DiT tree must be the **unpermuted** one: the port's pipeline applies
 the split-RoPE permutation itself at construction. Its blocks may be a
@@ -43,6 +45,7 @@ from avatar_tpu_torch.models.vae import (
     _decoder_channel_walk,
     _encoder_channel_walk,
 )
+from avatar_tpu_torch.ops.causal_conv3d import int8_conv_layout
 from avatar_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
 
 
@@ -66,10 +69,11 @@ def _convert(node: Any, device, dtype, stacked: bool = False) -> Any:
                 out["weight"] = _tensor(w, device, dtype)
             elif key in ("kernel_q", "kernel_q8"):
                 w = np.asarray(val)
-                if w.ndim == 5:
-                    raise NotImplementedError(
-                        "int8 conv3d (quantized VAE params) is not ported")
-                w = _swap_last(w, stacked)
+                if w.ndim == 5 and not stacked:  # a W8A8 conv
+                    w = int8_conv_layout(torch.from_numpy(
+                        w.astype(np.int8).transpose(4, 3, 0, 1, 2))).numpy()
+                else:
+                    w = _swap_last(w, stacked)
                 out[key] = torch.from_numpy(
                     np.ascontiguousarray(w, dtype=np.int8)).to(device)
             elif quantized and key == "scale":

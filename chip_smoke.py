@@ -34,7 +34,13 @@ Phases, each printing one JSON line as soon as it has its numbers:
    its Hopper route, ``act_quant_sm90``, for each activation beside its
    row-block kernel, and its bound from the SASS instructions it issues,
    ``avatar_tpu_torch/tools/act_quant_sass.py``; I, J and K on rows with a
-   NaN or an inf, exactly as their plain versions); the flash
+   NaN or an inf, exactly as their plain versions); the W8A8 VAE's kernel
+   L (``kernel_int8_conv3d``: L1's levels and L2's outputs bit for bit
+   against their plain versions at every int8 conv shape of the 2B VAE's
+   encode of a reference frame and 97 pose frames at 256 px and its
+   decode of [13, 8, 8, 128] latents, with replicate padding, stride 2, a
+   zero and a NaN input; each shape's device times beside cuDNN's bf16
+   conv and the bound, and the sums over a video); the flash
    backward's two kernels
    (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) on the Hopper
    kernels (``flash_bwd_*_sm90``) at the training shapes, at 5376 tokens
@@ -77,7 +83,10 @@ Phases, each printing one JSON line as soon as it has its numbers:
 6. reference_w8a8: tiny quantized pipelines in bf16 on the card against
    f32 on the CPU, same int8 weights and noise: W8A8 at 4352 tokens (the
    int8 kernels), W8A8 at 16 tokens (the library int8 product) and
-   weight-only w8;
+   weight-only w8; reference_vae_w8a8: the tiny VAE of
+   ``tests/test_extras.py::test_w8a8_vae`` in f32 on the card, its W8A8
+   encode and decode (kernel L in f32) within that test's 0.08 of the f32
+   VAE's;
 7. t5: T5-XXL at full width, seeded random bf16 weights: a prompt and a
    negative prompt encoded (2 x 256 tokens), its time, peak memory, the
    W8A8 encode's time and distance, and a tiny T5 in bf16 on the card
@@ -98,6 +107,17 @@ Phases, each printing one JSON line as soon as it has its numbers:
    t5 phase's embeddings as prompt and negative prompt and one first-frame
    conditioning item (strength 1, image-conditioning noise 0.15):
    image-to-video;
+   pipeline_vae_w8a8: the short path with ``quantize_vae="w8a8"`` (the
+   same DiT and VAE weights): L1 and L2 of kernel L launched exactly once
+   per int8 conv of the video's two encodes and its decode (129), stage
+   seconds, then both VAEs' encode and decode in turns (bf16, int8, int8,
+   bf16) and the int8 decode's distance from the bf16 one (printed);
+   serving: ``AvatarServer`` over the bf16 pipeline, the JAX package's
+   serving traffic (97 f · 256 px, 40 steps, I420, one avatar for every
+   request, batches of up to 4 within 50 ms): a warm-up of 4 requests,
+   two rounds of 12; requests and frames per second, latency, batches per
+   round, media-cache hits, A's and B's launches, and a batched request
+   against the same one alone (without decode-time noise);
 10. pipeline_long_w8a8: the long path with the DiT quantized W8A8 (from
    the same bf16 weights): every block linear through the int8 kernels
    (the product on the Hopper kernel, 8,960 launches, none of the
@@ -341,19 +361,22 @@ class KernelErrors:
 
 
 def reset_counts() -> None:
+    from avatar_tpu_torch.ops import causal_conv3d as cc
     from avatar_tpu_torch.ops import flash_attention as fa
     from avatar_tpu_torch.ops import int8_matmul as i8
 
     fa.reset_launch_counts()
     i8.reset_launch_counts()
+    cc.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Launches of every kernel since :func:`reset_counts`."""
+    from avatar_tpu_torch.ops import causal_conv3d as cc
     from avatar_tpu_torch.ops import flash_attention as fa
     from avatar_tpu_torch.ops import int8_matmul as i8
 
-    return {**fa.launch_counts, **i8.launch_counts}
+    return {**fa.launch_counts, **i8.launch_counts, **cc.launch_counts}
 
 
 def rms_rows(x):
@@ -3862,6 +3885,500 @@ def run_cli_phases(pipe, t5_embeds, t5_mask) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# The W8A8 VAE (kernel L) and the serving layer
+# ---------------------------------------------------------------------------
+
+CONV_SOURCE = "avatar_tpu_torch/csrc/int8_conv3d.cu"
+# the 2B VAE's work on the main path: the reference frame and 97 pose frames
+# at 256 px encoded, [1, 13, 8, 8, 128] latents decoded
+VAE_FRAMES, VAE_SIZE, VAE_LATENT = 97, 256, (1, 13, 8, 8, 128)
+# a served batch: the decode of 4 requests' latents at once
+SERVED_BATCH = 4
+# tests/test_extras.py::test_w8a8_vae's tiny VAE and its bound: the int8
+# VAE's encode and decode within 0.08 of the f32 VAE's, as the mean absolute
+# difference over the mean absolute value
+TINY_W8A8_VAE = {
+    "latent_channels": 8, "base_channels": 32,
+    "encoder_blocks": [["res_x", {"num_layers": 1}], ["compress_all", {"multiplier": 2}],
+                       ["res_x", {"num_layers": 1}]],
+    "decoder_blocks": [["res_x", {"num_layers": 1}],
+                       ["compress_all", {"residual": True, "multiplier": 2}],
+                       ["res_x", {"num_layers": 1}]],
+    "norm_layer": "pixel_norm", "patch_size": 2, "latent_log_var": "uniform",
+}
+TINY_W8A8_VAE_TOL = 0.08
+# the JAX package's serving traffic (bench.py's serving rows): the same
+# avatar for every request, batches of up to 4 within 50 ms, rounds of 12
+SERVING_MAX_BATCH, SERVING_WINDOW_S, SERVING_ROUND = 4, 0.05, 12
+
+
+def _conv_key(x, params, kw):
+    k = params["kernel_q8"]
+    return (tuple(x.shape), tuple(k.shape), str(kw.get("stride", 1)),
+            bool(kw.get("causal", True)), kw.get("spatial_padding_mode", "zeros"))
+
+
+def record_int8_convs(vcfg, qparams, batch=1, encode=True):
+    """Each int8 conv of the 2B VAE's work for one video (with ``encode``
+    the reference frame's and the pose frames' encodes, then the decode of
+    ``batch`` latents), by distinct shape: ({key: {"x": first input,
+    "params", "kw", "calls"}} in the order met, the int8 convs of the
+    decode)."""
+    import torch
+
+    from avatar_tpu_torch.models import vae as tvae
+
+    seen = {}
+    original = tvae.conv3d_params
+
+    def record(params, x, **kw):
+        if "kernel_q8" in params:
+            ent = seen.setdefault(_conv_key(x, params, kw),
+                                  {"x": x, "params": params, "kw": kw, "calls": 0})
+            ent["calls"] += 1
+        return original(params, x, **kw)
+
+    def calls():
+        return sum(e["calls"] for e in seen.values())
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    tvae.conv3d_params = record
+    try:
+        for frames in (1, VAE_FRAMES) if encode else ():
+            media = torch.rand(1, frames, VAE_SIZE, VAE_SIZE, 3, generator=g,
+                               device="cuda") * 2 - 1
+            tvae.vae_encode(qparams, vcfg, media.bfloat16(), generator=g,
+                            per_channel_normalize=True)
+        encodes = calls()
+        latents = torch.randn((batch, *VAE_LATENT[1:]), generator=g,
+                              device="cuda").bfloat16()
+        tvae.vae_decode(qparams, vcfg, latents,
+                        timestep=torch.full((batch,), 0.05, device="cuda"),
+                        per_channel_normalize=True)
+    finally:
+        tvae.conv3d_params = original
+    torch.cuda.synchronize()
+    return seen, calls() - encodes
+
+
+def _levels_plain(x, s):
+    """L1's plain version: the levels, channels-last, zeros to 32 channels."""
+    import torch
+    import torch.nn.functional as F
+
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    q = cc._levels(x, s).to(torch.int8).permute(0, 2, 3, 4, 1)
+    c = x.shape[1]
+    return F.pad(q, (0, cc.padded_channels(c) - c)).contiguous()
+
+
+def _conv_plain(x, params, kw):
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    return cc._int8_conv3d_plain(x, params["kernel_q8"], params["scale"], params.get("bias"),
+                                 kw.get("stride", 1), kw.get("causal", True),
+                                 kw.get("spatial_padding_mode", "zeros"))
+
+
+def _conv_work(x, params, kw):
+    """(int8 operations, bytes) of L2 on this conv: each input read once
+    (the levels, the stored weight, its scales and bias), the output
+    written once."""
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    wq = params["kernel_q8"]
+    n, kt, kh, kw_, cp = wq.shape
+    fo, ho, wo = cc._out_size(x.shape, (kt, kh, kw_), kw.get("stride", 1),
+                              kw.get("causal", True))
+    m = x.shape[0] * fo * ho * wo
+    k = kt * kh * kw_ * x.shape[1]
+    nbytes = x[:, 0].numel() * cp + wq.numel() + 4 * n + (n + m * n) * x.element_size()
+    return 2.0 * m * n * k, nbytes, (m, n, k)
+
+
+def _compare_conv(x, params, kw):
+    """L1's levels and L2's output against their plain versions on ``x``:
+    (levels' max |difference|, output's max |difference| (NaN where the
+    NaN pattern differs), the plain version's seconds)."""
+    import torch
+
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    s = cc.act_scale(x)
+    levels = cc.quantize_levels(x, s)
+    l1_err = (levels.int() - _levels_plain(x, s).int()).abs().max().item()
+    del levels
+    out = cc.int8_conv3d(x, params, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = _conv_plain(x, params, kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = torch.equal(out, ref)
+    l2_err = 0.0 if same else (out.float() - ref.float()).abs().max().item()
+    if not same and l2_err == 0.0:
+        l2_err = float("nan")  # equal where finite: the NaNs differ
+    return l1_err, l2_err, plain_s
+
+
+def check_int8_conv3d(peaks):
+    """Kernel L against its plain version on the card, bit for bit: L1's
+    levels and L2's outputs at full size at every distinct W8A8 conv shape
+    of the 2B VAE on the main path (its encode of 97 pose frames and a
+    reference frame at 256 px, its decode of [13, 8, 8, 128] latents) and
+    of a served batch's decode (``SERVED_BATCH`` latents), with replicate
+    padding, stride 2, an all-zero input and a NaN. Each main-path shape's
+    L1 and L2 device times (profiler), launches per video, bound and
+    cuDNN's bf16 conv of the same shape (what the bf16 VAE runs), and the
+    sums over one video. Returns L1's and L2's kernel rows, the number of
+    int8 convs in a video and in one decode."""
+    import torch
+    import torch.nn.functional as F
+
+    from avatar_tpu_torch.models.vae import LTX_VAE_CONFIG, VAEConfig, init_vae
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+    from avatar_tpu_torch.utils.quantize import quantize_vae_params
+
+    vcfg = VAEConfig.from_dict({**LTX_VAE_CONFIG, "timestep_conditioning": True})
+    qparams = quantize_vae_params(init_vae(vcfg, seed=0, device="cuda",
+                                           dtype=torch.bfloat16))
+    records, decode_convs = record_int8_convs(vcfg, qparams)
+    served, _ = record_int8_convs(vcfg, qparams, batch=SERVED_BATCH, encode=False)
+    shapes, served_shapes, unequal = {}, {}, {}
+    for recs, table in ((records, shapes), (served, served_shapes)):
+        for rec in recs.values():
+            x, p, kw = rec["x"].contiguous(), rec["params"], rec["kw"]
+            _, _, (m, n, k) = _conv_work(x, p, kw)
+            label = (f"{tuple(x.shape)} {x.shape[1]}->{n} k{p['kernel_q8'].shape[1]}"
+                     f" stride {kw.get('stride', 1)} causal {kw.get('causal', True)}")
+            l1_err, l2_err, plain_s = _compare_conv(x, p, kw)
+            if l1_err or l2_err:
+                unequal[label] = {"l1_levels": l1_err, "l2_max_abs_err": l2_err}
+            table[label] = {"calls": rec["calls"], "m_n_k": [m, n, k],
+                            "l1_max_abs_err": l1_err, "max_abs_err": l2_err,
+                            "plain_s": plain_s}
+    # replicate padding and stride 2 at the largest conv's widths, an
+    # all-zero input, a NaN
+    big = max(records.values(), key=lambda r: _conv_work(r["x"], r["params"], r["kw"])[0])
+    x9 = big["x"][:, :, :9].contiguous()
+    extra = {"replicate": (x9, dict(big["kw"], spatial_padding_mode="replicate")),
+             "replicate, stride 2, non-causal": (
+                 x9, dict(big["kw"], spatial_padding_mode="replicate", stride=2,
+                          causal=False)),
+             "all zero": (torch.zeros_like(x9), big["kw"])}
+    nan = x9.clone()
+    nan[0, 5, 3, 7, 11] = float("nan")
+    for label, (xe, kw) in extra.items():
+        out, ref = cc.int8_conv3d(xe, big["params"], **kw), _conv_plain(xe, big["params"], kw)
+        if not torch.equal(out, ref):
+            unequal[label] = (out.float() - ref.float()).abs().max().item()
+    nan_out = cc.int8_conv3d(nan, big["params"], **big["kw"])
+    if not torch.isnan(nan_out).all():
+        unequal["nan"] = "finite outputs from a NaN input"
+    torch.cuda.synchronize()
+    if unequal:
+        fail(f"int8_conv3d disagrees with its plain version: {unequal}")
+
+    # times: L2 and L1 by the profiler's device time, cuDNN's bf16 conv on
+    # the same shape (the pad the bf16 VAE concatenates first is not timed)
+    video = {"l2_ms": 0.0, "l1_ms": 0.0, "cudnn_bf16_ms": 0.0}
+    for rec, label in zip(records.values(), shapes):
+        x, p, kw = rec["x"].contiguous(), rec["params"], rec["kw"]
+        stride, causal = kw.get("stride", 1), kw.get("causal", True)
+        s = cc.act_scale(x)
+        levels = cc.quantize_levels(x, s)
+        wq = p["kernel_q8"]
+        mode = kw.get("spatial_padding_mode", "zeros")
+        l2 = device_ms(lambda: cc.conv_levels(levels, s, wq, p["scale"], p.get("bias"),
+                                              x.dtype, stride, causal, mode),
+                       "int8_conv3d_kernel")
+        l1 = device_ms(lambda: cc.quantize_levels(x, s), "quant_relayout_kernel")
+        w = (cc.int8_kernel_view(wq, x.shape[1]).float()
+             * p["scale"][:, None, None, None, None]).bfloat16()
+        bias = p.get("bias")
+        padded, padding = cc._spatial_pad(cc._time_pad(x, wq.shape[1], causal), wq.shape[2],
+                                          wq.shape[3], mode)
+        cudnn = device_ms(lambda: F.conv3d(padded, w, bias, stride=cc._triple(stride),
+                                           padding=padding))
+        ops, nbytes, _ = _conv_work(x, p, kw)
+        bound_ms, bound_by = bound(ops, nbytes, peaks, peaks[2])
+        l1_bytes = x.numel() * x.element_size() + levels.numel()
+        shapes[label].update({
+            "ms": l2, "l1_ms": l1, "cudnn_bf16_ms": cudnn, "bound_ms": bound_ms,
+            "bound_by": bound_by, "l1_bound_ms": bound(0, l1_bytes, peaks)[0],
+            "tera_ops_per_s": ops / (l2 * 1e-3) / 1e12})
+        for name, t in (("l2_ms", l2), ("l1_ms", l1), ("cudnn_bf16_ms", cudnn)):
+            video[name] += t * rec["calls"]
+        del levels, padded, w
+    # the row's shape: the conv that takes L2 the most time per video; its
+    # plain versions timed on the same full-size inputs
+    main = max(shapes, key=lambda lb: shapes[lb]["ms"] * shapes[lb]["calls"])
+    rec = list(records.values())[list(shapes).index(main)]
+    x, p, kw = rec["x"].contiguous(), rec["params"], rec["kw"]
+    plain_ms = time_ms(lambda: _conv_plain(x, p, kw), reps=1, batches=3)
+    s = cc.act_scale(x)
+    l1_plain_ms = time_ms(lambda: _levels_plain(x, s), reps=3, batches=3)
+    emit({"phase": "kernel_int8_conv3d", "shapes": shapes,
+          "served_decode_shapes": served_shapes, "equal_bit_for_bit": True,
+          "extra_cases": list(extra) + ["nan"], "per_video_ms": video, "main_shape": main,
+          "convs_per_video": sum(r["calls"] for r in shapes.values()),
+          "convs_per_decode": decode_convs})
+    m = shapes[main]
+    rows = [
+        {"name": "int8_conv3d_quant", "route": "cuda", "source": CONV_SOURCE,
+         "replaces": "avatar_tpu/ops/causal_conv3d.py:73",
+         "reference_op": "XLA's per-tensor quantization (no Pallas kernel)",
+         "max_abs_err": m["l1_max_abs_err"], "ms": m["l1_ms"], "plain_ms": l1_plain_ms,
+         "bound_ms": m["l1_bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "shape": main, "per_video_ms": video["l1_ms"]},
+        {"name": "int8_conv3d", "route": "cuda", "source": CONV_SOURCE,
+         "replaces": "avatar_tpu/ops/causal_conv3d.py:94",
+         "reference_op": "XLA's int8 convolution (no Pallas kernel)",
+         "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": plain_ms,
+         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+         "library_ms": m["cudnn_bf16_ms"], "library": "cuDNN bf16 F.conv3d",
+         "shape": main, "per_video_ms": video["l2_ms"],
+         "cudnn_bf16_per_video_ms": video["cudnn_bf16_ms"]},
+    ]
+    del records, served, qparams
+    torch.cuda.empty_cache()
+    return rows, sum(r["calls"] for r in shapes.values()), decode_convs
+
+
+def check_reference_vae_w8a8():
+    """tests/test_extras.py::test_w8a8_vae on the card: the tiny VAE in f32,
+    its W8A8 encode and decode (kernel L in f32) against the f32 VAE's
+    within 0.08, finite, and a zero latent decoded to finite pixels."""
+    import torch
+
+    from avatar_tpu_torch.models.vae import VAEConfig, init_vae, vae_decode, vae_encode
+    from avatar_tpu_torch.utils.quantize import quantize_vae_params
+
+    cfg = VAEConfig.from_dict(TINY_W8A8_VAE)
+    params = init_vae(cfg, seed=0, device="cuda")
+    qparams = quantize_vae_params(params, min_size=2**10)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(1, 9, 32, 32, 3, generator=g, device="cuda")
+    reset_counts()
+    lat = vae_encode(params, cfg, x, sample_posterior=False)
+    latq = vae_encode(qparams, cfg, x, sample_posterior=False)
+    y, yq = vae_decode(params, cfg, lat), vae_decode(qparams, cfg, lat)
+    zero = vae_decode(qparams, cfg, torch.zeros_like(lat))
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in read_counts().items() if n}
+
+    def rel(a, b):
+        return ((a - b).abs().mean() / (a.abs().mean() + 1e-8)).item()
+
+    res = {"latents_rel": rel(lat, latq), "pixels_rel": rel(y, yq), "tol": TINY_W8A8_VAE_TOL,
+           "launches": launches}
+    emit({"phase": "reference_vae_w8a8", **res})
+    if not (res["latents_rel"] < TINY_W8A8_VAE_TOL and res["pixels_rel"] < TINY_W8A8_VAE_TOL
+            and bool(torch.isfinite(yq).all()) and bool(torch.isfinite(zero).all())):
+        fail(f"reference_vae_w8a8: {res}")
+    if not launches.get("int8_conv3d") or launches.get("int8_conv3d_quant") != launches[
+            "int8_conv3d"]:
+        fail(f"reference_vae_w8a8: launches {launches}")
+    return launches
+
+
+def run_pipeline_vae_w8a8(pipe, convs_per_video, attention, bf16_s):
+    """The 2B pipeline with ``quantize_vae="w8a8"`` (the same DiT and VAE
+    weights) on the main path: L1 and L2 launched once per int8 conv of the
+    video's two encodes and its decode, exactly; then the encode and the
+    decode of both VAEs in turns (bf16, int8, int8, bf16) on the same
+    inputs, and the mean relative difference of their decodes of the same
+    latents (printed, not held)."""
+    import torch
+
+    from avatar_tpu_torch.pipelines.pipeline import LTXVideoPipeline
+
+    t0 = time.perf_counter()
+    pipe_q = LTXVideoPipeline(pipe.dit_cfg, pipe.raw_dit_params, pipe.vae_cfg,
+                              pipe.vae_params, quantize_vae="w8a8", device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plain = dict(guidance_scale=1.0, stg_scale=0.0, rescaling_scale=1.0)
+    launches, _, _ = run_pipeline(
+        pipe_q, "pipeline_vae_w8a8", VAE_SIZE, VAE_FRAMES, plain,
+        {**attention, "int8_conv3d": convs_per_video, "int8_conv3d_quant": convs_per_video},
+        0, extra={"init_s": init_s, "bf16_vae_total_s": bf16_s})
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    ref = torch.rand(1, 1, VAE_SIZE, VAE_SIZE, 3, generator=g, device="cuda") * 2 - 1
+    pose = torch.rand(1, VAE_FRAMES, VAE_SIZE, VAE_SIZE, 3, generator=g,
+                      device="cuda") * 2 - 1
+    latents = torch.randn(VAE_LATENT, generator=g, device="cuda").bfloat16()
+    from avatar_tpu_torch.pipelines.pipeline import GenerationParams
+
+    p = GenerationParams(height=VAE_SIZE, width=VAE_SIZE, num_frames=VAE_FRAMES - 1,
+                         decode_timestep=0.05, decode_noise_scale=0.0)
+    noise = torch.zeros_like(latents)
+    times = {"bf16": {"encode_s": [], "decode_s": []}, "w8a8": {"encode_s": [],
+                                                                "decode_s": []}}
+    decoded = {}
+    for name, pp in (("bf16", pipe), ("w8a8", pipe_q), ("w8a8", pipe_q), ("bf16", pipe)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for media in (ref, pose):
+            pp.encode_media(media.bfloat16(), torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decoded[name] = pp.decode_latents(latents, p, noise=noise, output_type="np")
+        torch.cuda.synchronize()
+        times[name]["encode_s"].append(t1 - t0)
+        times[name]["decode_s"].append(time.perf_counter() - t1)
+    a, b = decoded["w8a8"].float(), decoded["bf16"].float()
+    res = {"times_in_turns": times,
+           "decode_mean_rel_diff": ((a - b).abs().mean() / b.abs().mean()).item(),
+           "decode_rel_rms": _rel_rms(a, b), "convs_per_video": convs_per_video}
+    emit({"phase": "pipeline_vae_w8a8_vs_bf16", **res})
+    del pipe_q, decoded
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_serving(pipe, phase, per_batch, solo_gate=True):
+    """The JAX package's serving traffic (``bench.py``'s serving rows,
+    which serve its W8A8 DiT + W8A8 VAE pipeline; here over ``pipe``, the
+    bf16 pipeline in ``serving`` and that W8A8 one in ``serving_w8a8``):
+    ``AvatarServer`` over ``pipe`` at 97 frames, 256 px, 40 steps, I420
+    output, the same reference image and pose frames (host arrays) for
+    every request, batches of up to 4 within 50 ms: a warm-up round of 4
+    requests, then two rounds of 12 (3 batches each). Requests and frames
+    per second of the faster round, per-request latency (p50, max),
+    batches per round, the media cache's hits and misses, and the launches
+    of the rounds, each kernel held to ``per_batch`` launches a batch; then
+    the first and the last request of a batch of 4 each against the same
+    request served alone, both without decode-time noise, held to
+    ``REFERENCE_TOL`` where ``solo_gate``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avatar_tpu_torch.pipelines.pipeline import GenerationParams
+    from avatar_tpu_torch.pipelines.serving import AvatarServer, GenerationRequest
+
+    rng = np.random.default_rng(14)
+    dcfg = pipe.dit_cfg
+    embeds = rng.standard_normal((1, CAPTION, dcfg.caption_channels)).astype(np.float32)
+    mask = np.ones((1, CAPTION), np.float32)
+    mask[0, 200:] = 0.0
+    ref = rng.uniform(-1, 1, (1, 1, VAE_SIZE, VAE_SIZE, 3)).astype(np.float32)
+    pose = rng.uniform(-1, 1, (1, VAE_FRAMES, VAE_SIZE, VAE_SIZE, 3)).astype(np.float32)
+    params = GenerationParams(height=VAE_SIZE, width=VAE_SIZE, num_frames=VAE_FRAMES - 1,
+                              frame_rate=25.0, num_inference_steps=STEPS, guidance_scale=1.0,
+                              stg_scale=0.0, rescaling_scale=1.0, decode_timestep=0.05)
+
+    # the decode-time noise comes from the batch's generator (in the JAX
+    # server too), so the check of a batched request against the same one
+    # alone runs without it
+    quiet = dataclasses.replace(params, decode_noise_scale=0.0)
+
+    def request(seed, p=params):
+        return GenerationRequest(p, embeds, mask, ref_image=ref, pose_frames=pose,
+                                 seed=seed, output_type="yuv420")
+
+    def serve(server, seeds, p=params):
+        done = {}
+        t0 = time.perf_counter()
+        futs = []
+        for i, seed in enumerate(seeds):
+            fut = server.submit(request(seed, p))
+            fut.add_done_callback(lambda _, i=i: done.setdefault(i, time.perf_counter()))
+            futs.append(fut)
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        return wall, [done[i] - t0 for i in range(len(seeds))], outs
+
+    server = AvatarServer(pipe, max_batch=SERVING_MAX_BATCH, batch_window_s=SERVING_WINDOW_S)
+    rounds = []
+    try:
+        warm_s, _, _ = serve(server, range(SERVING_MAX_BATCH))
+        cache = server._media_cache
+        warm = (cache.misses, cache.hits, server.stats["batches"])
+        reset_counts()
+        for r in range(2):
+            before = server.stats["batches"]
+            seeds = [100 * (r + 1) + i for i in range(SERVING_ROUND)]
+            wall, latency, outs = serve(server, seeds)
+            rounds.append({"wall_s": wall, "requests_per_s": SERVING_ROUND / wall,
+                           "frames_per_s": SERVING_ROUND * VAE_FRAMES / wall,
+                           "latency_p50_s": statistics.median(latency),
+                           "latency_max_s": max(latency),
+                           "batches": server.stats["batches"] - before})
+            del outs
+        launches = read_counts()
+        cache = (cache.misses, cache.hits)
+        batched_seeds = list(range(300, 300 + SERVING_MAX_BATCH))
+        batched = serve(server, batched_seeds, quiet)[2]
+    finally:
+        server.shutdown()
+    solo = AvatarServer(pipe, max_batch=1, batch_window_s=0.0)
+    try:
+        # the batch's leader and its last request, each served alone
+        alone = {i: solo.submit(request(batched_seeds[i], quiet)).result(timeout=600)
+                 for i in (0, SERVING_MAX_BATCH - 1)}
+    finally:
+        solo.shutdown()
+    batches = 2 * SERVING_ROUND // SERVING_MAX_BATCH
+    expect = {name: n * batches for name, n in per_batch.items()}
+    best = max(rounds, key=lambda r: r["requests_per_s"])
+    first = batched[0]
+    solo_rel_rms = {f"request {i} (seed {batched_seeds[i]})": _rel_rms(
+        torch.from_numpy(batched[i]).float(), torch.from_numpy(out).float())
+        for i, out in alone.items()}
+    res = {"requests_per_s": best["requests_per_s"], "frames_per_s": best["frames_per_s"],
+           "latency_p50_s": best["latency_p50_s"], "latency_max_s": best["latency_max_s"],
+           "rounds": rounds, "warmup_s": warm_s,
+           "cache_misses_hits_batches_after_warmup": warm,
+           "cache_misses_hits_after_rounds": cache,
+           "solo_rel_rms": solo_rel_rms,
+           "solo_tol": REFERENCE_TOL if solo_gate else None, "output_shape": list(first.shape),
+           "launches": {k: n for k, n in launches.items() if n}, "expected": expect}
+    emit({"phase": phase, **res})
+    if any(o.dtype != np.uint8 or o.shape != (VAE_FRAMES, VAE_SIZE * 3 // 2, VAE_SIZE)
+           for o in batched):
+        fail(f"{phase}: output {first.dtype} {first.shape}")
+    if any(r["batches"] != SERVING_ROUND // SERVING_MAX_BATCH for r in rounds):
+        fail(f"{phase}: batches per round {[r['batches'] for r in rounds]}")
+    if warm[:2] != (2, 2 * SERVING_MAX_BATCH - 2) or cache[0] != 2:
+        fail(f"{phase}: media cache {warm} after warm-up, {cache} after the rounds")
+    for name, n in launches.items():
+        if n != expect.get(name, 0):
+            fail(f"{phase}: {name} launched {n} times, expected {expect.get(name, 0)}")
+    if solo_gate and not max(solo_rel_rms.values()) <= REFERENCE_TOL:
+        fail(f"{phase}: batched requests against alone {solo_rel_rms}")
+    return launches
+
+
+def run_serving_w8a8(pipe, per_batch):
+    """The JAX package's served pipeline itself (``bench.py`` serves its
+    ``quantize_weights="w8a8", quantize_vae="w8a8"`` pipeline): the same
+    traffic as :func:`run_serving` over the 2B pipeline with the W8A8 DiT
+    and the W8A8 VAE, so that kernel L runs at a served batch's decode
+    shapes. The batched requests against alone are printed, not held: the
+    int8 VAE's activation scale is one per tensor, over the batch, in the
+    reference too."""
+    import torch
+
+    from avatar_tpu_torch.pipelines.pipeline import LTXVideoPipeline
+
+    t0 = time.perf_counter()
+    pipe_q = LTXVideoPipeline(pipe.dit_cfg, pipe.raw_dit_params, pipe.vae_cfg,
+                              pipe.vae_params, quantize_weights="w8a8",
+                              quantize_vae="w8a8", device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "init_serving_w8a8", "seconds": time.perf_counter() - t0})
+    launches = run_serving(pipe_q, "serving_w8a8", per_batch, solo_gate=False)
+    del pipe_q
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3908,6 +4425,8 @@ def main() -> int:
         check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS] + check_flash_backward(
         peaks) + [check_w8a8_kernel(peaks)]
     rows += check_row_quant_kernels(peaks) + check_flash_dense(peaks)
+    conv_rows, convs_per_video, convs_per_decode = check_int8_conv3d(peaks)
+    rows += conv_rows
     check_attention_gradients()
     # the f32 variants come from the background build
     rows += check_wmma_rows(peaks)
@@ -3924,6 +4443,7 @@ def main() -> int:
     by_path.update({"reference_conditioned": check_reference_conditioned(),
                "reference_vae_variants": check_reference_vae_variants(),
                "reference_w8a8": check_reference_w8a8(),
+               "reference_vae_w8a8": check_reference_vae_w8a8(),
                "reference_train": check_reference_train(),
                "train_cli": check_train_cli()})
     t5_embeds, t5_mask, by_path["t5"] = run_t5()
@@ -3968,6 +4488,14 @@ def main() -> int:
                     negative_prompt_embeds=t5_embeds[1:],
                     negative_prompt_attention_mask=t5_mask[1:],
                     conditioning_items=[ConditioningItem(image, 0, 1.0)]))
+    # the W8A8 VAE on the main path, then the serving layer's traffic
+    by_path["pipeline_vae_w8a8"] = run_pipeline_vae_w8a8(pipe, convs_per_video,
+                                                         short_attention, plain_s)
+    # (a batch decodes once; the cached media are not encoded again)
+    per_batch = {name: every for name in TOKEN_MAJOR_BF16}
+    by_path["serving"] = run_serving(pipe, "serving", per_batch)
+    by_path["serving_w8a8"] = run_serving_w8a8(pipe, {
+        **per_batch, "int8_conv3d": convs_per_decode, "int8_conv3d_quant": convs_per_decode})
     # W8A8 from the same raw (unpermuted, bf16) tree: only the int8 copies
     # of the block linears and the permuted q/k are new
     t0 = time.perf_counter()

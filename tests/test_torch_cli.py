@@ -279,15 +279,23 @@ def test_one_conditioning_path_runs_as_in_jax(assets, monkeypatch):
     assert jseen["kw"]["pose_frames"] is None and jseen["kw"]["ref_image"] is not None
 
 
+def _int8_convs(tree) -> list:
+    if isinstance(tree, dict):
+        k = tree.get("kernel_q8")
+        return [k] * (getattr(k, "ndim", 0) == 5) + _int8_convs(list(tree.values()))
+    if isinstance(tree, list):
+        return [c for v in tree for c in _int8_convs(v)]
+    return []
+
+
 def test_unported_and_refused_branches_raise(assets, tmp_path):
     with pytest.raises(NotImplementedError, match="pose path"):
         tinfer.main(["--text", "hello", "--conditioning_media_paths", str(assets["ref"]),
                      "--device", "cpu"])
+    # quantization_vae is ported: it reaches the VAE instead of raising
     pcfg = dict(tinfer.load_pipeline_config(str(assets["yamls"]["single"])),
                 quantization_vae="w8a8")
-    config = tinfer.InferenceConfig(**_config_kw(assets, "single", "q"), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 VAE"):
-        tinfer.generate(config, pcfg)
+    assert _int8_convs(tinfer.load_pipeline(pcfg, device="cpu").vae_params)
     both = tmp_path / "both.yaml"
     both.write_text(yaml.safe_dump(dict(
         tinfer.load_pipeline_config(str(assets["yamls"]["multiscale"])), window_frames=17)))

@@ -10,8 +10,10 @@ import ctypes
 import pytest
 import torch
 
+from avatar_tpu_torch.ops import causal_conv3d as cc
 from avatar_tpu_torch.ops import flash_attention as fa
 from avatar_tpu_torch.ops import int8_matmul as i8
+from avatar_tpu_torch.utils.quantize import quantize_conv3d
 
 pytestmark = pytest.mark.cuda
 
@@ -1067,3 +1069,69 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(gen):
         i8.quantize_rows_pallas(torch.randn(64, 64, device="cuda").t())
     with pytest.raises(ValueError):
         i8.fused_act_quant(torch.randn(1, 4, 64, device="cuda"), "relu")
+
+
+# kernel L (csrc/int8_conv3d.cu): C_in, C_out, kernel size, stride, causal,
+# spatial padding, dtype; C_in 8, 33 and 48 are not multiples of 32
+CONV_CASES = [
+    (8, 8, 3, 1, True, "zeros", torch.float32),
+    (48, 128, 3, 1, True, "replicate", torch.bfloat16),
+    (33, 40, 3, 2, True, "replicate", torch.bfloat16),
+    (128, 128, 3, (2, 1, 1), False, "zeros", torch.bfloat16),
+    (64, 48, 3, (1, 2, 2), False, "replicate", torch.float32),
+    (128, 64, 1, 1, False, "zeros", torch.bfloat16),
+]
+
+
+def _conv_params(gen, c, n, k, bias=True):
+    w = torch.randn(n, c, k, k, k, generator=gen, device="cuda") * 0.05
+    return quantize_conv3d({"weight": w, **({"bias": torch.randn(
+        n, generator=gen, device="cuda")} if bias else {})})
+
+
+@pytest.mark.parametrize("c,n,k,stride,causal,mode,dtype", CONV_CASES)
+def test_int8_conv3d_matches_plain_bit_for_bit(gen, c, n, k, stride, causal, mode, dtype):
+    """L1's levels and L2's outputs equal the plain version's exactly: the
+    integer sums are exact and the epilogue is the same arithmetic."""
+    x = torch.randn(2, c, 5, 12, 10, generator=gen, device="cuda").to(dtype)
+    p = _conv_params(gen, c, n, k, bias=c != 64)
+    s = cc.act_scale(x)
+    before = dict(cc.launch_counts)
+    levels = cc.quantize_levels(x, s)
+    ref_levels = cc._levels(x, s).to(torch.int8)
+    assert torch.equal(levels[..., :c], ref_levels.permute(0, 2, 3, 4, 1))
+    assert not levels[..., c:].any()
+    out = cc.int8_conv3d(x, p, stride, causal, mode)
+    torch.cuda.synchronize()
+    assert cc.launch_counts["int8_conv3d"] == before["int8_conv3d"] + 1
+    assert cc.launch_counts["int8_conv3d_quant"] == before["int8_conv3d_quant"] + 2
+    ref = cc._int8_conv3d_plain(x, p["kernel_q8"], p["scale"], p.get("bias"), stride,
+                                causal, mode)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, ref)
+
+
+def test_int8_conv3d_zero_and_nan_inputs(gen):
+    """An all-zero input gives the bias (scale 1e-8 / 127, levels 0); a NaN
+    makes the scale and so every output NaN, as the reference does."""
+    p = _conv_params(gen, 32, 16, 3)
+    zero = torch.zeros(1, 32, 3, 8, 8, device="cuda", dtype=torch.bfloat16)
+    out = cc.int8_conv3d(zero, p)
+    assert torch.equal(out, p["bias"].bfloat16()[None, :, None, None, None].expand_as(out))
+    x = torch.randn(1, 32, 3, 8, 8, generator=gen, device="cuda", dtype=torch.bfloat16)
+    x[0, 3, 1, 2, 2] = float("nan")
+    out = cc.int8_conv3d(x, p)
+    ref = cc._int8_conv3d_plain(x, p["kernel_q8"], p["scale"], p["bias"], 1, True, "zeros")
+    assert torch.isnan(out).all() and torch.isnan(ref).all()
+
+
+def test_int8_conv3d_wrapper_refuses_what_it_cannot_run(gen):
+    p = _conv_params(gen, 32, 16, 3)
+    x = torch.randn(1, 32, 3, 8, 8, generator=gen, device="cuda")
+    with pytest.raises(ValueError):  # the kernel as [out, in, kt, kh, kw]
+        cc.int8_conv3d(x, dict(p, kernel_q8=cc.int8_kernel_view(p["kernel_q8"], 32)
+                               .contiguous()))
+    with pytest.raises(ValueError):  # fp16
+        cc.int8_conv3d(x.half(), p)
+    with pytest.raises(ValueError):  # padding mode
+        cc.int8_conv3d(x, p, spatial_padding_mode="reflect")

@@ -601,7 +601,7 @@ def test_w8a8_pipeline_matches_jax(request, pipeline_trees, route):
 def test_pipeline_quantize_options():
     """True and "w8" are weight-only, "w8a8" quantizes the block linears,
     before the split-RoPE permutation (``raw_dit_params`` stays
-    unpermuted); quantize_vae raises and names the int8 conv3d."""
+    unpermuted); quantize_vae gives the VAE ``quantize_vae_params``' tree."""
     cfg = tdit.DiTConfig(num_attention_heads=8, attention_head_dim=64, in_channels=8,
                          out_channels=8, num_layers=1, cross_attention_dim=512,
                          caption_channels=32)
@@ -622,5 +622,8 @@ def test_pipeline_quantize_options():
     with pytest.raises(ValueError):
         tpipe.LTXVideoPipeline(cfg, params, vcfg, vae, quantize_weights="w4",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="conv3d"):
-        tpipe.LTXVideoPipeline(cfg, params, vcfg, vae, quantize_vae=True, device="cpu")
+    pipe = tpipe.LTXVideoPipeline(cfg, params, vcfg, vae, quantize_vae=True, device="cpu")
+    ref = dict(_leaves(tquant.quantize_vae_params(vae)))
+    got = dict(_leaves(pipe.vae_params))
+    assert got.keys() == ref.keys()
+    assert all(torch.equal(got[p], v) for p, v in ref.items())
