@@ -38,34 +38,17 @@
 // 32) is one cp.async, zero-filled where the tap falls in a zero pad or past
 // K. The output tile is staged through shared memory so that the NCDHW
 // stores run along positions. This reaches the legacy mma.sync rate, not the
-// card's int8 peak, which needs wgmma and TMA's im2col mode (later work).
+// card's int8 peak: int8_conv3d_sm90.cu (wgmma, TMA) takes the shapes its
+// boxes can read, and this kernel stays their gather route for the rest
+// (strides, replicate padding, other widths) and the comparison.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "int8_conv3d.cuh"
+
 namespace avatar_conv8 {
-
-// The shape of one convolution, as the wrapper passes it (19 ints).
-struct ConvShape {
-  int B, F, H, W, Cp;  // levels [B, F, H, W, Cp]
-  int N, Fo, Ho, Wo;   // out [B, N, Fo, Ho, Wo]
-  int kt, kh, kw;
-  int st, sh, sw;
-  int t_lo, ph, pw;  // frames repeated in front; spatial pads
-  int replicate;     // spatial pad: 1 replicate, 0 zeros
-};
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // ---------------------------------------------------------------------------
 // L1: quantize and relayout
@@ -225,18 +208,6 @@ __device__ __forceinline__ void load_stage(int8_t* stage, const ConvShape& s,
     cp_async16(sb + (row + j * 64) * kLds + col,
                ok ? wq + static_cast<int64_t>(gn) * K + k : wq, ok);
   }
-}
-
-__device__ __forceinline__ float finish(float v, const float* bias, int n) {
-  return bias == nullptr ? v : __fadd_rn(v, bias[n]);
-}
-
-__device__ __forceinline__ __nv_bfloat16 finish(float v, const __nv_bfloat16* bias,
-                                                int n) {
-  // rounded to bf16 first, then the bf16 bias added and rounded again
-  const __nv_bfloat16 o = __float2bfloat16_rn(v);
-  if (bias == nullptr) return o;
-  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(o), __bfloat162float(bias[n])));
 }
 
 template <typename OutT>

@@ -1,6 +1,9 @@
 """Instructions per output element of kernel K (the FF activation and int8
 row quantization of ``csrc/row_quant.cu``), counted from the SASS that
-``nvcc`` built, and the issue bound they give on this card.
+``nvcc`` built, and the issue bound they give on this card; and the same
+count for kernel L1 (the W8A8 VAE's levels, ``csrc/int8_conv3d_sm90.cu``)
+per input element, from ``tools/conv_quant_work.cu``
+(:func:`count_level_work`).
 
     python3 -m avatar_tpu_torch.tools.act_quant_sass [--dump DIR]
 
@@ -149,10 +152,13 @@ def count_loops(instrs, per_thread: int) -> dict:
             "per_element": per_element + outside / per_thread}
 
 
-def _loop_length(body) -> int:
+def _loop_length(body, calls: bool = False) -> int:
     """Instructions of the longest loop of ``body`` (from a backward branch's
     target to that branch), with any block the loop branches out to that
-    branches back into it (code the compiler placed out of line)."""
+    branches back into it (code the compiler placed out of line). A call in
+    the loop raises, unless ``calls``: then it counts as one instruction and
+    its subroutine (a slow path, such as the division's for flagged
+    operands) is not walked."""
     index = {addr: i for i, (addr, _, _) in enumerate(body)}
     best = None
     for i, (addr, op, args) in enumerate(body):
@@ -168,7 +174,7 @@ def _loop_length(body) -> int:
     length = end - start + 1
     for j in range(start, end + 1):
         op, args = body[j][1], body[j][2]
-        if op.startswith("CALL"):
+        if op.startswith("CALL") and not calls:
             raise RuntimeError(f"a call in the counted loop: {op} {args}")
         t = _TARGET.search(args)
         if not (op.startswith("BRA") and t and index.get(int(t.group(1), 16), -1) > end):
@@ -184,14 +190,13 @@ def _loop_length(body) -> int:
     return length
 
 
-def count_work(dump: Path = None) -> dict:
-    """{activation: {"work": n, "frame": n, "per_element": n - frame}}: the
-    loop bodies of ``act_work<act, true>`` and ``act_work<act, false>`` of
-    ``tools/act_quant_work.cu``, built with the kernels' own nvcc flags."""
+def _work_sass(source_name: str, dump: Path = None):
+    """:func:`sass` of ``tools/<source_name>``, built with the kernels' own
+    nvcc flags."""
     from avatar_tpu_torch.ops import kernel_build
 
-    source = Path(__file__).with_name("act_quant_work.cu")
-    lib = kernel_build.BUILD_DIR / "act_quant_work.so"
+    source = Path(__file__).with_name(source_name)
+    lib = kernel_build.BUILD_DIR / f"{source.stem}.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     cmd = [kernel_build.nvcc_path(), *kernel_build.NVCC_FLAGS, "-I", str(kernel_build.CSRC),
            "-o", str(lib), str(source)]
@@ -199,17 +204,43 @@ def count_work(dump: Path = None) -> dict:
                           timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source.name}:\n{proc.stdout}")
-    funcs = sass(lib, dump)
-    result = {}
-    for act, code in ACTIVATIONS.items():
-        counts = {}
-        for label, flag in (("work", 1), ("frame", 0)):
-            names = [n for n in funcs if f"act_workILi{code}ELb{flag}E" in n]
-            if len(names) != 1:
-                raise RuntimeError(f"act_work<{act}, {label}> not found in the SASS: {names}")
-            counts[label] = _loop_length(_body(funcs[names[0]]))
-        result[act] = {**counts, "per_element": counts["work"] - counts["frame"]}
-    return result
+    return sass(lib, dump)
+
+
+def _work_pair(funcs, pattern: str, calls: bool = False) -> dict:
+    """{"work": n, "frame": n, "per_element": n - frame} of the two loop
+    kernels whose mangled names hold ``pattern`` with the flag 1 and 0."""
+    counts = {}
+    for label, flag in (("work", 1), ("frame", 0)):
+        names = [n for n in funcs if pattern.format(flag=flag) in n]
+        if len(names) != 1:
+            raise RuntimeError(f"{pattern} ({label}) not found in the SASS: {names}")
+        counts[label] = _loop_length(_body(funcs[names[0]]), calls)
+    return {**counts, "per_element": counts["work"] - counts["frame"]}
+
+
+def count_work(dump: Path = None) -> dict:
+    """{activation: {"work": n, "frame": n, "per_element": n - frame}}: the
+    loop bodies of ``act_work<act, true>`` and ``act_work<act, false>`` of
+    ``tools/act_quant_work.cu``, built with the kernels' own nvcc flags."""
+    funcs = _work_sass("act_quant_work.cu", dump)
+    return {act: _work_pair(funcs, f"act_workILi{code}ELb{{flag}}E")
+            for act, code in ACTIVATIONS.items()}
+
+
+# the mangled template arguments of level_work's input types
+LEVEL_TYPES = {"bf16": "13__nv_bfloat16", "f32": "f"}
+
+
+def count_level_work(dump: Path = None) -> dict:
+    """{"bf16" | "f32": {"work": n, "frame": n, "per_element": n - frame}}:
+    kernel L1's work per input element, the loop bodies of
+    ``level_work<InT, true>`` and ``level_work<InT, false>`` of
+    ``tools/conv_quant_work.cu`` (the division's slow-path call counted as
+    one instruction, its subroutine not)."""
+    funcs = _work_sass("conv_quant_work.cu", dump)
+    return {name: _work_pair(funcs, f"level_workI{mangled}Lb{{flag}}E", calls=True)
+            for name, mangled in LEVEL_TYPES.items()}
 
 
 def out_width(act: str, in_width: int = WIDTH) -> int:
@@ -268,6 +299,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("act_quant_sass: needs the card (its SM count and clock)")
     work = count_work(args.dump)
+    levels = count_level_work(args.dump)
     counts = count_act_quant(args.dump)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_mhz()
@@ -277,7 +309,7 @@ def main() -> int:
                                                    out_width(act) * ROWS, sms, clock)
     print(json.dumps({"card": torch.cuda.get_device_name(0), "sms": sms,
                       "max_sm_clock_mhz": clock, "shape": [ROWS, WIDTH],
-                      "work": work, "kernels": counts}))
+                      "work": work, "kernels": counts, "l1_levels_work": levels}))
     return 0
 
 

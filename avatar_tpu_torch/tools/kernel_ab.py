@@ -3,7 +3,7 @@
     python3 -m avatar_tpu_torch.tools.kernel_ab [FAMILY ...]
 
 FAMILY is one of rope (A), flash (C, D, E), dense (G), int8 (H), token (B),
-act (K) and rmsq (J); every family by default. Run it from the repo root (the
+act (K), rmsq (J) and levels (L1); every family by default. Run it from the repo root (the
 shapes of ``chip_smoke.py`` are imported from it).
 
 A variant is a data entry of ``VARIANTS``: the source it patches, the
@@ -50,7 +50,13 @@ Variants and the further calls of each family:
   shared memory once per CTA); and on I's input, [5376, 2048], the
   committed I against ``i_on_j`` (J's kernel with the norm and modulation
   compiled out, y = x: I's function), whose levels and scales must equal
-  I's.
+  I's;
+- levels, kernel L1 (``int8_conv3d_sm90.cu``) at the 2B VAE's three
+  largest conv inputs, [1, 128 | 48, 97, 64, 64] and [1, 256, 49, 32, 32]
+  in bf16: ``ldcs`` (the loads as ``__ldcs``, evict-first), ``tile256``
+  / ``tile64`` (256 or 64 positions a block, not 128); ``first_design``:
+  the first L1 of ``int8_conv3d.cu`` on the same input; ``copy``: a
+  device copy that reads and writes as many bytes as L1 (not compared).
 
 Prints the card's name and power limit, then one JSON line of
 milliseconds. Needs a CUDA card and ``nvcc``.
@@ -134,11 +140,19 @@ VARIANTS: Dict[str, Dict[str, Variant]] = {
              "constexpr bool kStageModulation = false;"),)),
         "i_on_j": Variant("row_quant.cu", (
             ("constexpr bool kNormModulate = true;", "constexpr bool kNormModulate = false;"),))},
+    "levels": {
+        "ldcs": Variant("int8_conv3d_sm90.cu", (
+            ("      raw[i] = *reinterpret_cast<const uint4*>(x + (b * C + c) * P + p);",
+             "      raw[i] = __ldcs(reinterpret_cast<const uint4*>(x + (b * C + c) * P + p));"),)),
+        "tile256": Variant("int8_conv3d_sm90.cu", (
+            ("launch_quant_tile<InT, true, 128>", "launch_quant_tile<InT, true, 256>"),)),
+        "tile64": Variant("int8_conv3d_sm90.cu", (("  if (wide)\n", "  if (false)\n"),))},
 }
 # each family's committed library
 COMMITTED = {"rope": "rope_attention_sm90", "flash": "flash_forward_sm90",
              "dense": "flash_dense_sm90", "int8": "int8_matmul_sm90",
-             "token": "token_attention_sm90", "act": "row_quant", "rmsq": "row_quant"}
+             "token": "token_attention_sm90", "act": "row_quant", "rmsq": "row_quant",
+             "levels": "int8_conv3d_sm90"}
 
 
 def _patched(text: str, subs) -> str:
@@ -170,14 +184,18 @@ def build_variant(name: str, v: Variant) -> ctypes.CDLL:
 def build_libs(families) -> Dict[str, Dict[str, ctypes.CDLL]]:
     """{family: {"committed" or variant name: library}}, every build started
     together."""
-    # rope's c_prerotated runs the committed C
-    extra = ["flash_forward_sm90"] if "rope" in families else []
+    # rope's c_prerotated runs the committed C, levels' first_design the
+    # first L1
+    extra = (["flash_forward_sm90"] if "rope" in families else []) + (
+        ["int8_conv3d"] if "levels" in families else [])
     committed = kernel_build.build_all([COMMITTED[f] for f in families] + extra)
     jobs = {(f, n): v for f in families for n, v in VARIANTS[f].items()}
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = {key: pool.submit(build_variant, f"{key[0]}_{key[1]}", v)
                  for key, v in jobs.items()}
         libs = {f: {"committed": committed[(COMMITTED[f], ())]} for f in families}
+        if "levels" in families:
+            libs["levels"]["first_design"] = committed[("int8_conv3d", ())]
         for (f, n), fut in built.items():
             libs[f][n] = fut.result()
     return libs
@@ -469,8 +487,46 @@ def rmsq_cases(g, libs):
                       "i_on_j": "rms_mod_quant_regs_kernel"}, {"i_on_j": "exact"})
 
 
+def levels_caller(lib):
+    """L1 through its C entry (the first design's on ``first_design``)."""
+    name = ("int8_conv3d_quant_sm90" if hasattr(lib, "int8_conv3d_quant_sm90")
+            else "int8_conv3d_quant")
+    fn = _entry(lib, name, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+    def call(x, s, xq):
+        b, c = x.shape[:2]
+        fn(x.data_ptr(), s.data_ptr(), xq.data_ptr(), b, c, x[0, 0].numel(), xq.shape[-1], 0)
+    return call
+
+
+def levels_cases(g, libs):
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    for shape in ((1, 128, 97, 64, 64), (1, 48, 97, 64, 64), (1, 256, 49, 32, 32)):
+        x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        s = cc.act_scale(x)
+        cp = cc.padded_channels(shape[1])
+        outs = {n: (torch.empty((1, *shape[2:], cp), device="cuda", dtype=torch.int8),)
+                for n in libs}
+        calls = {n: (lambda fn=levels_caller(lib), o=outs[n]: fn(x, s, *o))
+                 for n, lib in libs.items()}
+        # a copy of half L1's bytes each way: as many bytes read and written
+        half = (x.numel() * 2 + outs["committed"][0].numel()) // 2
+        src = torch.empty(half, device="cuda", dtype=torch.uint8)
+        dst = torch.empty_like(src)
+        calls["copy"] = lambda: dst.copy_(src)
+        outs["copy"] = (dst,)
+        rules = {n: "exact" for n in libs if n != "committed"}
+        rules["copy"] = "none"
+        match = {n: "quant_levels_kernel" for n in libs}
+        match["first_design"] = "quant_relayout_kernel"
+        match["copy"] = ""
+        yield f"L1 {list(shape)}", Case(calls, outs, match, rules)
+
+
 CASES = {"rope": rope_cases, "flash": flash_cases, "dense": dense_cases, "int8": int8_cases,
-         "token": token_cases, "act": act_cases, "rmsq": rmsq_cases}
+         "token": token_cases, "act": act_cases, "rmsq": rmsq_cases,
+         "levels": levels_cases}
 
 
 # ---------------------------------------------------------------------------

@@ -36,11 +36,16 @@ Phases, each printing one JSON line as soon as it has its numbers:
    ``avatar_tpu_torch/tools/act_quant_sass.py``; I, J and K on rows with a
    NaN or an inf, exactly as their plain versions); the W8A8 VAE's kernel
    L (``kernel_int8_conv3d``: L1's levels and L2's outputs bit for bit
-   against their plain versions at every int8 conv shape of the 2B VAE's
-   encode of a reference frame and 97 pose frames at 256 px and its
-   decode of [13, 8, 8, 128] latents, with replicate padding, stride 2, a
-   zero and a NaN input; each shape's device times beside cuDNN's bf16
-   conv and the bound, and the sums over a video); the flash
+   against their plain versions, L2 on the route ``conv_plan`` names
+   (``int8_conv3d_sm90``: wgmma, split K where planned) and on the gather
+   kernel, at every int8 conv shape of the 2B VAE's encode of a reference
+   frame and 97 pose frames at 256 px and its decode of [13, 8, 8, 128]
+   latents and of a served batch-4 decode, with replicate padding, stride
+   2, zero and NaN inputs, split K among them; the one-read activation
+   scale equal to the two-pass one; each shape's route and split, device
+   times of both L2 routes and both L1 designs beside cuDNN's bf16 conv
+   and the bounds (L1's the larger of bytes and the issue of its work's
+   SASS), and the sums over a video and per shape class); the flash
    backward's two kernels
    (``kernel_flash_bwd_dkv``, ``kernel_flash_bwd_dq``) on the Hopper
    kernels (``flash_bwd_*_sm90``) at the training shapes, at 5376 tokens
@@ -86,7 +91,7 @@ Phases, each printing one JSON line as soon as it has its numbers:
    weight-only w8; reference_vae_w8a8: the tiny VAE of
    ``tests/test_extras.py::test_w8a8_vae`` in f32 on the card, its W8A8
    encode and decode (kernel L in f32) within that test's 0.08 of the f32
-   VAE's;
+   VAE's, L2's launches on each route as ``conv_plan`` names them;
 7. t5: T5-XXL at full width, seeded random bf16 weights: a prompt and a
    negative prompt encoded (2 x 256 tokens), its time, peak memory, the
    W8A8 encode's time and distance, and a tiny T5 in bf16 on the card
@@ -109,7 +114,9 @@ Phases, each printing one JSON line as soon as it has its numbers:
    image-to-video;
    pipeline_vae_w8a8: the short path with ``quantize_vae="w8a8"`` (the
    same DiT and VAE weights): L1 and L2 of kernel L launched exactly once
-   per int8 conv of the video's two encodes and its decode (129), stage
+   per int8 conv of the video's two encodes and its decode (129; L2 on
+   the wgmma route 123 times, on the gather route for the 6 stride-2
+   convs), stage
    seconds, then both VAEs' encode and decode in turns (bf16, int8, int8,
    bf16) and the int8 decode's distance from the bf16 one (printed);
    serving: ``AvatarServer`` over the bf16 pipeline, the JAX package's
@@ -157,6 +164,7 @@ non-zero without that line. Needs one CUDA card; exits 1 without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -3890,6 +3898,7 @@ def run_cli_phases(pipe, t5_embeds, t5_mask) -> dict:
 # ---------------------------------------------------------------------------
 
 CONV_SOURCE = "avatar_tpu_torch/csrc/int8_conv3d.cu"
+CONV_SM90_SOURCE = "avatar_tpu_torch/csrc/int8_conv3d_sm90.cu"
 # the 2B VAE's work on the main path: the reference frame and 97 pose frames
 # at 256 px encoded, [1, 13, 8, 8, 128] latents decoded
 VAE_FRAMES, VAE_SIZE, VAE_LATENT = 97, 256, (1, 13, 8, 8, 128)
@@ -3998,29 +4007,149 @@ def _conv_work(x, params, kw):
     return 2.0 * m * n * k, nbytes, (m, n, k)
 
 
+def conv_plan_of(x, params, kw):
+    """:func:`conv_plan` of one recorded conv."""
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    wq = params["kernel_q8"]
+    return cc.conv_plan(tuple(x.shape), wq.shape[0], tuple(wq.shape[1:4]),
+                        cc._triple(kw.get("stride", 1)), kw.get("causal", True),
+                        kw.get("spatial_padding_mode", "zeros"), x.dtype)
+
+
+def _count_conv(counts, x, params, kw, calls=1) -> None:
+    """Adds ``calls`` launches of L1 and of the L2 route conv_plan names."""
+    route = conv_plan_of(x, params, kw).route
+    counts["int8_conv3d_quant"] += calls
+    counts["int8_conv3d" if route == "gather" else "int8_conv3d_sm90"] += calls
+
+
+def planned_launches(records) -> dict:
+    """L1's and each L2 route's launches for the recorded convs ({key:
+    {"x", "params", "kw", "calls"}}) as :func:`conv_plan` routes them."""
+    counts = {"int8_conv3d_quant": 0, "int8_conv3d": 0, "int8_conv3d_sm90": 0}
+    for rec in records.values():
+        _count_conv(counts, rec["x"], rec["params"], rec["kw"], rec["calls"])
+    return counts
+
+
+@contextlib.contextmanager
+def planned_conv_launches():
+    """Counts the int8 convs the VAE runs in the block, L1's and each L2
+    route's as ``conv_plan`` routes them: the launches the wrapper must
+    make."""
+    from avatar_tpu_torch.models import vae as tvae
+
+    counts = {"int8_conv3d_quant": 0, "int8_conv3d": 0, "int8_conv3d_sm90": 0}
+    original = tvae.conv3d_params
+
+    def count(params, x, **kw):
+        if "kernel_q8" in params:
+            _count_conv(counts, x, params, kw)
+        return original(params, x, **kw)
+
+    tvae.conv3d_params = count
+    try:
+        yield counts
+    finally:
+        tvae.conv3d_params = original
+
+
+def _gather_l2(levels, s, params, kw, dtype):
+    """L2 on the gather kernel (the first design) through its C entry, on
+    any shape: the comparison beside the route the plan names."""
+    import torch
+
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    _, out, (args, _keep) = cc._conv_args(
+        levels, s, params["kernel_q8"], params["scale"], params.get("bias"), dtype,
+        kw.get("stride", 1), kw.get("causal", True), kw.get("spatial_padding_mode", "zeros"))
+    err = cc.gather_entry()(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"int8_conv3d (gather) launch failed with cudaError_t {err}")
+    return out
+
+
+def _old_levels(x, s):
+    """L1's first design (``quant_relayout_kernel`` of csrc/int8_conv3d.cu)
+    through its C entry: the comparison beside the new L1."""
+    import torch
+
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    b, c = x.shape[:2]
+    cp = cc.padded_channels(c)
+    xq = torch.empty((b, *x.shape[2:], cp), device=x.device, dtype=torch.int8)
+    fn = cc._entry("int8_conv3d", "int8_conv3d_quant", [cc._P] * 3 + [cc._I] * 5 + [cc._P])
+    err = fn(x.data_ptr(), s.data_ptr(), xq.data_ptr(), b, c, x[0, 0].numel(), cp,
+             int(x.dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"int8_conv3d_quant (first design) launch failed with cudaError_t {err}")
+    return xq
+
+
+def _two_pass_scale(x):
+    """The activation scale in two passes (|x| written, then its amax),
+    which the one-read ``act_scale`` must equal."""
+    import torch
+
+    from avatar_tpu_torch.ops.int8_matmul import div127
+
+    return div127(torch.clamp_min(x.abs().amax().float(), 1e-8))
+
+
+def _same_scale(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b) or (torch.isnan(a) and torch.isnan(b)))
+
+
+def _out_diff(out, ref) -> float:
+    """0.0 where equal bit for bit; the max |difference| otherwise (NaN
+    where equal where finite but the NaNs differ)."""
+    import torch
+
+    if torch.equal(out, ref):
+        return 0.0
+    err = (out.float() - ref.float()).abs().max().item()
+    return err if err else float("nan")
+
+
 def _compare_conv(x, params, kw):
-    """L1's levels and L2's output against their plain versions on ``x``:
-    (levels' max |difference|, output's max |difference| (NaN where the
-    NaN pattern differs), the plain version's seconds)."""
+    """L1's levels and L2's output (on its planned route and on the gather
+    kernel) against their plain versions on ``x``, and the one-read scale
+    against the two-pass one: (levels' max |difference|, each output's
+    difference (:func:`_out_diff`), whether the scales are equal, the plain
+    version's seconds)."""
     import torch
 
     from avatar_tpu_torch.ops import causal_conv3d as cc
 
     s = cc.act_scale(x)
+    same_scale = _same_scale(s, _two_pass_scale(x))
     levels = cc.quantize_levels(x, s)
     l1_err = (levels.int() - _levels_plain(x, s).int()).abs().max().item()
-    del levels
     out = cc.int8_conv3d(x, params, **kw)
+    gathered = _gather_l2(levels, s, params, kw, x.dtype)
+    del levels
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = _conv_plain(x, params, kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    same = torch.equal(out, ref)
-    l2_err = 0.0 if same else (out.float() - ref.float()).abs().max().item()
-    if not same and l2_err == 0.0:
-        l2_err = float("nan")  # equal where finite: the NaNs differ
-    return l1_err, l2_err, plain_s
+    return l1_err, _out_diff(out, ref), _out_diff(gathered, ref), same_scale, plain_s
+
+
+def conv_class(m: int, n: int) -> str:
+    """A conv shape's class by its output positions ``m`` and channels
+    ``n``: ``sub_wave`` where the first design's grid of 128 x 128 tiles is
+    under a wave of the SMs, else ``small`` up to 4,096 positions, else
+    ``large``."""
+    from avatar_tpu_torch.ops import causal_conv3d as cc
+
+    return ("sub_wave" if -(-m // 128) * -(-n // 128) < cc.SMS
+            else "small" if m <= 4096 else "large")
 
 
 def check_int8_conv3d(peaks):
@@ -4028,17 +4157,24 @@ def check_int8_conv3d(peaks):
     levels and L2's outputs at full size at every distinct W8A8 conv shape
     of the 2B VAE on the main path (its encode of 97 pose frames and a
     reference frame at 256 px, its decode of [13, 8, 8, 128] latents) and
-    of a served batch's decode (``SERVED_BATCH`` latents), with replicate
-    padding, stride 2, an all-zero input and a NaN. Each main-path shape's
-    L1 and L2 device times (profiler), launches per video, bound and
-    cuDNN's bf16 conv of the same shape (what the bf16 VAE runs), and the
-    sums over one video. Returns L1's and L2's kernel rows, the number of
-    int8 convs in a video and in one decode."""
+    of a served batch's decode (``SERVED_BATCH`` latents), on the route
+    ``conv_plan`` names (wgmma, with split K where it says) and on the
+    gather kernel, with replicate padding, stride 2, an all-zero input and a
+    NaN; the one-read activation scale equal to the two-pass one. Each
+    main-path shape's route and split, L1's (new and first design) and L2's
+    (planned route, gather kernel) device times (profiler), launches per
+    video, bound and cuDNN's bf16 conv of the same shape (what the bf16 VAE
+    runs); the sums over one video and per shape class (:func:`conv_class`).
+    L1's bound is the larger of its bytes and the issue of the instructions
+    its function needs per element (``act_quant_sass.count_level_work``).
+    Returns L1's and L2's kernel rows and the launches per route of a video
+    and of one served decode."""
     import torch
     import torch.nn.functional as F
 
     from avatar_tpu_torch.models.vae import LTX_VAE_CONFIG, VAEConfig, init_vae
     from avatar_tpu_torch.ops import causal_conv3d as cc
+    from avatar_tpu_torch.tools import act_quant_sass
     from avatar_tpu_torch.utils.quantize import quantize_vae_params
 
     vcfg = VAEConfig.from_dict({**LTX_VAE_CONFIG, "timestep_conditioning": True})
@@ -4051,39 +4187,64 @@ def check_int8_conv3d(peaks):
         for rec in recs.values():
             x, p, kw = rec["x"].contiguous(), rec["params"], rec["kw"]
             _, _, (m, n, k) = _conv_work(x, p, kw)
+            plan = conv_plan_of(x, p, kw)
             label = (f"{tuple(x.shape)} {x.shape[1]}->{n} k{p['kernel_q8'].shape[1]}"
                      f" stride {kw.get('stride', 1)} causal {kw.get('causal', True)}")
-            l1_err, l2_err, plain_s = _compare_conv(x, p, kw)
-            if l1_err or l2_err:
-                unequal[label] = {"l1_levels": l1_err, "l2_max_abs_err": l2_err}
-            table[label] = {"calls": rec["calls"], "m_n_k": [m, n, k],
+            l1_err, l2_err, gather_err, same_scale, plain_s = _compare_conv(x, p, kw)
+            if l1_err or l2_err or gather_err or not same_scale:
+                unequal[label] = {"l1_levels": l1_err, "l2_max_abs_err": l2_err,
+                                  "gather_max_abs_err": gather_err, "scale_equal": same_scale}
+            table[label] = {"calls": rec["calls"], "m_n_k": [m, n, k], "route": plan.route,
+                            "tile_m": plan.tile_m, "chunk": plan.chunk, "split": plan.split,
+                            "items": plan.items, "class": conv_class(m, n),
                             "l1_max_abs_err": l1_err, "max_abs_err": l2_err,
-                            "plain_s": plain_s}
+                            "gather_max_abs_err": gather_err, "plain_s": plain_s}
     # replicate padding and stride 2 at the largest conv's widths, an
-    # all-zero input, a NaN
+    # all-zero input, a NaN (through the wgmma kernel and its split-K path)
     big = max(records.values(), key=lambda r: _conv_work(r["x"], r["params"], r["kw"])[0])
     x9 = big["x"][:, :, :9].contiguous()
-    extra = {"replicate": (x9, dict(big["kw"], spatial_padding_mode="replicate")),
+    small = next(r for r in records.values()
+                 if conv_plan_of(r["x"], r["params"], r["kw"]).split > 1)
+    extra = {"replicate": (x9, big["params"], dict(big["kw"], spatial_padding_mode="replicate")),
              "replicate, stride 2, non-causal": (
-                 x9, dict(big["kw"], spatial_padding_mode="replicate", stride=2,
-                          causal=False)),
-             "all zero": (torch.zeros_like(x9), big["kw"])}
-    nan = x9.clone()
-    nan[0, 5, 3, 7, 11] = float("nan")
-    for label, (xe, kw) in extra.items():
-        out, ref = cc.int8_conv3d(xe, big["params"], **kw), _conv_plain(xe, big["params"], kw)
+                 x9, big["params"], dict(big["kw"], spatial_padding_mode="replicate", stride=2,
+                                         causal=False)),
+             "all zero": (torch.zeros_like(x9), big["params"], big["kw"]),
+             "all zero, split K": (torch.zeros_like(small["x"]), small["params"],
+                                   small["kw"])}
+    extra_routes = {}
+    for label, (xe, pe, kw) in extra.items():
+        extra_routes[label] = conv_plan_of(xe, pe, kw).route
+        out, ref = cc.int8_conv3d(xe, pe, **kw), _conv_plain(xe, pe, kw)
         if not torch.equal(out, ref):
-            unequal[label] = (out.float() - ref.float()).abs().max().item()
-    nan_out = cc.int8_conv3d(nan, big["params"], **big["kw"])
-    if not torch.isnan(nan_out).all():
-        unequal["nan"] = "finite outputs from a NaN input"
+            unequal[label] = _out_diff(out, ref)
+    for label, rec in (("nan", big), ("nan, split K", small)):
+        nan = rec["x"][:, :, :9].clone(memory_format=torch.contiguous_format)
+        nan.view(-1)[nan.numel() // 3] = float("nan")
+        if not _same_scale(cc.act_scale(nan), _two_pass_scale(nan)):
+            unequal[f"{label} scale"] = "the one-read scale differs"
+        nan_out = cc.int8_conv3d(nan, rec["params"], **rec["kw"])
+        if not torch.isnan(nan_out).all():
+            unequal[label] = "finite outputs from a NaN input"
+        extra_routes[label] = conv_plan_of(nan, rec["params"], rec["kw"]).route
     torch.cuda.synchronize()
     if unequal:
         fail(f"int8_conv3d disagrees with its plain version: {unequal}")
 
-    # times: L2 and L1 by the profiler's device time, cuDNN's bf16 conv on
-    # the same shape (the pad the bf16 VAE concatenates first is not timed)
-    video = {"l2_ms": 0.0, "l1_ms": 0.0, "cudnn_bf16_ms": 0.0}
+    # L1's bound: the larger of its bytes and the issue of the instructions
+    # its work needs per input element (SASS of this run's build)
+    level_work = act_quant_sass.count_level_work()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = act_quant_sass.max_sm_clock_mhz()
+
+    # times: L2 on its planned route (the kernel and, with split K, the
+    # workspace's memset) and on the gather kernel, L1 new and first design,
+    # by the profiler's device time; cuDNN's bf16 conv on the same shape
+    # (the pad the bf16 VAE concatenates first is not timed)
+    sums = ("l2_ms", "gather_ms", "cudnn_bf16_ms", "bound_ms", "l1_ms", "l1_old_ms",
+            "l1_bound_ms")
+    video = dict.fromkeys(sums, 0.0)
+    by_class = {}
     for rec, label in zip(records.values(), shapes):
         x, p, kw = rec["x"].contiguous(), rec["params"], rec["kw"]
         stride, causal = kw.get("stride", 1), kw.get("causal", True)
@@ -4092,9 +4253,10 @@ def check_int8_conv3d(peaks):
         wq = p["kernel_q8"]
         mode = kw.get("spatial_padding_mode", "zeros")
         l2 = device_ms(lambda: cc.conv_levels(levels, s, wq, p["scale"], p.get("bias"),
-                                              x.dtype, stride, causal, mode),
-                       "int8_conv3d_kernel")
-        l1 = device_ms(lambda: cc.quantize_levels(x, s), "quant_relayout_kernel")
+                                              x.dtype, stride, causal, mode))
+        gather = device_ms(lambda: _gather_l2(levels, s, p, kw, x.dtype))
+        l1 = device_ms(lambda: cc.quantize_levels(x, s), "quant_levels_kernel")
+        l1_old = device_ms(lambda: _old_levels(x, s), "quant_relayout_kernel")
         w = (cc.int8_kernel_view(wq, x.shape[1]).float()
              * p["scale"][:, None, None, None, None]).bfloat16()
         bias = p.get("bias")
@@ -4104,15 +4266,28 @@ def check_int8_conv3d(peaks):
                                            padding=padding))
         ops, nbytes, _ = _conv_work(x, p, kw)
         bound_ms, bound_by = bound(ops, nbytes, peaks, peaks[2])
-        l1_bytes = x.numel() * x.element_size() + levels.numel()
-        shapes[label].update({
-            "ms": l2, "l1_ms": l1, "cudnn_bf16_ms": cudnn, "bound_ms": bound_ms,
-            "bound_by": bound_by, "l1_bound_ms": bound(0, l1_bytes, peaks)[0],
+        l1_bytes_ms = bound(0, x.numel() * x.element_size() + levels.numel(), peaks)[0]
+        per_element = level_work["f32" if x.dtype == torch.float32 else "bf16"]["per_element"]
+        l1_issue_ms = act_quant_sass.issue_bound_ms(per_element, x.numel(), sms, clock)
+        row = shapes[label]
+        row.update({
+            "ms": l2, "gather_ms": gather, "l1_ms": l1, "l1_old_ms": l1_old,
+            "cudnn_bf16_ms": cudnn, "bound_ms": bound_ms, "bound_by": bound_by,
+            "l1_bytes_bound_ms": l1_bytes_ms, "l1_issue_bound_ms": l1_issue_ms,
+            "l1_bound_ms": max(l1_bytes_ms, l1_issue_ms),
+            "l1_bound_by": "bytes" if l1_bytes_ms >= l1_issue_ms else "operations",
             "tera_ops_per_s": ops / (l2 * 1e-3) / 1e12})
-        for name, t in (("l2_ms", l2), ("l1_ms", l1), ("cudnn_bf16_ms", cudnn)):
+        cls = by_class.setdefault(row["class"], dict.fromkeys(sums, 0.0) | {"shapes": 0,
+                                                                          "calls": 0})
+        cls["shapes"] += 1
+        cls["calls"] += rec["calls"]
+        for name, t in (("l2_ms", l2), ("gather_ms", gather), ("cudnn_bf16_ms", cudnn),
+                        ("bound_ms", bound_ms), ("l1_ms", l1), ("l1_old_ms", l1_old),
+                        ("l1_bound_ms", row["l1_bound_ms"])):
             video[name] += t * rec["calls"]
+            cls[name] += t * rec["calls"]
         del levels, padded, w
-    # the row's shape: the conv that takes L2 the most time per video; its
+    # the rows' shape: the conv that takes L2 the most time per video; its
     # plain versions timed on the same full-size inputs
     main = max(shapes, key=lambda lb: shapes[lb]["ms"] * shapes[lb]["calls"])
     rec = list(records.values())[list(shapes).index(main)]
@@ -4120,31 +4295,55 @@ def check_int8_conv3d(peaks):
     plain_ms = time_ms(lambda: _conv_plain(x, p, kw), reps=1, batches=3)
     s = cc.act_scale(x)
     l1_plain_ms = time_ms(lambda: _levels_plain(x, s), reps=3, batches=3)
+    per_video = planned_launches(records)
+    per_decode = planned_launches(served)
     emit({"phase": "kernel_int8_conv3d", "shapes": shapes,
           "served_decode_shapes": served_shapes, "equal_bit_for_bit": True,
-          "extra_cases": list(extra) + ["nan"], "per_video_ms": video, "main_shape": main,
+          "one_read_scale_equal": True, "extra_cases": extra_routes,
+          "per_video_ms": video, "per_class_ms": by_class, "main_shape": main,
+          "l1_level_work": level_work, "sms": sms, "max_sm_clock_mhz": clock,
           "convs_per_video": sum(r["calls"] for r in shapes.values()),
-          "convs_per_decode": decode_convs})
+          "convs_per_decode": decode_convs, "launches_per_video": per_video,
+          "launches_per_served_decode": per_decode})
     m = shapes[main]
+    gather_main = next((lb for lb in shapes if shapes[lb]["route"] == "gather"), main)
+    g = shapes[gather_main]
     rows = [
-        {"name": "int8_conv3d_quant", "route": "cuda", "source": CONV_SOURCE,
+        {"name": "int8_conv3d_quant", "route": "cuda", "source": CONV_SM90_SOURCE,
          "replaces": "avatar_tpu/ops/causal_conv3d.py:73",
          "reference_op": "XLA's per-tensor quantization (no Pallas kernel)",
          "max_abs_err": m["l1_max_abs_err"], "ms": m["l1_ms"], "plain_ms": l1_plain_ms,
-         "bound_ms": m["l1_bound_ms"], "bound_by": "bytes", "library_ms": None,
-         "shape": main, "per_video_ms": video["l1_ms"]},
-        {"name": "int8_conv3d", "route": "cuda", "source": CONV_SOURCE,
+         "bound_ms": m["l1_bound_ms"], "bound_by": m["l1_bound_by"],
+         "bytes_bound_ms": m["l1_bytes_bound_ms"], "issue_bound_ms": m["l1_issue_bound_ms"],
+         "library_ms": None, "first_design_ms": m["l1_old_ms"], "first_design": CONV_SOURCE,
+         "shape": main, "per_video_ms": video["l1_ms"],
+         "first_design_per_video_ms": video["l1_old_ms"],
+         "bound_per_video_ms": video["l1_bound_ms"]},
+        {"name": "int8_conv3d_sm90", "route": "cuda", "source": CONV_SM90_SOURCE,
          "replaces": "avatar_tpu/ops/causal_conv3d.py:94",
          "reference_op": "XLA's int8 convolution (no Pallas kernel)",
          "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": plain_ms,
          "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
          "library_ms": m["cudnn_bf16_ms"], "library": "cuDNN bf16 F.conv3d",
-         "shape": main, "per_video_ms": video["l2_ms"],
-         "cudnn_bf16_per_video_ms": video["cudnn_bf16_ms"]},
+         "gather_ms": m["gather_ms"], "shape": main,
+         "per_video_ms": video["l2_ms"], "bound_per_video_ms": video["bound_ms"],
+         "gather_per_video_ms": video["gather_ms"],
+         "cudnn_bf16_per_video_ms": video["cudnn_bf16_ms"], "per_class_ms": by_class},
+        {"name": "int8_conv3d", "route": "cuda", "source": CONV_SOURCE,
+         "replaces": "avatar_tpu/ops/causal_conv3d.py:94",
+         "reference_op": "XLA's int8 convolution (no Pallas kernel)",
+         "max_abs_err": g["gather_max_abs_err"], "ms": g["gather_ms"], "plain_ms": plain_ms,
+         "plain_ms_shape": main, "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+         "library_ms": g["cudnn_bf16_ms"], "library": "cuDNN bf16 F.conv3d",
+         "shape": gather_main,
+         "main_path_shapes": [lb for lb in shapes if shapes[lb]["route"] == "gather"],
+         "per_video_ms": sum(shapes[lb]["gather_ms"] * shapes[lb]["calls"] for lb in shapes
+                             if shapes[lb]["route"] == "gather"),
+         "every_shape_per_video_ms": video["gather_ms"]},
     ]
     del records, served, qparams
     torch.cuda.empty_cache()
-    return rows, sum(r["calls"] for r in shapes.values()), decode_convs
+    return rows, per_video, per_decode
 
 
 def check_reference_vae_w8a8():
@@ -4162,10 +4361,11 @@ def check_reference_vae_w8a8():
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(1, 9, 32, 32, 3, generator=g, device="cuda")
     reset_counts()
-    lat = vae_encode(params, cfg, x, sample_posterior=False)
-    latq = vae_encode(qparams, cfg, x, sample_posterior=False)
-    y, yq = vae_decode(params, cfg, lat), vae_decode(qparams, cfg, lat)
-    zero = vae_decode(qparams, cfg, torch.zeros_like(lat))
+    with planned_conv_launches() as planned:
+        lat = vae_encode(params, cfg, x, sample_posterior=False)
+        latq = vae_encode(qparams, cfg, x, sample_posterior=False)
+        y, yq = vae_decode(params, cfg, lat), vae_decode(qparams, cfg, lat)
+        zero = vae_decode(qparams, cfg, torch.zeros_like(lat))
     torch.cuda.synchronize()
     launches = {k: n for k, n in read_counts().items() if n}
 
@@ -4173,21 +4373,22 @@ def check_reference_vae_w8a8():
         return ((a - b).abs().mean() / (a.abs().mean() + 1e-8)).item()
 
     res = {"latents_rel": rel(lat, latq), "pixels_rel": rel(y, yq), "tol": TINY_W8A8_VAE_TOL,
-           "launches": launches}
+           "launches": launches, "planned_conv_launches": planned}
     emit({"phase": "reference_vae_w8a8", **res})
     if not (res["latents_rel"] < TINY_W8A8_VAE_TOL and res["pixels_rel"] < TINY_W8A8_VAE_TOL
             and bool(torch.isfinite(yq).all()) and bool(torch.isfinite(zero).all())):
         fail(f"reference_vae_w8a8: {res}")
-    if not launches.get("int8_conv3d") or launches.get("int8_conv3d_quant") != launches[
-            "int8_conv3d"]:
-        fail(f"reference_vae_w8a8: launches {launches}")
+    if not planned["int8_conv3d_quant"] or any(
+            launches.get(k, 0) != n for k, n in planned.items()):
+        fail(f"reference_vae_w8a8: launches {launches}, planned {planned}")
     return launches
 
 
-def run_pipeline_vae_w8a8(pipe, convs_per_video, attention, bf16_s):
+def run_pipeline_vae_w8a8(pipe, conv_launches, attention, bf16_s):
     """The 2B pipeline with ``quantize_vae="w8a8"`` (the same DiT and VAE
     weights) on the main path: L1 and L2 launched once per int8 conv of the
-    video's two encodes and its decode, exactly; then the encode and the
+    video's two encodes and its decode, exactly, L2 on each route as
+    ``conv_plan`` names it (``conv_launches``); then the encode and the
     decode of both VAEs in turns (bf16, int8, int8, bf16) on the same
     inputs, and the mean relative difference of their decodes of the same
     latents (printed, not held)."""
@@ -4203,7 +4404,7 @@ def run_pipeline_vae_w8a8(pipe, convs_per_video, attention, bf16_s):
     plain = dict(guidance_scale=1.0, stg_scale=0.0, rescaling_scale=1.0)
     launches, _, _ = run_pipeline(
         pipe_q, "pipeline_vae_w8a8", VAE_SIZE, VAE_FRAMES, plain,
-        {**attention, "int8_conv3d": convs_per_video, "int8_conv3d_quant": convs_per_video},
+        {**attention, **conv_launches},
         0, extra={"init_s": init_s, "bf16_vae_total_s": bf16_s})
 
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -4233,7 +4434,7 @@ def run_pipeline_vae_w8a8(pipe, convs_per_video, attention, bf16_s):
     a, b = decoded["w8a8"].float(), decoded["bf16"].float()
     res = {"times_in_turns": times,
            "decode_mean_rel_diff": ((a - b).abs().mean() / b.abs().mean()).item(),
-           "decode_rel_rms": _rel_rms(a, b), "convs_per_video": convs_per_video}
+           "decode_rel_rms": _rel_rms(a, b), "conv_launches": conv_launches}
     emit({"phase": "pipeline_vae_w8a8_vs_bf16", **res})
     del pipe_q, decoded
     torch.cuda.empty_cache()
@@ -4425,7 +4626,7 @@ def main() -> int:
         check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS] + check_flash_backward(
         peaks) + [check_w8a8_kernel(peaks)]
     rows += check_row_quant_kernels(peaks) + check_flash_dense(peaks)
-    conv_rows, convs_per_video, convs_per_decode = check_int8_conv3d(peaks)
+    conv_rows, conv_launches, decode_launches = check_int8_conv3d(peaks)
     rows += conv_rows
     check_attention_gradients()
     # the f32 variants come from the background build
@@ -4489,13 +4690,13 @@ def main() -> int:
                     negative_prompt_attention_mask=t5_mask[1:],
                     conditioning_items=[ConditioningItem(image, 0, 1.0)]))
     # the W8A8 VAE on the main path, then the serving layer's traffic
-    by_path["pipeline_vae_w8a8"] = run_pipeline_vae_w8a8(pipe, convs_per_video,
+    by_path["pipeline_vae_w8a8"] = run_pipeline_vae_w8a8(pipe, conv_launches,
                                                          short_attention, plain_s)
     # (a batch decodes once; the cached media are not encoded again)
     per_batch = {name: every for name in TOKEN_MAJOR_BF16}
     by_path["serving"] = run_serving(pipe, "serving", per_batch)
     by_path["serving_w8a8"] = run_serving_w8a8(pipe, {
-        **per_batch, "int8_conv3d": convs_per_decode, "int8_conv3d_quant": convs_per_decode})
+        **per_batch, **decode_launches})
     # W8A8 from the same raw (unpermuted, bf16) tree: only the int8 copies
     # of the block linears and the permuted q/k are new
     t0 = time.perf_counter()

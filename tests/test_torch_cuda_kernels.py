@@ -1071,8 +1071,9 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(gen):
         i8.fused_act_quant(torch.randn(1, 4, 64, device="cuda"), "relu")
 
 
-# kernel L (csrc/int8_conv3d.cu): C_in, C_out, kernel size, stride, causal,
-# spatial padding, dtype; C_in 8, 33 and 48 are not multiples of 32
+# kernel L's gather route (csrc/int8_conv3d.cu: W = 10 is no wgmma box):
+# C_in, C_out, kernel size, stride, causal, spatial padding, dtype; C_in 8,
+# 33 and 48 are not multiples of 32
 CONV_CASES = [
     (8, 8, 3, 1, True, "zeros", torch.float32),
     (48, 128, 3, 1, True, "replicate", torch.bfloat16),
@@ -1135,3 +1136,100 @@ def test_int8_conv3d_wrapper_refuses_what_it_cannot_run(gen):
         cc.int8_conv3d(x.half(), p)
     with pytest.raises(ValueError):  # padding mode
         cc.int8_conv3d(x, p, spatial_padding_mode="reflect")
+
+
+# kernel L's wgmma route (csrc/int8_conv3d_sm90.cu): batch, C_in, C_out,
+# (F, H, W), causal, dtype; W = 8, 16, 32, 64; F = 1 and 2 clamp every tap's
+# frame at one or both ends; N = 48 and 129 leave a ragged channel tile;
+# C_in 48 and 64 take 64-byte stages
+SM90_CASES = [
+    (1, 128, 128, (5, 8, 8), True, torch.bfloat16),
+    (2, 128, 48, (3, 16, 16), False, torch.bfloat16),
+    (1, 64, 129, (3, 32, 32), True, torch.float32),
+    (1, 256, 64, (2, 64, 64), False, torch.bfloat16),
+    (1, 512, 129, (1, 8, 8), True, torch.bfloat16),
+    (1, 512, 512, (2, 8, 8), False, torch.bfloat16),
+    (1, 48, 128, (1, 16, 16), True, torch.float32),
+]
+
+
+def _sm90_call(x, p, causal, tile_m, split):
+    """L2 on the wgmma kernel through its C entry with a plan of our own."""
+    s = cc.act_scale(x)
+    xq = cc.quantize_levels(x, s)
+    plan, out, (args, _keep) = cc._conv_args(xq, s, p["kernel_q8"], p["scale"], p.get("bias"),
+                                             x.dtype, 1, causal, "zeros")
+    tiles = -(-out[:, 0].numel() // tile_m) * -(-out.shape[1] // cc.TILE_N)
+    ws = None if split == 1 else torch.empty(tiles * (tile_m * cc.TILE_N + 1),
+                                             device="cuda", dtype=torch.int32)
+    fn = cc._entry("int8_conv3d_sm90", "int8_conv3d_sm90", [cc._P] * 7 + [cc._I] * 4 + [cc._P] * 2)
+    assert fn(*args, tile_m, plan.chunk, split, None if ws is None else ws.data_ptr(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    return plan, out
+
+
+@pytest.mark.parametrize("b,c,n,fhw,causal,dtype", SM90_CASES)
+def test_int8_conv3d_sm90_matches_plain_bit_for_bit(gen, b, c, n, fhw, causal, dtype):
+    """The wrapper takes the wgmma route conv_plan names (one launch of
+    it, none of the gather kernel), and that route, split K in 2 and 3
+    slices, 256-position tiles (bf16) and the gather kernel on the same
+    inputs all give the plain version's output exactly."""
+    x = torch.randn(b, c, *fhw, generator=gen, device="cuda").to(dtype)
+    p = _conv_params(gen, c, n, 3)
+    plan = cc.conv_plan(tuple(x.shape), n, (3, 3, 3), (1, 1, 1), causal, "zeros", dtype)
+    assert plan.route == "sm90"
+    before = dict(cc.launch_counts)
+    out = cc.int8_conv3d(x, p, 1, causal)
+    torch.cuda.synchronize()
+    assert cc.launch_counts["int8_conv3d_sm90"] == before["int8_conv3d_sm90"] + 1
+    assert cc.launch_counts["int8_conv3d"] == before["int8_conv3d"]
+    ref = cc._int8_conv3d_plain(x, p["kernel_q8"], p["scale"], p["bias"], 1, causal, "zeros")
+    assert out.dtype == dtype and torch.equal(out, ref)
+    tiles = (128, 256) if dtype == torch.bfloat16 else (128,)
+    for tile_m in tiles:
+        for split in (1, 2, 3):
+            _, forced = _sm90_call(x, p, causal, tile_m, split)
+            torch.cuda.synchronize()
+            assert torch.equal(forced, ref), (tile_m, split)
+    s = cc.act_scale(x)
+    xq = cc.quantize_levels(x, s)
+    _, gathered, (args, _keep) = cc._conv_args(xq, s, p["kernel_q8"], p["scale"], p["bias"],
+                                               dtype, 1, causal, "zeros")
+    assert cc.gather_entry()(*args, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(gathered, ref)
+
+
+def test_int8_conv3d_sm90_split_keeps_nan_and_zero(gen):
+    """Split K over a NaN input gives NaN everywhere; over zeros, the bias."""
+    p = _conv_params(gen, 512, 129, 3)
+    zero = torch.zeros(1, 512, 1, 8, 8, device="cuda", dtype=torch.bfloat16)
+    assert cc.conv_plan(tuple(zero.shape), 129, (3, 3, 3), (1, 1, 1), True, "zeros",
+                        torch.bfloat16).split > 1
+    out = cc.int8_conv3d(zero, p)
+    assert torch.equal(out, p["bias"].bfloat16()[None, :, None, None, None].expand_as(out))
+    x = torch.randn(1, 512, 1, 8, 8, generator=gen, device="cuda", dtype=torch.bfloat16)
+    x[0, 100, 0, 3, 3] = float("nan")
+    assert torch.isnan(cc.int8_conv3d(x, p)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fhw", [(1, 8, 8), (3, 7, 9), (97, 32, 32)])
+def test_int8_conv3d_levels_match_plain_with_nonfinite_rows(gen, dtype, fhw):
+    """L1 (its 64- and 256-position tiles, 16-byte and, at 189 positions,
+    scalar loads) equals _levels and the first design's kernel, NaN and
+    +-inf included, under the NaN scale they give and a finite one."""
+    x = torch.randn(2, 40, *fhw, generator=gen, device="cuda").to(dtype)
+    x[0, 3].view(-1)[::7] = float("nan")
+    x[1, 5].view(-1)[::5] = float("inf")
+    x[1, 6].view(-1)[::3] = float("-inf")
+    for s in (cc.act_scale(x), torch.tensor(0.37, device="cuda")):
+        levels = cc.quantize_levels(x, s)
+        ref = cc._levels(x, s).to(torch.int8).permute(0, 2, 3, 4, 1)
+        assert torch.equal(levels[..., :40], ref) and not levels[..., 40:].any()
+        old = torch.empty_like(levels)
+        fn = cc._entry("int8_conv3d", "int8_conv3d_quant", [cc._P] * 3 + [cc._I] * 5 + [cc._P])
+        assert fn(x.data_ptr(), s.data_ptr(), old.data_ptr(), 2, 40, x[0, 0].numel(), 64,
+                  int(dtype == torch.float32), torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(levels, old)

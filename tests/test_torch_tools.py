@@ -1,6 +1,7 @@
 """The port's diagnostic tools run on the CPU and show what they are for:
 the bf16 error probe; the SASS counting of ``tools/act_quant_sass.py`` on
-listings in ``cuobjdump -sass``'s format; the source variants of
+listings in ``cuobjdump -sass``'s format; ``tools/conv_plan_sweep.py``'s
+cost model against ``conv_plan`` and its fit; the source variants of
 ``tools/kernel_ab.py`` against the committed sources (a variant whose patch
 no longer applies would fail only on the card); ``tools/w8a8_path.py``
 refuses to run without a card."""
@@ -13,7 +14,9 @@ torch = pytest.importorskip("torch")
 
 from avatar_tpu_torch.ops import kernel_build  # noqa: E402
 from avatar_tpu_torch.tools import act_quant_sass as sass  # noqa: E402
+from avatar_tpu_torch.ops import causal_conv3d as cc  # noqa: E402
 from avatar_tpu_torch.tools import bf16_error  # noqa: E402
+from avatar_tpu_torch.tools import conv_plan_sweep  # noqa: E402
 from avatar_tpu_torch.tools import kernel_ab  # noqa: E402
 from avatar_tpu_torch.tools import w8a8_path  # noqa: E402
 
@@ -116,6 +119,56 @@ def test_loop_length_of_a_listing(text, length):
 def test_loop_length_refuses_what_it_cannot_count(text, message):
     with pytest.raises(RuntimeError, match=message):
         sass._loop_length(_only(text))
+
+
+def test_loop_length_counts_a_call_where_asked():
+    """The division's slow-path call counts as one instruction where
+    ``calls`` is set; its subroutine is not walked."""
+    text = OUT_OF_LINE_SASS.replace("FADD R0, R0, R1", "CALL.REL.NOINC 0x80")
+    assert sass._loop_length(_only(text), calls=True) == 7
+
+
+CURRENT = {"TILE_256": cc.TILE_256, "ITEM_STAGES": cc.ITEM_STAGES,
+           "SPLIT_STAGES": cc.SPLIT_STAGES}
+
+
+def _every_plan(steps):
+    return {conv_plan_sweep.plan_key(t, sp): 1.0 for t in conv_plan_sweep.TILES
+            for sp in range(1, max(1, steps // cc.MIN_SLICE_STEPS) + 1)}
+
+
+@pytest.mark.parametrize("shape,n,causal", conv_plan_sweep.SHAPES)
+def test_conv_plan_sweep_models_conv_plan(shape, n, causal):
+    """Given every plan conv_plan weighs, the sweep's model with
+    conv_plan's constants picks conv_plan's own plan."""
+    plan = cc.conv_plan(tuple(shape), n, (3, 3, 3), (1, 1, 1), causal, "zeros",
+                        torch.bfloat16)
+    row = {"shape": shape, "n": n, "steps": plan.steps, "chunk": plan.chunk,
+           "ms": _every_plan(plan.steps)}
+    assert conv_plan_sweep.model_plan(row, CURRENT) == conv_plan_sweep.plan_key(
+        plan.tile_m, plan.split)
+
+
+def test_conv_plan_sweep_fit_finds_the_constants_times_follow():
+    """Times that follow the cost model at a point of the grid leave no
+    regret at that point, and conv_plan's constants are scored beside it."""
+    consts = {"TILE_256": 1.8, "ITEM_STAGES": 1.0, "SPLIT_STAGES": 8.0}
+    rows = []
+    for shape, n, causal in conv_plan_sweep.SHAPES[:8]:
+        plan = cc.conv_plan(tuple(shape), n, (3, 3, 3), (1, 1, 1), causal, "zeros",
+                            torch.bfloat16)
+        times = {}
+        for key in _every_plan(plan.steps):
+            tile_m, split = map(int, key.split("/"))
+            tiles = -(-shape[0] * shape[2] * shape[3] * shape[4] // tile_m) * -(-n // 128)
+            times[key] = cc._plan_cost(tiles, plan.steps, split, tile_m, plan.chunk,
+                                       *consts.values())
+        rows.append({"shape": shape, "n": n, "steps": plan.steps, "chunk": plan.chunk,
+                     "ms": times})
+    assert conv_plan_sweep.regret(rows, consts)[0] == pytest.approx(0.0, abs=1e-12)
+    result = conv_plan_sweep.fit(rows)
+    assert result["best_log_regret"] == pytest.approx(0.0, abs=1e-12)
+    assert result["current"] == CURRENT and result["current_log_regret"] >= 0.0
 
 
 def test_issue_bound_of_the_gelu_approximate_work():
