@@ -13,8 +13,10 @@ or a transformer-only export with ``vae_checkpoint_path``), and, with
 an already parsed config and returns the cropped uint8 frames;
 :func:`write_outputs` writes them (PIL / cv2); :func:`infer` does both.
 ``quantization_vae`` (any true value, e.g. "w8a8") builds the pipeline
-with the W8A8 VAE. Not ported yet: ``--text`` (FaceFormer pose frames;
-ROADMAP queue 1, the pose path); it raises.
+with the W8A8 VAE. ``--text`` with a reference image renders the pose
+frames itself (``pipelines/pose_frames.py``: face detection, Coqui TTS,
+FaceFormer on the card, landmark frames; ``--faceformer_checkpoint`` and
+``--flame_template`` name its files).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ class InferenceConfig:
     """The CLI's flags (the JAX package's, plus ``device``)."""
 
     prompt: str = ""
-    text: str = ""  # text to pronounce (drives TTS + FaceFormer; not ported)
+    text: str = ""  # text to pronounce (drives TTS + FaceFormer)
     output_path: Optional[str] = None
     pipeline_config: str = "configs/inference-avatars.yaml"
     seed: int = 171198
@@ -335,11 +337,25 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--conditioning_strengths", type=float, nargs="*", default=None)
     args, _ = parser.parse_known_args(argv)
     config = InferenceConfig(**vars(args))
+    # --text: detect the face in the reference image, render FaceFormer pose
+    # frames for the text, and take their directory as the pose frames
     if config.text and config.conditioning_media_paths:
-        raise NotImplementedError(
-            "--text: FaceFormer pose frames (wav2vec2, FaceFormer, pose rendering) are "
-            "not ported yet (ROADMAP queue 1, the pose path); pass the pose frames "
-            "as the second conditioning media path")
+        from PIL import Image
+
+        from avatar_tpu_torch.pipelines.pose_frames import (
+            detect_face_bbox, generate_faceformer_frames,
+        )
+
+        image = np.asarray(Image.open(config.conditioning_media_paths[0]).convert("RGB"))
+        frames_dir = generate_faceformer_frames(
+            config.text,
+            output_dir=Path(config.output_path or "outputs") / "pose_frames",
+            faceformer_checkpoint=config.faceformer_checkpoint,
+            template_path=config.flame_template, face_bbox=detect_face_bbox(image),
+            target_fps=config.frame_rate, height=config.height, width=config.width,
+            device=config.device)
+        config.conditioning_media_paths = [config.conditioning_media_paths[0],
+                                           str(frames_dir)]
     return infer(config)
 
 

@@ -3,7 +3,7 @@
 
 The fields are the JAX package's, so one YAML file configures both
 trainers; the port's trainer (``cli/train.py``) runs ``sharding_mode="dp"``
-on one device and raises on the other modes and on ``optimizer="adafactor"``.
+on one device and raises on the other modes.
 PyYAML is imported only by :func:`load_train_config_from_yaml`: a machine
 without it can still build a :class:`TrainConfig` in code.
 """
@@ -36,13 +36,15 @@ class TrainConfig:
 
     gradient_checkpointing: bool = False
     # Rematerialization when gradient_checkpointing is on: "full" keeps only
-    # block inputs and recomputes each block in the backward; "dots" (keep
-    # the weight products' outputs) is the JAX package's only and raises here
+    # block inputs and recomputes each block in the backward; "dots" also
+    # keeps the outputs of the weight products (every linear projection)
+    # and recomputes the rest of the block
     remat_policy: str = "full"
     gradient_accumulation_steps: int = 1
 
     # "adamw" (torch AdamW's defaults: betas 0.9 / 0.999, eps 1e-8, weight
-    # decay 0.01, with optax's update); "adafactor" is the JAX package's only
+    # decay 0.01, with optax's update); "adafactor" (optax.adafactor's
+    # defaults: a factored second moment, no first moment)
     optimizer: str = "adamw"
     # AdamW first-moment dtype, "float32" or "bfloat16" (the second moment
     # stays f32)
@@ -92,14 +94,15 @@ class TrainConfig:
     log_every_n_steps: int = 10
     save_every_n_epochs: int = 1
 
-    # Decoder last-step training (the JAX package only)
+    # VAE-decoder fine-tuning (train/decoder.py): train_mode "decoder" or
+    # decoder_train, pixel targets {stem}_pixels.npy beside the latents
     decoder_train: bool = False
     transformer_loss_weight: float = 1.0
     decoder_loss_l1_weight: float = 0.1
     decoder_loss_lpips_weight: float = 0.0
     decoder_t_max: float = 0.1
 
-    train_mode: str = "full"  # "full" | "lora_audio"
+    train_mode: str = "full"  # "full" | "lora_audio" | "decoder"
     seed: int = 0
 
 

@@ -266,19 +266,82 @@ def _stg_mix(out, skipped, skip_layer_mask):
     return out * m + skipped * (1.0 - m)
 
 
+class _KeptProducts:
+    """Remat "dots" for one block (the JAX package's
+    ``dots_with_no_batch_dims_saveable``), by hand: the block's weight
+    products (every linear projection, the LoRA's two products) keep their
+    outputs on the block's first run; when the backward recomputes the
+    block, each product gives its kept output back instead of multiplying
+    again, and everything else is recomputed. The products run in the same
+    order on both runs."""
+
+    def __init__(self):
+        self.outs: List[torch.Tensor] = []
+        self.i, self.kept = 0, False
+
+    def run(self, fn, x):
+        self.i = 0
+        out = fn(x)
+        self.kept = True
+        return out
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``F.linear(x, w, b)`` whose output ``keep`` holds (see
+    :class:`_KeptProducts`). It saves x and w on both runs, as the linear's
+    own gradient does, so that the recompute saves what the first run
+    saved; its backward is the linear's: dx = g w, dw = (x^T g)^T, db = the
+    sum of g over the rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, keep):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        if keep.kept:
+            out = keep.outs[keep.i].detach()
+        else:
+            out = F.linear(x, w, b)
+            keep.outs.append(out.detach())
+        keep.i += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+        dx = (g2 @ w).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        dw = (x2.t() @ g2).t() if ctx.needs_input_grad[1] else None
+        db = g2.sum(0) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return dx, dw, db, None
+
+
+def _linear(params: dict, x, keep: Optional[_KeptProducts] = None):
+    """``linear(params, x)``; under remat "dots" (``keep``) a plain weight's
+    product keeps its output."""
+    if keep is None or "weight" not in params or not torch.is_tensor(x):
+        return linear(params, x)
+    bias = params.get("bias")
+    return _KeptProduct.apply(x, params["weight"].to(x.dtype),
+                              None if bias is None else bias.to(x.dtype), keep)
+
+
 def _lora_linear(params: dict, x, lora: Optional[dict], name: str,
-                 lora_scale: float, perm: Optional[torch.Tensor] = None):
+                 lora_scale: float, perm: Optional[torch.Tensor] = None,
+                 keep: Optional[_KeptProducts] = None):
     """``linear(params, x)`` plus, where ``lora`` holds ``name``, the
     low-rank delta ``lora_scale * (x a) b`` in x's dtype (a [in, r],
     b [r, out]); ``perm`` reorders b's output columns, as the split-RoPE
-    layout reorders the base weight's rows."""
-    out = linear(params, x)
+    layout reorders the base weight's rows. ``keep``: remat "dots"."""
+    out = _linear(params, x, keep)
     if lora is None or name not in lora:
         return out
     a, b = lora[name]["a"], lora[name]["b"]
     if perm is not None:
         b = b[:, perm.to(b.device)]
-    return out + lora_scale * ((x @ a.to(x.dtype)) @ b.to(x.dtype))
+    if keep is None:
+        return out + lora_scale * ((x @ a.to(x.dtype)) @ b.to(x.dtype))
+    xa = _KeptProduct.apply(x, a.to(x.dtype).t(), None, keep)
+    return out + lora_scale * _KeptProduct.apply(xa, b.to(x.dtype).t(), None, keep)
 
 
 def _attention(
@@ -294,6 +357,7 @@ def _attention(
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
+    keep: Optional[_KeptProducts] = None,
 ) -> torch.Tensor:
     """Self-attention over ``x`` (RoPE from ``freqs_cis``) or, with
     ``cross_kv`` (token-major (k, v) [B, Lk, inner]), cross-attention.
@@ -309,6 +373,7 @@ def _attention(
     takes a kernel under "auto"; the port takes the same path on any
     device. ``lora`` holds this attention's deltas ({"to_q": {"a", "b"},
     ...}); with ``cross_kv`` its to_k/to_v ones are already in k and v.
+    ``keep``: remat "dots" (:class:`_KeptProducts`).
     """
     b = x.shape[0]
     heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
@@ -320,7 +385,7 @@ def _attention(
     qk_perm = None
     if lora is not None and use_split_rope:
         qk_perm = torch.from_numpy(rope_channel_permutation(cfg.inner_dim))
-    proj = partial(_lora_linear, lora=lora, lora_scale=lora_scale)
+    proj = partial(_lora_linear, lora=lora, lora_scale=lora_scale, keep=keep)
 
     def mixed(out):
         out = out.to(q.dtype)
@@ -362,12 +427,13 @@ def _attention(
     return mixed(out.transpose(1, 2).reshape(b, -1, heads * hd))
 
 
-def _feed_forward(params: dict, x, cfg: DiTConfig):
+def _feed_forward(params: dict, x, cfg: DiTConfig, keep: Optional[_KeptProducts] = None):
     """``x`` is [B, N, C] or, on the fused W8A8 route, its
     :class:`PrequantRows`. With a W8A8 ``proj_out`` and a per-sample
     sequence of at least ``W8A8_PALLAS_MIN_TOKENS`` the activation and the
-    row quantization run as one kernel (``fused_act_quant``)."""
-    h = linear(params["proj_in"], x)
+    row quantization run as one kernel (``fused_act_quant``). ``keep``:
+    remat "dots"."""
+    h = _linear(params["proj_in"], x, keep)
     if (cfg.activation_fn in int8_matmul.ACTIVATIONS
             and "kernel_q8" in params["proj_out"] and h.ndim == 3
             and h.shape[1] >= int8_matmul.W8A8_PALLAS_MIN_TOKENS):
@@ -382,7 +448,7 @@ def _feed_forward(params: dict, x, cfg: DiTConfig):
         h = h * F.gelu(gate)
     else:
         raise ValueError(cfg.activation_fn)
-    return linear(params["proj_out"], h)
+    return _linear(params["proj_out"], h, keep)
 
 
 def _norm_modulate(norm_params, x, scale, shift, cfg, fused_quant):
@@ -409,7 +475,7 @@ def _gated(gate, out):
 def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
                  skip_layer_mask=None, skip_layer_strategy=None,
                  attention_impl="auto", rope_split=False, lora=None,
-                 lora_scale=1.0):
+                 lora_scale=1.0, keep=None):
     """BasicTransformerBlock with AdaLN-single; ``timestep`` is the
     [B, 1 or N, n_ada*inner] AdaLN embedding, ``skip_layer_mask`` this
     block's [B] row of the STG mask. With ``adaptive_norm="none"`` the
@@ -422,7 +488,7 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
     norm, the modulation and the row quantization before self-attention
     and before the FF run as one kernel (``fused_rms_mod_quant``), whose
     int8 rows feed the q/k/v and FF-in products directly. ``lora`` is this
-    block's {"attn1"?, "attn2"?} deltas."""
+    block's {"attn1"?, "attn2"?} deltas; ``keep`` its remat "dots" state."""
     b = x.shape[0]
     lora = lora or {}
     original_x = x
@@ -451,16 +517,16 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
         params["attn1"], norm_x, cfg, freqs_cis=freqs_cis,
         skip_layer_mask=skip_layer_mask, skip_layer_strategy=skip_layer_strategy,
         attention_impl=attention_impl, rope_split=rope_split,
-        lora=lora.get("attn1"), lora_scale=lora_scale))
+        lora=lora.get("attn1"), lora_scale=lora_scale, keep=keep))
     attn_in = x if adaln or "attn2_norm" not in params else _std_norm(
         params["attn2_norm"], x, cfg)
     x = x + _attention(params["attn2"], attn_in, cfg, kv_mask=kv_mask,
                        attention_impl=attention_impl, cross_kv=cross_kv,
-                       lora=lora.get("attn2"), lora_scale=lora_scale)
+                       lora=lora.get("attn2"), lora_scale=lora_scale, keep=keep)
 
     norm_x = _norm_modulate(params.get("norm2"), x, scale_mlp, shift_mlp, cfg,
                             fused_quant_norm and "kernel_q8" in params["ff"]["proj_in"])
-    x = x + _gated(gate_mlp, _feed_forward(params["ff"], norm_x, cfg))
+    x = x + _gated(gate_mlp, _feed_forward(params["ff"], norm_x, cfg, keep))
     if (skip_layer_mask is not None
             and skip_layer_strategy == SkipLayerStrategy.TransformerBlock):
         x = _stg_mix(x, original_x, skip_layer_mask)
@@ -631,13 +697,16 @@ def dit_apply(
     Training: ``lora`` ({"blocks": [{"attn2": {"to_q": {"a", "b"}, ...}}]})
     adds ``lora_scale`` times its low-rank deltas to the attention
     projections (with ``cross_kv`` given, its to_k/to_v deltas must already
-    be in it). ``remat`` False, True or "full" (each block under
+    be in it). ``remat``: False; True or "full" (each block under
     ``torch.utils.checkpoint``: only block inputs are kept, the backward
-    recomputes the block); "dots" (keep the weight products' outputs) is
-    not ported.
+    recomputes the block); "dots" (the JAX package's
+    ``dots_with_no_batch_dims_saveable``: the outputs of the weight
+    products, every linear projection and the LoRA's two products, are
+    kept and the rest of the block, the attention kernels included, is
+    recomputed; :class:`_KeptProducts`).
     """
-    if remat not in (False, True, "full"):
-        raise NotImplementedError(f"remat={remat!r} is not ported (False, True or 'full')")
+    if remat not in (False, True, "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r} (False, True, 'full' or 'dots')")
     x, freqs_cis, ada, embedded = _dit_prologue(
         params, cfg, hidden_states, indices_grid, timestep, freqs_cis,
         timestep_tables, rope_split,
@@ -662,7 +731,11 @@ def dit_apply(
             skip_layer_mask=None if skip_layer_mask is None else skip_layer_mask[i],
             skip_layer_strategy=skip_layer_strategy, attention_impl=attention_impl,
             rope_split=rope_split, lora=lora_blocks[i], lora_scale=lora_scale)
-        if remat:
+        if remat == "dots":
+            keep = _KeptProducts()
+            x = torch.utils.checkpoint.checkpoint(keep.run, partial(run, keep=keep), x,
+                                                  use_reentrant=False)
+        elif remat:
             x = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
         else:
             x = run(x)

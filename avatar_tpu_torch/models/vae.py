@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from avatar_tpu_torch.models.layers import (
     group_norm,
@@ -563,7 +564,40 @@ def _encode_ncdhw(params, cfg, x):
     return x
 
 
-def _decode_ncdhw(params, cfg, x, timestep, draw):
+class _Replay:
+    """One decoder block's noise draws under remat: drawn on the block's
+    first run and given again, in the same order, when the backward
+    recomputes it."""
+
+    def __init__(self, draw):
+        self.draw, self.made, self.i = draw, [], 0
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        if self.i == len(self.made):
+            self.made.append(self.draw(h))
+        self.i += 1
+        return self.made[self.i - 1]
+
+    def rewind(self) -> None:
+        self.i = 0
+
+
+def _decoder_block(block, name, bparams, x, cfg, scaled_t, draw):
+    causal = cfg.causal_decoder
+    if name in ("res_x", "attn_res_x"):
+        return _apply_mid_block(block, x, cfg, causal, timestep=scaled_t, draw=draw)
+    if name == "res_x_y":
+        return _apply_resnet(block, x, cfg, causal, draw=draw)
+    if name in _UP_STRIDE:
+        return _apply_depth_to_space_up(
+            block, x, _UP_STRIDE[name], cfg, causal,
+            residual=bparams.get("residual", False),
+            out_channels_reduction_factor=bparams.get("multiplier", 1),
+        )
+    raise ValueError(name)
+
+
+def _decode_ncdhw(params, cfg, x, timestep, draw, remat=False):
     causal = cfg.causal_decoder
     conv_kw = dict(causal=causal, spatial_padding_mode=cfg.spatial_padding_mode)
     x = conv3d_params(params["conv_in"], x, **conv_kw)
@@ -574,18 +608,17 @@ def _decode_ncdhw(params, cfg, x, timestep, draw):
         scaled_t = timestep * params["timestep_scale_multiplier"]
     walk = _decoder_channel_walk(cfg)
     for block, (name, bparams, _, _) in zip(params["blocks"], walk, strict=True):
-        if name in ("res_x", "attn_res_x"):
-            x = _apply_mid_block(block, x, cfg, causal, timestep=scaled_t, draw=draw)
-        elif name == "res_x_y":
-            x = _apply_resnet(block, x, cfg, causal, draw=draw)
-        elif name in _UP_STRIDE:
-            x = _apply_depth_to_space_up(
-                block, x, _UP_STRIDE[name], cfg, causal,
-                residual=bparams.get("residual", False),
-                out_channels_reduction_factor=bparams.get("multiplier", 1),
-            )
-        else:
-            raise ValueError(name)
+        if not remat:
+            x = _decoder_block(block, name, bparams, x, cfg, scaled_t, draw)
+            continue
+        replay = None if draw is None else _Replay(draw)
+
+        def run(xx, block=block, name=name, bparams=bparams, replay=replay):
+            if replay is not None:
+                replay.rewind()
+            return _decoder_block(block, name, bparams, xx, cfg, scaled_t, replay)
+
+        x = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
     x = _apply_norm(params["conv_norm_out"], x, cfg)
     if cfg.timestep_conditioning:
         embedded = timestep_embedder(params["last_time_embedder"],
@@ -618,15 +651,20 @@ def decoder_apply(
     timestep: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     spatial_noise: Optional[Sequence[torch.Tensor]] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """[B, F', H', W', latent_channels] -> [B, F, H, W, 3]. Blocks with
     ``inject_noise`` add noise only when ``generator`` or ``spatial_noise``
     (the [H, W] draws in the order the decoder takes them) is given, as
-    the JAX decoder does only when given a key."""
+    the JAX decoder does only when given a key. ``remat``: each up block
+    under ``torch.utils.checkpoint`` (its input kept, the block recomputed
+    in the backward with the same noise), as the JAX decoder wraps each in
+    ``jax.checkpoint``."""
     if generator is None and spatial_noise is None:
-        return _to_ndhwc(_decode_ncdhw(params, cfg, _to_ncdhw(sample), timestep, None))
+        return _to_ndhwc(_decode_ncdhw(params, cfg, _to_ncdhw(sample), timestep, None,
+                                       remat))
     draw = _SpatialNoise(generator, spatial_noise)
-    out = _decode_ncdhw(params, cfg, _to_ncdhw(sample), timestep, draw)
+    out = _decode_ncdhw(params, cfg, _to_ncdhw(sample), timestep, draw, remat)
     draw.check_used_up()
     return _to_ndhwc(out)
 
@@ -700,13 +738,15 @@ def vae_decode(
     per_channel_normalize: bool = False,
     generator: Optional[torch.Generator] = None,
     spatial_noise: Optional[Sequence[torch.Tensor]] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Normalized latents [B, F', H', W', C] -> pixels [B, F, H, W, 3];
-    ``generator`` / ``spatial_noise`` as in :func:`decoder_apply`."""
+    ``generator``, ``spatial_noise`` and ``remat`` as in
+    :func:`decoder_apply`."""
     z = un_normalize_latents(latents, params, cfg, per_channel_normalize)
     if cfg.normalize_latent_channels and "latent_norm" in params:
         ln = params["latent_norm"]
         z = z * torch.sqrt(ln["running_var"].to(z.dtype) + 1e-5) + ln[
             "running_mean"].to(z.dtype)
     return decoder_apply(params["decoder"], cfg, z, timestep=timestep,
-                         generator=generator, spatial_noise=spatial_noise)
+                         generator=generator, spatial_noise=spatial_noise, remat=remat)

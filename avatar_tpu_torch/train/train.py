@@ -9,10 +9,11 @@
 - Only the trainable subtree is differentiated (LoRA + caption_projection
   in "lora_audio" mode; the attention, AdaLN and output layers in "full"
   mode), so the frozen 2B weights get no gradient buffers.
-- :func:`make_optimizer` is AdamW with optax's arithmetic (moments, bias
-  correction, decoupled weight decay, the learning rate as the last
-  factor), optional global-norm clipping before it and an EMA of the
-  params after it, as the JAX package chains them.
+- :func:`make_optimizer` is AdamW or Adafactor with optax's arithmetic,
+  optional global-norm clipping before it and an EMA of the params after
+  it, as the JAX package chains them.
+- Batches with "audio_latents" (FaceFormer features) and "audio_mask"
+  condition the DiT on them in place of the prompt.
 
 Random numbers come from a ``torch.Generator``, which cannot give
 ``jax.random``'s draws; :func:`velocity_loss` and the step therefore also
@@ -172,13 +173,9 @@ def shift_timesteps_device(
 # ---------------------------------------------------------------------------
 
 
-def _unported(pp_mesh, sp_mesh, batch) -> None:
+def _unported(pp_mesh, sp_mesh) -> None:
     if pp_mesh is not None or sp_mesh is not None:
         raise NotImplementedError("pipeline and sequence parallelism are not ported")
-    if "audio_latents" in batch:
-        raise NotImplementedError(
-            "audio-conditioned training needs the FaceFormer features, which "
-            "are not ported")
 
 
 def velocity_loss(
@@ -202,14 +199,17 @@ def velocity_loss(
     """The velocity MSE of one micro-batch and its metrics.
 
     ``batch``: "latents" and "pose_latents" [B, F, H, W, C],
-    "ref_image_latents" [B, 1, H, W, C]. The timesteps are drawn from
+    "ref_image_latents" [B, 1, H, W, C], optionally "audio_latents"
+    [B, T, D] with their keep-mask "audio_mask" [B, T], which replace the
+    prompt (zero-padded to the caption width: the trainable
+    caption_projection learns the map). The timesteps are drawn from
     ``generator`` (:func:`sample_rf_timesteps`) unless ``t`` [B] gives the
     draw, which is then shifted as a drawn one would be; the noise
     likewise unless ``noise`` [B, N, C] f32 gives it. ``rope_split``:
     ``dit_params`` are in the split-RoPE layout, and self-attention takes
     the RoPE-fused kernel (safe for "lora_audio": the permutation touches
     only frozen attn1 q/k)."""
-    _unported(pp_mesh, sp_mesh, batch)
+    _unported(pp_mesh, sp_mesh)
     if train_mode == "lora_audio":
         lora = trainable["lora"]
         params = overlay_params(
@@ -245,8 +245,15 @@ def velocity_loss(
     v_target = velocity_target(tokens_f32, noise, t)
 
     cond = avatar_condition_tokens(noisy, ref, pose)
-    embeds = prompt_embeds.expand(b, *prompt_embeds.shape[1:]).to(model_dtype)
-    mask = prompt_mask.expand(b, *prompt_mask.shape[1:])
+    if "audio_latents" in batch:
+        from avatar_tpu_torch.models.faceformer import audio_features_to_caption_embeds
+
+        embeds = audio_features_to_caption_embeds(
+            batch["audio_latents"], dit_cfg.caption_channels).to(model_dtype)
+        mask = batch["audio_mask"]
+    else:
+        embeds = prompt_embeds.expand(b, *prompt_embeds.shape[1:]).to(model_dtype)
+        mask = prompt_mask.expand(b, *prompt_mask.shape[1:])
 
     out = dit_apply(
         params, dit_cfg, cond, coords, t.to(model_dtype), embeds, mask,
@@ -305,40 +312,25 @@ def make_lr_schedule(cfg: TrainConfig, total_steps: Optional[int] = None
     return schedule
 
 
-class AdamW:
-    """AdamW as the JAX package chains it in optax: optional
-    ``clip_by_global_norm``, then ``adamw`` (``scale_by_adam``,
-    ``add_decayed_weights``, ``scale_by_learning_rate``), then optionally
-    ``ema_of_params``. The state is a dict of trees (``mu``, ``nu``,
-    ``ema``) and step counts; :meth:`update` returns new trees and leaves
-    its arguments as they are.
+class _Chain:
+    """An optimizer as the JAX package chains it in optax: optional
+    ``clip_by_global_norm``, then the optimizer's own update
+    (:meth:`_apply`), then optionally ``ema_of_params``. The state is a
+    dict of trees and step counts; :meth:`update` returns new trees and
+    leaves its arguments as they are.
 
     - clipping: g_norm = sqrt(sum of every leaf's squares); below
       ``max_norm`` the gradients pass, else g / g_norm * max_norm;
-    - moments: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu; with a
-      bf16 ``mu_dtype`` the update reads the stored bf16 mu, b1 * mu is
-      rounded to bf16 (a bf16 tensor times a scalar, as in JAX), and mu is
-      rounded to bf16 after the bias-corrected mu_hat is taken;
-    - update: mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p, times
-      -lr(count) with the count before this step, added to p in p's dtype;
+    - the learning rate is lr(count) with the count before this step;
     - EMA: d = min(decay, (1 + n) / (10 + n)) at the n-th step,
       ema = d ema + (1 - d) p_new in f32, stored in ema's dtype.
     """
 
-    def __init__(self, lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
-                 mu_dtype: Optional[torch.dtype] = None, max_grad_norm: float = 0.0,
-                 ema_decay: float = 0.0):
-        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-        self.weight_decay, self.mu_dtype = weight_decay, mu_dtype
-        self.max_grad_norm, self.ema_decay = max_grad_norm, ema_decay
+    def __init__(self, lr, max_grad_norm: float = 0.0, ema_decay: float = 0.0):
+        self.lr, self.max_grad_norm, self.ema_decay = lr, max_grad_norm, ema_decay
 
     def init(self, params) -> Dict[str, Any]:
-        state = {
-            "count": 0,
-            "mu": tree_map(lambda p: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype),
-                           params),
-            "nu": tree_map(torch.zeros_like, params),
-        }
+        state = {"count": 0, **self._init(params)}
         if self.ema_decay:
             state["ema"] = tree_map(lambda p: p.detach().clone(), params)
             state["ema_count"] = 0
@@ -355,6 +347,49 @@ class AdamW:
             grads = tree_map(
                 lambda g: torch.where(clip, g / g_norm.to(g.dtype) * self.max_grad_norm, g),
                 grads)
+        params, state = self._apply(grads, state, params)
+        if self.ema_decay:
+            n = state["ema_count"] + 1
+            # d and 1 - d as f32 values, as the JAX package forms them
+            d = torch.minimum(torch.tensor(self.ema_decay, dtype=torch.float32),
+                              torch.tensor(1.0 + n, dtype=torch.float32)
+                              / torch.tensor(10.0 + n, dtype=torch.float32))
+            d, one_minus = d.item(), (1.0 - d).item()
+            state["ema"] = tree_map(
+                lambda e, p: (d * e.float() + one_minus * p.float()).to(e.dtype),
+                state["ema"], params)
+            state["ema_count"] = n
+        return params, state
+
+
+class AdamW(_Chain):
+    """``optax.adamw`` (``scale_by_adam``, ``add_decayed_weights``,
+    ``scale_by_learning_rate``) inside :class:`_Chain`; state trees ``mu``
+    and ``nu``.
+
+    - moments: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu; with a
+      bf16 ``mu_dtype`` the update reads the stored bf16 mu, b1 * mu is
+      rounded to bf16 (a bf16 tensor times a scalar, as in JAX), and mu is
+      rounded to bf16 after the bias-corrected mu_hat is taken;
+    - update: mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p, times
+      -lr(count), added to p in p's dtype.
+    """
+
+    def __init__(self, lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+                 mu_dtype: Optional[torch.dtype] = None, max_grad_norm: float = 0.0,
+                 ema_decay: float = 0.0):
+        super().__init__(lr, max_grad_norm, ema_decay)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.mu_dtype = weight_decay, mu_dtype
+
+    def _init(self, params) -> Dict[str, Any]:
+        return {
+            "mu": tree_map(lambda p: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype),
+                           params),
+            "nu": tree_map(torch.zeros_like, params),
+        }
+
+    def _apply(self, grads, state, params):
         count = state["count"] + 1
         bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** count
         bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** count
@@ -372,36 +407,115 @@ class AdamW:
             new_nu.append(v)
         state = dict(state, count=count, mu=tree_unflatten(state["mu"], new_mu),
                      nu=tree_unflatten(state["nu"], new_nu))
-        params = tree_unflatten(params, new_params)
-        if self.ema_decay:
-            n = state["ema_count"] + 1
-            # d and 1 - d as f32 values, as the JAX package forms them
-            d = torch.minimum(torch.tensor(self.ema_decay, dtype=torch.float32),
-                              torch.tensor(1.0 + n, dtype=torch.float32)
-                              / torch.tensor(10.0 + n, dtype=torch.float32))
-            d, one_minus = d.item(), (1.0 - d).item()
-            state["ema"] = tree_map(
-                lambda e, p: (d * e.float() + one_minus * p.float()).to(e.dtype),
-                state["ema"], params)
-            state["ema_count"] = n
-        return params, state
+        return tree_unflatten(params, new_params), state
 
 
-def make_optimizer(cfg: TrainConfig, total_steps: Optional[int] = None) -> AdamW:
-    """AdamW with torch's defaults (betas 0.9 / 0.999, eps 1e-8, weight
-    decay 0.01), ``cfg.optimizer_moment_dtype``, and the optional clipping,
-    schedule and EMA of :class:`TrainConfig`."""
-    if cfg.optimizer == "adafactor":
-        raise NotImplementedError("optimizer='adafactor' is not ported")
-    if cfg.optimizer != "adamw":
+# optax.adafactor's defaults (optax/_src/alias.py, factorized.py)
+ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIPPING_THRESHOLD = 1.0
+ADAFACTOR_MIN_PARAM_SCALE = 1e-3
+
+
+class Adafactor(_Chain):
+    """``optax.adafactor(lr)`` with optax's defaults inside :class:`_Chain`:
+    ``scale_by_factored_rms`` (decay 1 - (count + 1)^-0.8, eps 1e-30 added
+    to g^2, leaves with two axes of at least 128 factored), then
+    ``clip_by_block_rms(1.0)``, the learning rate, ``scale_by_param_block_rms``
+    (times max(rms(p), 1e-3)) and the sign; no momentum, no weight decay.
+    State trees ``v_row``, ``v_col`` (factored leaves) and ``v`` (the
+    others), each with a [1] placeholder where the leaf has no such
+    moment, as in optax.
+
+    A factored leaf's update is g * (v_row / mean(v_row))^-1/2 ⊗ v_col^-1/2,
+    v_row the mean of g^2 over the larger axis d0 and v_col over the other,
+    d1. optax picks the two axes by size on the JAX layout ([in, out],
+    [kt, kh, kw, in, out]); the port's weights are in torch's layout
+    ([out, in], [out, in, kt, kh, kw]), which reverses the order of in and
+    out. :meth:`factored_dims` therefore breaks ties of size towards the
+    lower axis, so that d0 and d1 are the same logical axes as in JAX, and
+    the update is the transposed JAX update.
+    """
+
+    def factored_dims(self, shape) -> Optional[Tuple[int, int]]:
+        """(d1, d0): the second largest and the largest axis, or None where
+        the leaf is not factored (fewer than two axes, or the second
+        largest below ``ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR``)."""
+        if len(shape) < 2:
+            return None
+        order = sorted(range(len(shape)), key=lambda i: (shape[i], -i))
+        if shape[order[-2]] < ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR:
+            return None
+        return order[-2], order[-1]
+
+    def _init(self, params) -> Dict[str, Any]:
+        def moments(p):
+            dims = self.factored_dims(p.shape)
+            one = torch.zeros(1, dtype=p.dtype, device=p.device)
+            if dims is None:
+                return one, one.clone(), torch.zeros_like(p)
+            d1, d0 = dims
+            row = [n for i, n in enumerate(p.shape) if i != d0]
+            col = [n for i, n in enumerate(p.shape) if i != d1]
+            return (torch.zeros(row, dtype=p.dtype, device=p.device),
+                    torch.zeros(col, dtype=p.dtype, device=p.device), one)
+
+        made = [moments(p) for p in tree_leaves(params)]
+        return {name: tree_unflatten(params, [m[i] for m in made])
+                for i, name in enumerate(("v_row", "v_col", "v"))}
+
+    def _apply(self, grads, state, params):
+        decay = 1.0 - torch.tensor(state["count"] + 1, dtype=torch.float32) ** (
+            -ADAFACTOR_DECAY_RATE)
+        keep = 1.0 - decay
+        lr = self.learning_rate(state["count"])
+        out = {"v_row": [], "v_col": [], "v": []}
+        new_params = []
+        for g, vr, vc, v, p in zip(tree_leaves(grads), tree_leaves(state["v_row"]),
+                                   tree_leaves(state["v_col"]), tree_leaves(state["v"]),
+                                   tree_leaves(params)):
+            g2 = g * g + ADAFACTOR_EPS
+            dims = self.factored_dims(p.shape)
+            if dims is None:
+                v = (decay * v + keep * g2).to(p.dtype)
+                u = g * v**-0.5
+            else:
+                d1, d0 = dims
+                vr = (decay * vr + keep * g2.mean(d0)).to(p.dtype)
+                vc = (decay * vc + keep * g2.mean(d1)).to(p.dtype)
+                row_factor = (vr / vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True))**-0.5
+                u = g * row_factor.unsqueeze(d0) * (vc**-0.5).unsqueeze(d1)
+            u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / ADAFACTOR_CLIPPING_THRESHOLD,
+                                min=1.0)
+            u = lr * u
+            rms = torch.sqrt(torch.mean(p * p))
+            u = u * torch.where(rms <= ADAFACTOR_MIN_PARAM_SCALE,
+                                torch.full_like(rms, ADAFACTOR_MIN_PARAM_SCALE), rms)
+            new_params.append((p + -1 * u).to(p.dtype))
+            for name, x in (("v_row", vr), ("v_col", vc), ("v", v)):
+                out[name].append(x)
+        state = dict(state, count=state["count"] + 1,
+                     **{k: tree_unflatten(state[k], x) for k, x in out.items()})
+        return tree_unflatten(params, new_params), state
+
+
+def make_optimizer(cfg: TrainConfig, total_steps: Optional[int] = None) -> _Chain:
+    """``cfg.optimizer``: AdamW with torch's defaults (betas 0.9 / 0.999,
+    eps 1e-8, weight decay 0.01) and ``cfg.optimizer_moment_dtype``, or
+    Adafactor with optax's; both with the optional clipping, schedule and
+    EMA of :class:`TrainConfig`."""
+    if cfg.optimizer not in ("adamw", "adafactor"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     if cfg.ema_decay and not 0.0 < cfg.ema_decay < 1.0:
         raise ValueError(f"ema_decay must be in (0, 1): {cfg.ema_decay}")
+    chain = dict(max_grad_norm=cfg.max_grad_norm or 0.0, ema_decay=cfg.ema_decay or 0.0)
+    lr = make_lr_schedule(cfg, total_steps)
+    if cfg.optimizer == "adafactor":
+        return Adafactor(lr, **chain)
     mu_dtype = (torch.bfloat16 if cfg.optimizer_moment_dtype in ("bfloat16", "bf16")
                 else None)
-    return AdamW(make_lr_schedule(cfg, total_steps), mu_dtype=mu_dtype,
-                 max_grad_norm=cfg.max_grad_norm or 0.0,
-                 ema_decay=cfg.ema_decay or 0.0)
+    return AdamW(lr, mu_dtype=mu_dtype, **chain)
 
 
 def ema_params(opt_state):
@@ -427,11 +541,12 @@ def init_trainable(dit_params: dict, dit_cfg: DiTConfig, cfg: TrainConfig,
 
 
 def _remat(cfg: TrainConfig):
+    """False, "full" or "dots" (:func:`dit_apply`'s ``remat``)."""
     if not cfg.gradient_checkpointing:
         return False
     remat = cfg.remat_policy or "full"
-    if remat != "full":
-        raise NotImplementedError(f"remat_policy={remat!r} is not ported")
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {remat!r}")
     return remat
 
 
@@ -442,7 +557,7 @@ def _micro(tree, i):
 def make_train_step(
     dit_cfg: DiTConfig,
     cfg: TrainConfig,
-    optimizer: AdamW,
+    optimizer: _Chain,
     attention_impl: str = "auto",
     rope_split: bool = False,
     pp_mesh=None,

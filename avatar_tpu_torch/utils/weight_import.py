@@ -64,6 +64,8 @@ def _convert(node: Any, device, dtype, stacked: bool = False) -> Any:
                 w = np.asarray(val)
                 if w.ndim == 5 and not stacked:
                     w = w.transpose(4, 3, 0, 1, 2)
+                elif w.ndim == 3 and not stacked:  # a conv1d [K, in, out]
+                    w = w.transpose(2, 1, 0)
                 else:
                     w = _swap_last(w, stacked)
                 out["weight"] = _tensor(w, device, dtype)
@@ -131,6 +133,24 @@ def t5_params_from_numpy(tree: dict, device="cuda",
     tree, plain or int8 from ``quantize_t5_params``) -> the port's tree:
     linear kernels [in, out] become weights [out, in], int8 kernels stay
     int8 with their scales in their own dtype."""
+    return _convert(tree, device, dtype)
+
+
+def wav2vec2_params_from_numpy(tree: dict, device="cuda",
+                               dtype: torch.dtype = torch.float32) -> dict:
+    """JAX wav2vec2 params (numpy leaves, ``avatar_tpu/models/wav2vec2.py``'s
+    tree) -> the port's: linear kernels [in, out] become weights [out, in],
+    conv1d kernels [K, in / groups, out] weights [out, in / groups, K]."""
+    return _convert(tree, device, dtype)
+
+
+def faceformer_params_from_numpy(tree: dict, device="cuda",
+                                 dtype: torch.dtype = torch.float32) -> dict:
+    """JAX FaceFormer params (numpy leaves, ``avatar_tpu/models/
+    faceformer.py``'s tree, its audio encoder included) -> the port's: as
+    :func:`wav2vec2_params_from_numpy`, ``obj_vector``'s [identities, d]
+    kernel becomes a [d, identities] weight, and the decoder layer's
+    attention weights, torch-laid-out in both, carry over."""
     return _convert(tree, device, dtype)
 
 

@@ -154,7 +154,27 @@ Phases, each printing one JSON line as soon as it has its numbers:
    training point (batch 8, 480 tokens, caption 256, accumulation 2, 3
    optimizer steps): losses, launches per micro-step (A, B, E and F on the
    Hopper kernels only), seconds per step, peak memory and a profile of
-   one micro-step with A's, B's, E's and F's device ms.
+   one micro-step with A's, B's, E's and F's device ms;
+14. reference_train_options (after reference_train): the tiny DiT in f32
+   with Adafactor ("lora_audio" and "full", factored leaves), card against
+   CPU, and one micro-step's gradients under remat "dots" against "full"
+   and none on the card; reference_train_decoder: the tiny VAE's decoder
+   fine-tuning in f32, card against CPU; train_cli_decoder: the CLI's
+   ``train_mode="decoder"`` with its export read back (beside train_cli);
+15. faceformer: full-width wav2vec2-base and FaceFormer (random weights
+   through ``import_faceformer_state``, f32) on 4.85 s of audio and on
+   ``MAX_AUDIO_SAMPLES``, against the CPU; ms per predict and per frame,
+   launches and busy share; vertices to landmark pixels (no renderer on
+   the card's machine);
+16. train_audio: the "lora_audio" training on audio latents made on the
+   card by FaceFormer, padded to T = 86 (cross-attention on E and F) and
+   to T = 80 (on B), launches as ``PINNED_LAUNCHES`` and
+   ``train_route_counts`` both name them;
+   train_full_remat: "full"-mode training of the 2B DiT with Adafactor
+   without remat, with remat "full" and "dots", and AdamW with "dots":
+   seconds per step, micro-step device ms, peak memory ("dots" between
+   "full" and none) and launches; train_decoder: decoder fine-tuning of
+   the 2B VAE, 97 frames at 256 px, remat per up block, AdamW, 3 steps.
 
 The launch counts are set to 0 just before each driven path and read just
 after it. Then the kernel summary line, the ``nvidia-smi`` line, and as
@@ -704,6 +724,12 @@ def check_token_kernel(peaks):
         "Lk=512": (inputs(2, 1024, (512, 300), lk=512), HEADS, scale),
         "d=128 832x256": ((q, k, v, mask), 16, 128**-0.5),
         "d=128 train 8x480x256": (shapes["train 8x480x256"], 16, 128**-0.5),
+        # train_audio's cross-attention at T = 80 (the per-sample audio
+        # frames kept), train_full_remat's self-attention (no mask)
+        "train audio 8x480x80": (inputs(TRAIN_BATCH, TRAIN_TOKENS, AUDIO_FRAMES["T80"],
+                                        lk=80), HEADS, scale),
+        "train full self 8x480": (inputs(TRAIN_BATCH, TRAIN_TOKENS, (), lk=TRAIN_TOKENS)[:3]
+                                  + (None,), HEADS, scale),
     })
     errors = KernelErrors("fused_token_attention_sm90")
     for label, (args, heads, sc) in cases.items():
@@ -885,6 +911,12 @@ def check_flash_kernel(mode, peaks):
             m[empty_row] = 0.0
         return m
 
+    def audio_mask(kept, lk):
+        m = torch.ones(len(kept), lk, device="cuda")
+        for i, n in enumerate(kept):
+            m[i, n:] = 0.0
+        return m
+
     long_len = LONG_TOKENS
     if mode == "single":
         main = qkv(1, 637, 637)
@@ -910,6 +942,11 @@ def check_flash_kernel(mode, peaks):
                                                TRAIN_BATCH - 1),
             "d=128 1000x900 transposed views, band, masked row": (
                 qkv(2, 1000, 900, 128, True), keep_mask(2, 900, 800, 1, (100, 300)), 1),
+            # train_audio's cross-attention at T = 86, each sample's audio
+            # frames kept, on the DiT's head-major views
+            "train audio cross 8x480x86": (
+                qkv(TRAIN_BATCH, TRAIN_TOKENS, 86, token_major=True),
+                audio_mask(AUDIO_FRAMES["T86"], 86), None),
         }
     else:
         main = qkv(1, long_len, long_len)
@@ -2330,8 +2367,8 @@ TRAIN_ACCUM, TRAIN_STEPS = 2, 3
 
 def _bwd_case(g, b, lq, lk, kept=None, empty_row=False, bounded=False, d=HEAD_DIM):
     """bf16 head-major q, k, v (WIDTH / d heads of d), the output gradient,
-    an optional keep-mask (``kept`` keys of each sample; the last sample
-    fully masked with ``empty_row``) and the forward's O and lse from the
+    an optional keep-mask (``kept`` keys of each sample, or a tuple of each
+    sample's; the last sample fully masked with ``empty_row``) and the forward's O and lse from the
     kernel path."""
     import torch
 
@@ -2346,7 +2383,8 @@ def _bwd_case(g, b, lq, lk, kept=None, empty_row=False, bounded=False, d=HEAD_DI
     mask = None
     if kept is not None:
         mask = torch.ones(b, lk, device="cuda")
-        mask[:, kept:] = 0.0
+        for i, n in enumerate(kept if isinstance(kept, tuple) else (kept,) * b):
+            mask[i, n:] = 0.0
         if empty_row:
             mask[-1] = 0.0
     with torch.no_grad():
@@ -2420,6 +2458,8 @@ def check_flash_backward(peaks):
         f"{LONG_TOKENS}, lse of C": _bwd_case(g, 1, LONG_TOKENS, LONG_TOKENS, bounded=True),
         f"{LONG_TOKENS}, lse of D": _bwd_case(g, 1, LONG_TOKENS, LONG_TOKENS),
         "ragged 2x477x250, masked": _bwd_case(g, 2, 477, 250, kept=190),
+        f"audio cross {b}x{TRAIN_TOKENS}x86": _bwd_case(g, b, TRAIN_TOKENS, 86,
+                                                        kept=AUDIO_FRAMES["T86"]),
         f"d=128 {LONG_TOKENS}, lse of C": _bwd_case(g, 1, LONG_TOKENS, LONG_TOKENS,
                                                     bounded=True, d=128),
     }
@@ -2952,15 +2992,6 @@ TRAIN_LOSS_RTOL = 5e-3
 TRAIN_UPDATE_TOL = 0.15
 
 
-def backward_recomputes(mode, layers):
-    """How many attention backwards (each one E forward, one F dkv and one
-    F dq) a micro-step runs: self- and cross-attention in every block,
-    except in "lora_audio" the first block's self-attention, whose inputs
-    depend on no trainable leaf (the LoRA targets attn2, and everything
-    before the first block is frozen), so autograd never reaches it."""
-    return 2 * layers - (mode == "lora_audio")
-
-
 def _tiny_train_setup():
     import torch
 
@@ -3050,9 +3081,6 @@ def check_reference_train():
 
     setup = _tiny_train_setup()
     layers, micro_steps = TINY_TRAIN_DIT["num_layers"], 2 * TRAIN_ACCUM
-    per_micro = {"lora_audio": {name: layers for name in TOKEN_MAJOR_BF16},
-                 "full": {"fused_token_attention": 2 * layers,
-                          "fused_token_attention_sm90": 2 * layers}}
     apply = tt.dit_apply
 
     def rounded_t(params, cfg, hidden, coords, t, *a, **kw):
@@ -3066,10 +3094,8 @@ def check_reference_train():
             tr0, cpu, cpu_losses, _ = _tiny_train_run(setup, mode, "cpu", torch.float32)
         _, xla, xla_losses, none = _tiny_train_run(setup, mode, "cuda", torch.bfloat16, "xla")
         _, card, losses, launches = _tiny_train_run(setup, mode, "cuda", torch.bfloat16)
-        expect = {k: n * micro_steps for k, n in per_micro[mode].items()}
-        for name in ("flash_single", "flash_single_sm90", "flash_bwd_dkv", "flash_bwd_dq",
-                     "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"):
-            expect[name] = backward_recomputes(mode, layers) * micro_steps
+        expect = {k: n * micro_steps for k, n in pinned_launches(
+            128, 128, mode, False, layers, TINY_TRAIN_DIT["num_attention_heads"]).items()}
         res = {"losses": losses, "cpu_losses": cpu_losses, "xla_losses": xla_losses,
                "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)),
                "update_rel_rms": _update_rel_rms(tr0, card, cpu),
@@ -3129,7 +3155,7 @@ def run_train(pipe):
     which 200 kept, 2 micro-batches per step, 3 optimizer steps, t and noise
     drawn on the card. Checks finite losses, nonzero LoRA b after the first
     step and the launches per micro-step (A and B once per block, E and
-    both F kernels once per attention backward: :func:`backward_recomputes`);
+    both F kernels once per attention backward: :func:`pinned_launches`);
     prints seconds per step, peak memory and a profile of one micro-step (a
     step of one micro-batch)."""
     import dataclasses
@@ -3145,10 +3171,7 @@ def run_train(pipe):
                       gradient_accumulation_steps=TRAIN_ACCUM, rf_log_normal_mu=-0.5,
                       rf_log_normal_sigma=1.0)
     g = torch.Generator(device="cuda").manual_seed(31)
-    f, h, w = TRAIN_GRID
-    batch = {k: torch.randn(TRAIN_ACCUM, TRAIN_BATCH, n, h, w, dcfg.in_channels,
-                            generator=g, device="cuda")
-             for k, n in (("latents", f), ("pose_latents", f), ("ref_image_latents", 1))}
+    batch = _train_batch(dcfg, g)
     embeds = torch.randn(1, CAPTION, dcfg.caption_channels, generator=g, device="cuda")
     mask = torch.ones(1, CAPTION, device="cuda")
     mask[0, 200:] = 0.0
@@ -3173,12 +3196,8 @@ def run_train(pipe):
     launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     micro_steps = TRAIN_STEPS * TRAIN_ACCUM
-    backwards = backward_recomputes("lora_audio", LAYERS)
     # A, B, E and F on the Hopper kernels only: any WMMA launch fails below
-    per_micro = {**{name: LAYERS for name in TOKEN_MAJOR_BF16},
-                 "flash_single": backwards, "flash_single_sm90": backwards,
-                 "flash_bwd_dkv": backwards, "flash_bwd_dq": backwards,
-                 "flash_bwd_dkv_sm90": backwards, "flash_bwd_dq_sm90": backwards}
+    per_micro = pinned_launches(TRAIN_TOKENS, CAPTION, "lora_audio", False)
     for name, n in launches.items():
         if n != per_micro.get(name, 0) * micro_steps:
             fail(f"train: {name} launched {n} times in {micro_steps} micro-steps, "
@@ -3281,7 +3300,821 @@ def check_train_cli():
             "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90"} <= set(launches) or any(
                 "wmma" in name for name in launches):
         fail(f"train_cli: the training path did not launch the kernels: {launches}")
+    return _merge_counts(launches, check_train_cli_decoder())
+
+
+def check_train_cli_decoder():
+    """``train_loop`` with ``train_mode="decoder"`` for one epoch in bf16 on
+    the card: a checkpoint of the tiny DiT and a tiny VAE (``demo_config``
+    at the DiT's 16 latent channels), four clips with uint8 pixel targets;
+    the exported ``vae_epoch_1.safetensors`` loads back with the port's
+    loader, its DiT leaves equal to the checkpoint's and its decoder leaves
+    moved, and the resume state is at step 2."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from avatar_tpu_torch.cli.train import train_loop
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.models.dit import DiTConfig, init_dit
+    from avatar_tpu_torch.models.vae import VAEConfig, demo_config, init_vae
+    from avatar_tpu_torch.train.checkpoints import TrainStateCheckpointer
+    from avatar_tpu_torch.utils import weight_import as wi
+
+    dcfg = DiTConfig(**TINY_TRAIN_DIT)
+    vcfg = dataclasses.replace(demo_config(latent_channels=16), base_channels=32,
+                               decoder_base_channels=32)
+    rng = np.random.default_rng(9)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ckpt = root / "base.safetensors"
+        vae = init_vae(vcfg, 6, device="cpu", dtype=torch.bfloat16)
+        vae["per_channel_statistics"] = {"std_of_means": torch.ones(16),
+                                         "mean_of_means": torch.zeros(16)}
+        wi.save_single_file_checkpoint(
+            ckpt, init_dit(dcfg, 4, device="cpu", dtype=torch.bfloat16), dcfg,
+            vae_state=wi.export_vae_state(vae, vcfg), vae_config=vcfg.to_dict())
+        enc, cond = root / "enc", root / "cond"
+        enc.mkdir()
+        cond.mkdir()
+        for i in range(4):
+            for d, stem, shape in ((enc, f"c{i}", (16, 2, 8, 8)), (cond, f"c{i}", (16, 2, 8, 8)),
+                                   (cond, f"c{i}_ref", (16, 8, 8))):
+                np.save(d / f"{stem}.npy", rng.standard_normal(shape).astype(np.float32))
+            np.save(enc / f"c{i}_pixels.npy",
+                    rng.integers(0, 256, (9, 256, 256, 3), dtype=np.uint8))
+        out = root / "out"
+        cfg = TrainConfig(checkpoint_path=str(ckpt), condition_latents_dir=str(cond),
+                          encoder_latents_dir=str(enc), output_dir=str(out), batch_size=2,
+                          num_epochs=1, learning_rate=1e-3, precision="bf16",
+                          train_mode="decoder", gradient_checkpointing=True,
+                          log_every_n_steps=1, wandb_project=None)
+        reset_counts()
+        t0 = time.perf_counter()
+        train_loop(cfg, device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = {k: n for k, n in read_counts().items() if n}
+        configs, t_state, v_state = wi.load_single_file_checkpoint(out / "vae_epoch_1.safetensors")
+        _, t_state0, v_state0 = wi.load_single_file_checkpoint(ckpt)
+        step = TrainStateCheckpointer(out / "state").latest_step()
+        dit_same = t_state.keys() == t_state0.keys() and all(
+            torch.equal(t_state[k], t_state0[k]) for k in t_state)
+        decoder_keys = [k for k in v_state if k.startswith("decoder.")]
+        moved = sum(not torch.equal(v_state[k], v_state0[k]) for k in decoder_keys)
+        encoder_same = all(torch.equal(v_state[k], v_state0[k]) for k in v_state
+                           if k.startswith("encoder."))
+        reloaded = wi.import_vae_state(v_state, VAEConfig.from_dict(configs["vae"]),
+                                       device="cuda")
+    res = {"seconds": seconds, "resume_step": step, "dit_leaves_unchanged": dit_same,
+           "encoder_leaves_unchanged": encoder_same,
+           "decoder_leaves_moved": f"{moved} of {len(decoder_keys)}", "launches": launches}
+    emit({"phase": "train_cli_decoder", **res})
+    if not (step == 2 and dit_same and encoder_same and moved and reloaded
+            and not launches):
+        fail(f"train_cli_decoder: {res}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The pose path and training part 1: FaceFormer, audio-conditioned and
+# "full" training with Adafactor and remat, VAE-decoder fine-tuning
+# ---------------------------------------------------------------------------
+
+# FaceFormer on the card in f32 (TF32 off) against the same port functions
+# on the CPU in f32, same weights and audio: the relative RMS of the
+# vertex offsets (prediction minus template) and of the decoder features
+# (printed per quarter of the frames too: the decode feeds each frame back
+# into the next). The limit sits between two readings on an H100: 4.5e-7
+# (offsets) and 4.2e-7 (features) with TF32 off, and the reading of the
+# same predict with TF32 on for the products and convs, which the phase
+# takes too and which must exceed the limit (the fault the limit is there
+# to catch)
+FACEFORMER_TOL = 1e-5
+# a 97-frame video at 20 fps: 4.85 s of audio, about 145 frames at 30 fps
+FACEFORMER_SECONDS = 4.85
+# per-sample audio frame counts (FaceFormer frames at 30 fps) of the
+# audio-conditioned training batches: 57-frame clips at 25-20 fps are
+# 2.28-2.85 s, 68-86 frames. Padded to 86, the cross-attention's key length
+# is no multiple of 16 and takes E and F (the reference's fused_supports
+# refuses it); padded to 80 it takes B
+AUDIO_FRAMES = {"T86": (86, 84, 81, 78, 76, 73, 70, 68),
+                "T80": (80, 78, 76, 75, 73, 71, 70, 68)}
+# the reference's train-avatars.yaml comment: full-mode adafactor + dots
+# 459 ms / step on a v5e (a TPU number, not the port's)
+FULL_REMAT_RUNS = (("adafactor", None), ("adafactor", "full"), ("adafactor", "dots"),
+                   ("adamw", "dots"))
+# tiny-model references in f32, card against CPU: the loss of each step
+# and the relative RMS of the change to the trainable tree. f32 on both
+# (the card's attention on its f32 WMMA kernels), the summation orders
+# differ by ~1e-6; Adafactor's and Adam's normalised updates carry that
+TRAIN_F32_LOSS_RTOL = 1e-4
+TRAIN_F32_UPDATE_TOL = 1e-3
+# the decoder's gradients in f32, card against CPU: cuDNN's and the CPU's
+# conv3d sum in other orders, ~1e-6 relative
+TRAIN_F32_GRAD_TOL = 1e-4
+# remat "dots", "full" and none on the card: the same kernels on the same
+# inputs, so the gradients should agree bit for bit; a relative RMS above
+# this fails
+REMAT_GRAD_TOL = 1e-6
+
+
+def faceformer_frames(samples: int, w2v_cfg, fps: float = 30.0) -> int:
+    """FaceFormer's frame count for ``samples`` of 16 kHz audio: the conv
+    stack's output length, taken as 50 Hz, at ``fps``."""
+    n = samples
+    for k, s in zip(w2v_cfg.conv_kernel, w2v_cfg.conv_stride):
+        n = (n - k) // s + 1
+    return int(n / 50.0 * fps)
+
+
+def samples_for_frames(frames: int, w2v_cfg) -> int:
+    """The fewest 16 kHz samples that give ``frames`` FaceFormer frames."""
+    n = int(frames / 30.0 * 16000)
+    while faceformer_frames(n, w2v_cfg) < frames:
+        n += 1
+    while faceformer_frames(n - 1, w2v_cfg) >= frames:
+        n -= 1
+    return n
+
+
+def random_faceformer_state(w2v_cfg, ff_cfg, seed: int, device="cuda") -> dict:
+    """A vocaset-layout FaceFormer state dict (wav2vec2 in Hugging Face's
+    names, the positional conv's weight norm as weight_g / weight_v), random
+    uniform +-1/sqrt(fan in) from ``seed``: the checkpoint is not in the
+    repository."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def u(*shape, fan_in):
+        return (torch.rand(shape, generator=g, device=device) * 2 - 1) * fan_in**-0.5
+
+    def norm(prefix, c):
+        return {f"{prefix}.weight": 1 + 0.1 * u(c, fan_in=1), f"{prefix}.bias": 0.1 * u(
+            c, fan_in=1)}
+
+    def lin(prefix, i, o):
+        return {f"{prefix}.weight": u(o, i, fan_in=i), f"{prefix}.bias": u(o, fan_in=i)}
+
+    h, w = w2v_cfg.hidden_size, "audio_encoder."
+    s, c_in = {}, 1
+    for i, (c, k) in enumerate(zip(w2v_cfg.conv_dim, w2v_cfg.conv_kernel)):
+        s[f"{w}feature_extractor.conv_layers.{i}.conv.weight"] = u(c, c_in, k, fan_in=c_in * k)
+        if i == 0:
+            s.update(norm(f"{w}feature_extractor.conv_layers.0.layer_norm", c))
+        c_in = c
+    s.update(norm(f"{w}feature_projection.layer_norm", c_in))
+    s.update(lin(f"{w}feature_projection.projection", c_in, h))
+    k, groups = w2v_cfg.num_conv_pos_embeddings, w2v_cfg.num_conv_pos_embedding_groups
+    s[f"{w}encoder.pos_conv_embed.conv.weight_g"] = 1 + 0.1 * u(1, 1, k, fan_in=1)
+    s[f"{w}encoder.pos_conv_embed.conv.weight_v"] = u(h, h // groups, k,
+                                                      fan_in=h // groups * k)
+    s[f"{w}encoder.pos_conv_embed.conv.bias"] = u(h, fan_in=h)
+    s.update(norm(f"{w}encoder.layer_norm", h))
+    for i in range(w2v_cfg.num_hidden_layers):
+        pre = f"{w}encoder.layers.{i}"
+        for name in ("q", "k", "v", "out"):
+            s.update(lin(f"{pre}.attention.{name}_proj", h, h))
+        s.update(lin(f"{pre}.feed_forward.intermediate_dense", h, w2v_cfg.intermediate_size))
+        s.update(lin(f"{pre}.feed_forward.output_dense", w2v_cfg.intermediate_size, h))
+        s.update(norm(f"{pre}.layer_norm", h))
+        s.update(norm(f"{pre}.final_layer_norm", h))
+    d, vd = ff_cfg.feature_dim, ff_cfg.vertice_dim
+    s.update(lin("audio_feature_map", h, d))
+    s.update(lin("vertice_map", vd, d))
+    s.update(lin("vertice_map_r", d, vd))
+    s["obj_vector.weight"] = u(d, ff_cfg.num_identities, fan_in=ff_cfg.num_identities)
+    dec = "transformer_decoder.layers.0"
+    for name in ("self_attn", "multihead_attn"):
+        s[f"{dec}.{name}.in_proj_weight"] = u(3 * d, d, fan_in=d)
+        s[f"{dec}.{name}.in_proj_bias"] = u(3 * d, fan_in=d)
+        s.update(lin(f"{dec}.{name}.out_proj", d, d))
+    s.update(lin(f"{dec}.linear1", d, 2 * d))
+    s.update(lin(f"{dec}.linear2", 2 * d, d))
+    for i in (1, 2, 3):
+        s.update(norm(f"{dec}.norm{i}", d))
+    return s
+
+
+def run_faceformer():
+    """Full-width wav2vec2-base (``Wav2Vec2Config()``: 12 layers, 768 wide, 7
+    conv layers of 512) with FaceFormer (``FaceFormerConfig()``: 64 wide, 4
+    heads, 15,069 vertex coordinates), random weights read through
+    ``import_faceformer_state``, f32: ``faceformer_predict`` and
+    ``extract_audio_motion_features`` on a 4.85 s waveform and on one of
+    ``MAX_AUDIO_SAMPLES`` (600 frames), each against the same functions on
+    the CPU; ms per predict, per decoded frame, the device's launches and
+    busy share of one predict (torch.profiler); no kernel of A-L launches
+    (the attention is the plain path). Rendering needs cv2 or matplotlib,
+    which the card's machine lacks: the phase stops at ``project_vertices``
+    and the landmark pixels. Returns (params, configs) for train_audio."""
+    import torch
+
+    from avatar_tpu_torch.models import faceformer as tff
+    from avatar_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from avatar_tpu_torch.pipelines import pose_frames as tpose
+
+    w2v_cfg, ff_cfg = Wav2Vec2Config(), tff.FaceFormerConfig()
+    state = random_faceformer_state(w2v_cfg, ff_cfg, seed=41)
+    params = tff.import_faceformer_state(state, w2v_cfg, device="cuda")
+    cpu_params = tff.import_faceformer_state({k: v.cpu() for k, v in state.items()},
+                                             w2v_cfg, device="cpu")
+    del state
+    g = torch.Generator().manual_seed(42)
+    template = 0.1 * torch.randn(1, ff_cfg.vertice_dim, generator=g)
+    one_hot = torch.zeros(1, ff_cfg.num_identities)
+    one_hot[0, 0] = 1.0
+    res, worst = {}, 0.0
+    for label, samples in (("4.85 s", int(FACEFORMER_SECONDS * 16000)),
+                           ("MAX_AUDIO_SAMPLES", tpose.MAX_AUDIO_SAMPLES)):
+        audio = 0.1 * torch.randn(1, samples, generator=g)
+        args = (params, ff_cfg, w2v_cfg, audio.cuda(), template.cuda(), one_hot.cuda())
+
+        def predict():
+            with torch.no_grad():
+                return tff.faceformer_predict(*args)
+
+        predict()
+        torch.cuda.synchronize()
+        times = []
+        reset_counts()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            verts = predict()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launched = {k: n for k, n in read_counts().items() if n}
+        with torch.no_grad():
+            feats = tff.extract_audio_motion_features(params, ff_cfg, w2v_cfg, audio.cuda())
+            ref_v = tff.faceformer_predict(cpu_params, ff_cfg, w2v_cfg, audio, template,
+                                           one_hot)
+            ref_f = tff.extract_audio_motion_features(cpu_params, ff_cfg, w2v_cfg, audio)
+        frames = verts.shape[1]
+        off, ref_off = (verts.cpu() - template[:, None]), ref_v - template[:, None]
+        quarters = [_rel_rms(off[:, i * frames // 4:(i + 1) * frames // 4],
+                             ref_off[:, i * frames // 4:(i + 1) * frames // 4])
+                    for i in range(4)]
+        errs = {"vertex_offsets_rel_rms": _rel_rms(off, ref_off),
+                "features_rel_rms": _rel_rms(feats.cpu(), ref_f),
+                "vertex_offsets_rel_rms_by_quarter": quarters}
+        worst = max(worst, errs["vertex_offsets_rel_rms"], errs["features_rel_rms"])
+        if label == "4.85 s":
+            errs.update(_faceformer_tf32_errs(params, ff_cfg, w2v_cfg, audio, template,
+                                              one_hot, ref_off, ref_f))
+        seq = verts[0].cpu().numpy().reshape(frames, -1, 3)
+        coords, depth = tpose.project_vertices(seq[0])
+        xs, ys = tpose._landmark_pixels(seq[0], 256, 256, (0.25, 0.25, 0.75, 0.75), True)
+        step_s = statistics.median(times)
+        res[label] = {
+            "samples": samples, "frames": frames,
+            "expected_frames": faceformer_frames(samples, w2v_cfg),
+            "s_per_predict": step_s, "ms_per_decoded_frame": step_s * 1e3 / frames,
+            "predict_s": times, **errs, "launches": launched,
+            "landmarks_in_frame": int(((xs >= 0) & (xs < 256) & (ys >= 0) & (ys < 256)).sum()),
+            "profile": profile_train_step(predict, (), step_s)}
+        if (frames != faceformer_frames(samples, w2v_cfg) or launched
+                or not bool(torch.isfinite(verts).all())
+                or not (np_finite(coords) and np_finite(depth) and np_finite(xs))):
+            fail(f"faceformer {label}: {res[label]}")
+    emit({"phase": "faceformer", "tol_rel_rms": FACEFORMER_TOL, "runs": res,
+          "rendering": "not run: the card's machine has no cv2 or matplotlib; stops at "
+                       "project_vertices and the landmark pixels"})
+    if not worst <= FACEFORMER_TOL:
+        fail(f"faceformer: the card disagrees with the CPU: {worst} > {FACEFORMER_TOL}")
+    tf32 = res["4.85 s"]["tf32_on_vertex_offsets_rel_rms"]
+    if not tf32 > FACEFORMER_TOL:
+        fail(f"faceformer: TF32 on reads {tf32}, inside the limit {FACEFORMER_TOL}")
+    return params, (ff_cfg, w2v_cfg)
+
+
+def _faceformer_tf32_errs(params, ff_cfg, w2v_cfg, audio, template, one_hot, ref_off,
+                          ref_f) -> dict:
+    """The card's vertex offsets and features with TF32 on for products and
+    convs, against the CPU's f32 ones: the relative RMS a TF32 fault gives."""
+    import torch
+
+    from avatar_tpu_torch.models import faceformer as tff
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            verts = tff.faceformer_predict(params, ff_cfg, w2v_cfg, audio.cuda(),
+                                           template.cuda(), one_hot.cuda())
+            feats = tff.extract_audio_motion_features(params, ff_cfg, w2v_cfg, audio.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return {"tf32_on_vertex_offsets_rel_rms": _rel_rms(verts.cpu() - template[:, None],
+                                                       ref_off),
+            "tf32_on_features_rel_rms": _rel_rms(feats.cpu(), ref_f)}
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+
+    return bool(np.isfinite(a).all())
+
+
+# launches per micro-step of each training run, written down before the
+# runs (PERF.md's predictions), by kernel: A rope_fused_attention, B
+# fused_token_attention, E flash_single, F one flash_bwd_dkv and one
+# flash_bwd_dq; each on the Hopper route (bf16, head dim 64). Key: (tokens,
+# keys, mode, remat, layers, heads). A run must launch exactly these and
+# exactly what train_route_counts derives from the route predicates
+PINNED_LAUNCHES = {
+    # the 2B DiT: 28 blocks, 32 heads, 480 tokens; "lora_audio" leaves the
+    # first self-attention's backward out (55 = 2 * 28 - 1)
+    (480, 256, "lora_audio", False, 28, 32): {"A": 28, "B": 28, "E": 55, "F": 55},
+    (480, 86, "lora_audio", False, 28, 32): {"A": 28, "E": 55, "F": 55},
+    (480, 80, "lora_audio", False, 28, 32): {"A": 28, "B": 28, "E": 55, "F": 55},
+    (480, 256, "full", None, 28, 32): {"B": 56, "E": 56, "F": 56},
+    (480, 256, "full", "full", 28, 32): {"B": 112, "E": 56, "F": 56},
+    (480, 256, "full", "dots", 28, 32): {"B": 112, "E": 56, "F": 56},
+    # the tiny DiT: 2 blocks, 2 heads, 128 tokens, 128 caption tokens
+    (128, 128, "lora_audio", False, 2, 2): {"A": 2, "B": 2, "E": 3, "F": 3},
+    (128, 128, "full", False, 2, 2): {"B": 4, "E": 4, "F": 4},
+    (128, 128, "lora_audio", "full", 2, 2): {"A": 4, "B": 4, "E": 3, "F": 3},
+    (128, 128, "lora_audio", "dots", 2, 2): {"A": 4, "B": 4, "E": 3, "F": 3},
+}
+PINNED_COUNTERS = {"A": ("rope_fused_attention",), "B": ("fused_token_attention",),
+                   "E": ("flash_single",), "F": ("flash_bwd_dkv", "flash_bwd_dq")}
+
+
+def pinned_launches(tokens: int, keys: int, mode: str, remat, layers: int = LAYERS,
+                    heads: int = HEADS) -> dict:
+    """The counters a training micro-step must read: PINNED_LAUNCHES's
+    literals for this run, each counter and its Hopper route's; fails where
+    they and :func:`train_route_counts` disagree."""
+    pinned = {}
+    for letter, n in PINNED_LAUNCHES[(tokens, keys, mode, remat, layers, heads)].items():
+        for name in PINNED_COUNTERS[letter]:
+            pinned[name] = pinned[f"{name}_sm90"] = n
+    derived = train_route_counts(tokens, keys, mode, remat, layers, heads)
+    if pinned != derived:
+        fail(f"launches for {(tokens, keys, mode, remat)}: pinned {pinned}, but the route "
+             f"predicates name {derived}")
+    return pinned
+
+
+def train_route_counts(tokens: int, keys: int, mode: str, remat, layers: int = LAYERS,
+                       heads: int = HEADS, dtype_name: str = "bfloat16") -> dict:
+    """Launches per micro-step of the DiT's train step (``heads`` of 64,
+    bounded logits, ``dtype_name``), per counter, as the route predicates
+    name them. Self-attention takes A where the split layout and
+    ``rope_fused_supports`` hold ("lora_audio"), else B where
+    ``fused_supports`` holds; cross-attention to ``keys`` keys B where it
+    holds; else the head-major mode of ``flash_mode`` where Lq * Lk >= 128
+    * 128 (``supports``), else the plain path (no kernel). Every block runs
+    its forward once, twice under remat (the backward recomputes it). The
+    backward of every attention it reaches (all but "lora_audio"'s first
+    self-attention, whose inputs depend on no trainable leaf: the LoRA
+    targets attn2 and everything before the first block is frozen) is, at
+    Lq * Lk >= 128 * 128,
+    one F dkv and one F dq, after one whole-row forward (E) where the
+    forward was token-major (A, B); below, autograd's."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    dtype, counts = getattr(torch, dtype_name), {}
+
+    def add(name, impl, n):
+        for key in (name, f"{name}_{impl}"):
+            counts[key] = counts.get(key, 0) + n
+
+    forwards = layers * (2 if remat else 1)
+    split = mode == "lora_audio"
+    for kind, lk, reached in (("self", tokens, layers - split), ("cross", keys, layers)):
+        big = tokens * lk >= 128 * 128
+        token_major = True
+        if kind == "self" and split and fa.rope_fused_supports(tokens, heads, HEAD_DIM, dtype):
+            add("rope_fused_attention", fa.rope_impl(dtype, HEAD_DIM), forwards)
+        elif fa.fused_supports(tokens, lk, heads, HEAD_DIM, dtype):
+            add("fused_token_attention", fa.token_impl(dtype, HEAD_DIM), forwards)
+        elif big:
+            token_major = False
+            mode_ = fa.flash_mode(tokens, lk, True)
+            add(f"flash_{mode_}", fa.forward_impl(mode_, dtype, HEAD_DIM), forwards)
+        if not big:
+            continue
+        if token_major:
+            mode_ = fa.flash_mode(tokens, lk, False)
+            add(f"flash_{mode_}", fa.forward_impl(mode_, dtype, HEAD_DIM), reached)
+        for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+            add(name, fa.backward_impl(dtype, HEAD_DIM), reached)
+    return counts
+
+
+def _train_batch(dcfg, g, audio=None):
+    """``run_train``'s batch: [accum, batch, ...] random latents on the card
+    and, with ``audio`` (16 FaceFormer feature arrays [T_i, 64] on the
+    host), the audio latents and keep-mask ``collate_latent_pairs`` makes."""
+    import numpy as np
+    import torch
+
+    from avatar_tpu_torch.data.dataset import collate_latent_pairs
+
+    f, h, w = TRAIN_GRID
+    batch = {k: torch.randn(TRAIN_ACCUM, TRAIN_BATCH, n, h, w, dcfg.in_channels,
+                            generator=g, device="cuda")
+             for k, n in (("latents", f), ("pose_latents", f), ("ref_image_latents", 1))}
+    if audio is not None:
+        z = np.zeros((1, 1, 1, 1), np.float32)
+        items = [{"latents": z, "pose_latents": z, "ref_image_latents": z, "stem": str(i),
+                  "audio_latents": a} for i, a in enumerate(audio)]
+        stacked = collate_latent_pairs(items)
+        for k in ("audio_latents", "audio_mask"):
+            v = stacked[k]
+            batch[k] = torch.from_numpy(v.reshape(TRAIN_ACCUM, TRAIN_BATCH, *v.shape[1:])).cuda()
+    return batch
+
+
+def _run_train_steps(step, trainable, state, params, batch, embeds, mask, g):
+    """TRAIN_STEPS optimizer steps: (trainable, state, losses, seconds per
+    step, launches, peak GiB); peak memory and counts start at 0 here."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        trainable, state, metrics = step(trainable, state, params, batch, embeds, mask, g)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: n for k, n in read_counts().items() if n}
+    return (trainable, state, losses, step_s, launches,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _check_launches(phase, launches, per_micro):
+    micro_steps = TRAIN_STEPS * TRAIN_ACCUM
+    expect = {k: n * micro_steps for k, n in per_micro.items()}
+    if launches != expect:
+        fail(f"{phase}: launched {launches} in {micro_steps} micro-steps, expected {expect}")
+
+
+def run_train_audio(pipe, ff):
+    """``run_train``'s shipped "lora_audio" training (r 32, AdamW, split
+    RoPE, 8 x 480 tokens, accumulation 2, 3 steps) on audio-conditioned
+    batches: each batch's FaceFormer features made on the card by
+    ``extract_audio_motion_features`` from 8 waveforms (AUDIO_FRAMES; the
+    two micro-batches share them), right-padded with the keep-mask by
+    ``collate_latent_pairs``. At T = 86 cross-attention takes E and F, at
+    T = 80 B: the launches per micro-step exactly as
+    :func:`pinned_launches` names them; finite losses, seconds per step,
+    peak memory."""
+    import torch
+
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.models import faceformer as tff
+    from avatar_tpu_torch.train import train as tt
+
+    ff_params, (ff_cfg, w2v_cfg) = ff
+    dcfg = pipe.dit_cfg
+    cfg = TrainConfig(checkpoint_path="-", train_mode="lora_audio", learning_rate=1e-4,
+                      lora_rank=32, lora_alpha=32, batch_size=TRAIN_BATCH,
+                      gradient_accumulation_steps=TRAIN_ACCUM, rf_log_normal_mu=-0.5,
+                      rf_log_normal_sigma=1.0)
+    g = torch.Generator(device="cuda").manual_seed(51)
+    ga = torch.Generator().manual_seed(52)
+    res, launches_all = {}, {}
+    for label, frames in AUDIO_FRAMES.items():
+        t0 = time.perf_counter()
+        feats = []
+        with torch.no_grad():
+            for n in frames:
+                audio = 0.1 * torch.randn(1, samples_for_frames(n, w2v_cfg), generator=ga)
+                feats.append(tff.extract_audio_motion_features(
+                    ff_params, ff_cfg, w2v_cfg, audio.cuda())[0].cpu().numpy())
+        torch.cuda.synchronize()
+        features_s = time.perf_counter() - t0
+        got = tuple(f.shape[0] for f in feats)
+        if got != frames:
+            fail(f"train_audio {label}: FaceFormer frames {got}, expected {frames}")
+        batch = _train_batch(dcfg, g, feats + feats)
+        t_pad = batch["audio_latents"].shape[2]
+        trainable = tt.init_trainable(pipe.raw_dit_params, dcfg, cfg, g)
+        opt = tt.make_optimizer(cfg)
+        step = tt.make_train_step(dcfg, cfg, opt, rope_split=True)
+        _, _, losses, step_s, launches, peak = _run_train_steps(
+            step, trainable, opt.init(trainable), pipe.dit_params, batch, None, None, g)
+        per_micro = pinned_launches(TRAIN_TOKENS, t_pad, "lora_audio", False)
+        res[label] = {"audio_frames": frames, "padded_T": t_pad, "losses": losses,
+                      "step_s": step_s, "s_per_optimizer_step": statistics.mean(step_s[1:]),
+                      "features_s": features_s, "max_memory_allocated_gib": peak,
+                      "launches_per_micro_step": {k: n / (TRAIN_STEPS * TRAIN_ACCUM)
+                                                  for k, n in launches.items()},
+                      "predicted_per_micro_step": per_micro}
+        _check_launches(f"train_audio {label}", launches, per_micro)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train_audio {label}: losses not finite: {losses}")
+        launches_all = _merge_counts(launches_all, launches)
+        del batch
+    emit({"phase": "train_audio", "mode": "lora_audio", "batch": TRAIN_BATCH,
+          "tokens": TRAIN_TOKENS, "accum": TRAIN_ACCUM, "lora_rank": 32, "runs": res,
+          "clock_max_clock_power_temperature_after": card_state()})
+    return launches_all
+
+
+def run_train_full_remat(pipe):
+    """"full"-mode training of the 2B DiT (attention, AdaLN and output
+    layers trainable, no split RoPE) at ``run_train``'s shape and caption,
+    3 steps each: Adafactor without remat, with remat "full" and with
+    "dots", and AdamW with "dots". Seconds per step, the device ms of one
+    micro-step (torch.profiler), peak memory, launches per micro-step
+    exactly as :func:`pinned_launches` names them; "dots"'s peak memory must
+    lie between "full"'s and no remat's (the same optimizer)."""
+    import dataclasses
+
+    import torch
+
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.train import train as tt
+
+    dcfg = pipe.dit_cfg
+    g = torch.Generator(device="cuda").manual_seed(61)
+    batch = _train_batch(dcfg, g)
+    embeds = torch.randn(1, CAPTION, dcfg.caption_channels, generator=g, device="cuda")
+    mask = torch.ones(1, CAPTION, device="cuda")
+    mask[0, 200:] = 0.0
+    res, launches_all = {}, {}
+    for optimizer, remat in FULL_REMAT_RUNS:
+        label = f"{optimizer}, remat {remat or 'none'}"
+        cfg = TrainConfig(checkpoint_path="-", train_mode="full", learning_rate=1e-5,
+                          batch_size=TRAIN_BATCH, gradient_accumulation_steps=TRAIN_ACCUM,
+                          rf_log_normal_mu=-0.5, rf_log_normal_sigma=1.0,
+                          optimizer=optimizer, gradient_checkpointing=remat is not None,
+                          remat_policy=remat or "full")
+        torch.cuda.empty_cache()
+        trainable = tt.init_trainable(pipe.raw_dit_params, dcfg, cfg, g)
+        opt = tt.make_optimizer(cfg)
+        step = tt.make_train_step(dcfg, cfg, opt)
+        trainable, state, losses, step_s, launches, peak = _run_train_steps(
+            step, trainable, opt.init(trainable), pipe.raw_dit_params, batch, embeds, mask, g)
+        per_micro = pinned_launches(TRAIN_TOKENS, CAPTION, "full", remat)
+        _check_launches(f"train_full_remat {label}", launches, per_micro)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train_full_remat {label}: losses not finite: {losses}")
+        one = tt.make_train_step(dcfg, dataclasses.replace(cfg, gradient_accumulation_steps=1),
+                                 opt)
+        args = (trainable, state, pipe.raw_dit_params, {k: v[:1] for k, v in batch.items()},
+                embeds, mask, g)
+        one(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one(*args)
+        torch.cuda.synchronize()
+        micro_s = time.perf_counter() - t0
+        prof = profile_train_step(one, args, micro_s)
+        res[label] = {"losses": losses, "step_s": step_s,
+                      "s_per_optimizer_step": statistics.mean(step_s[1:]),
+                      "s_one_micro_batch_step": micro_s,
+                      "micro_step_device_ms": prof.get("device_busy_ms"),
+                      "device_idle_share": prof.get("device_idle_share"),
+                      "max_memory_allocated_gib": peak,
+                      "launches_per_micro_step": {k: n / (TRAIN_STEPS * TRAIN_ACCUM)
+                                                  for k, n in launches.items()}}
+        launches_all = _merge_counts(launches_all, launches)
+        del trainable, state, args
+    peaks = {r: res[f"adafactor, remat {r}"]["max_memory_allocated_gib"]
+             for r in ("none", "full", "dots")}
+    emit({"phase": "train_full_remat", "mode": "full", "batch": TRAIN_BATCH,
+          "tokens": TRAIN_TOKENS, "accum": TRAIN_ACCUM, "runs": res,
+          "adafactor_peak_gib": peaks,
+          "clock_max_clock_power_temperature_after": card_state()})
+    if not peaks["full"] < peaks["dots"] < peaks["none"]:
+        fail(f"train_full_remat: dots's peak memory not between full's and none's: {peaks}")
+    return launches_all
+
+
+def check_reference_train_options():
+    """The tiny DiT (``check_reference_train``'s) in f32, 2 steps with
+    accumulation 2, on the card against the CPU: Adafactor on "lora_audio"
+    (the LoRA leaves too narrow to factor) and on "full" (the 128 x 128
+    attention weights factored), with the same t and noise; then the
+    gradients of one "lora_audio" micro-step in bf16 on the card (A, B, E,
+    F) under remat "dots" against remat "full" and none."""
+    import torch
+
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.models.dit import permute_dit_params_for_split_rope
+    from avatar_tpu_torch.train import train as tt
+
+    setup = _tiny_train_setup()
+    dcfg, params, batch, embeds, mask, draws = setup
+    res, total = {}, {}
+    factored = {}
+    for mode in ("lora_audio", "full"):
+        cfg = TrainConfig(checkpoint_path="-", train_mode=mode, learning_rate=1e-3,
+                          lora_rank=8, lora_alpha=8, gradient_accumulation_steps=TRAIN_ACCUM,
+                          batch_size=2, rf_log_normal_mu=-0.5, rf_log_normal_sigma=1.0,
+                          optimizer="adafactor")
+        tr0 = tt.init_trainable(params, dcfg, cfg, torch.Generator().manual_seed(1))
+        opt = tt.make_optimizer(cfg)
+        factored[mode] = sum(opt.factored_dims(x.shape) is not None
+                             for x in tt.tree_leaves(tr0))
+        runs = {}
+        for device in ("cpu", "cuda"):
+            split = mode == "lora_audio"
+            dit = _tree_to(params, device, torch.float32)
+            run = permute_dit_params_for_split_rope(dit, dcfg) if split else dit
+            tr = _tree_to(tr0, device, torch.float32)
+            state = opt.init(tr)
+            step = tt.make_train_step(dcfg, cfg, opt, rope_split=split)
+            losses = []
+            reset_counts()
+            for t, noise in draws:
+                tr, state, metrics = step(tr, state, run, _tree_to(batch, device, torch.float32),
+                                          embeds.to(device), mask.to(device),
+                                          t=t.to(device), noise=noise.to(device))
+                losses.append(float(metrics["loss"]))
+            launches = {k: n for k, n in read_counts().items() if n}
+            runs[device] = (_tree_to(tr, "cpu", torch.float32), losses, launches)
+        (cpu, cpu_losses, _), (card, losses, launches) = runs["cpu"], runs["cuda"]
+        r = {"losses": losses, "cpu_losses": cpu_losses,
+             "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)),
+             "update_rel_rms": _update_rel_rms(tr0, card, cpu),
+             "factored_leaves": factored[mode], "launches": launches}
+        res[f"adafactor {mode}"] = r
+        total = _merge_counts(total, launches)
+        if not (r["loss_rel_err"] <= TRAIN_F32_LOSS_RTOL
+                and r["update_rel_rms"] <= TRAIN_F32_UPDATE_TOL):
+            fail(f"reference_train_options/adafactor {mode}: {r}")
+    if not factored["full"]:
+        fail(f"reference_train_options: no factored leaf in 'full' mode: {factored}")
+
+    # remat: one lora_audio micro-step's gradients in bf16 on the card
+    cfg = TrainConfig(checkpoint_path="-", train_mode="lora_audio", lora_rank=8,
+                      lora_alpha=8, rf_log_normal_mu=-0.5, rf_log_normal_sigma=1.0)
+    tr0 = tt.init_trainable(params, dcfg, cfg, torch.Generator().manual_seed(1))
+    run = permute_dit_params_for_split_rope(_tree_to(params, "cuda", torch.bfloat16), dcfg)
+    t, noise = draws[0]
+    grads, launches = {}, {}
+    for remat in (False, "full", "dots"):
+        leaves = [x.cuda().requires_grad_() for x in tt.tree_leaves(tr0)]
+        reset_counts()
+        loss, _ = tt.velocity_loss(
+            tt.tree_unflatten(tr0, leaves), run, dcfg, cfg,
+            {k: v[0].cuda() for k, v in batch.items()}, embeds.cuda(), mask.cuda(),
+            train_mode="lora_audio", remat=remat, rope_split=True, t=t[0].cuda(),
+            noise=noise[0].cuda())
+        grads[remat] = [x.float().cpu() for x in torch.autograd.grad(loss, leaves)]
+        launches[str(remat)] = {k: n for k, n in read_counts().items() if n}
+        total = _merge_counts(total, launches[str(remat)])
+    layers, heads = TINY_TRAIN_DIT["num_layers"], TINY_TRAIN_DIT["num_attention_heads"]
+    for remat in (False, "full", "dots"):
+        expect = pinned_launches(128, 128, "lora_audio", remat, layers, heads)
+        if launches[str(remat)] != expect:
+            fail(f"reference_train_options remat {remat}: launched {launches[str(remat)]}, "
+                 f"expected {expect}")
+    errs = {f"{a} vs {b}": (torch.cat([x.flatten() for x in grads[a]])
+                            - torch.cat([x.flatten() for x in grads[b]])).norm().item()
+            / torch.cat([x.flatten() for x in grads[b]]).norm().item()
+            for a, b in (("dots", "full"), ("dots", False))}
+    res["remat_grads_rel_rms"] = errs
+    res["remat_launches"] = launches
+    emit({"phase": "reference_train_options", "runs": res,
+          "loss_rtol": TRAIN_F32_LOSS_RTOL, "update_tol": TRAIN_F32_UPDATE_TOL,
+          "remat_grad_tol": REMAT_GRAD_TOL})
+    if not all(e <= REMAT_GRAD_TOL for e in errs.values()):
+        fail(f"reference_train_options: remat gradients differ: {errs}")
+    return total
+
+
+# decoder fine-tuning of the 2B VAE: 97 frames at 256 px; fewer where 97 do
+# not fit the card (each cut printed)
+DECODER_LATENT = (1, 13, 8, 8, 128)
+
+
+def run_train_decoder(pipe):
+    """Decoder fine-tuning of the 2B VAE (``make_full_pipeline``'s,
+    timestep-conditioned, bf16) from [1, 13, 8, 8, 128] latents to 97 x 256
+    x 256 uint8 targets from a seed, remat per up block
+    (``gradient_checkpointing``), AdamW, 3 steps: seconds per step, peak
+    memory, finite L1 and PSNR; the decoder's leaves must move."""
+    import torch
+
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.train import decoder as td
+    from avatar_tpu_torch.train import train as tt
+
+    cfg = TrainConfig(checkpoint_path="-", train_mode="decoder", decoder_train=True,
+                      learning_rate=1e-5, batch_size=1, gradient_checkpointing=True)
+    g = torch.Generator(device="cuda").manual_seed(71)
+    cuts = []
+    for latent_frames in (DECODER_LATENT[1], 7, 4):
+        frames = (latent_frames - 1) * pipe.video_scale_factor + 1
+        shape = (1, 1, latent_frames) + DECODER_LATENT[2:]
+        batch = {"latents": torch.randn(shape, generator=g, device="cuda"),
+                 "pixels": torch.randint(0, 256, (1, 1, frames, 256, 256, 3), generator=g,
+                                         device="cuda", dtype=torch.uint8)}
+        trainable = td.init_decoder_trainable(pipe.vae_params)
+        first = [x.clone() for x in tt.tree_leaves(trainable)[:4]]
+        opt = tt.make_optimizer(cfg)
+        step = td.make_decoder_train_step(pipe.vae_cfg, cfg, opt)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            state, metrics_all, step_s = opt.init(trainable), [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                trainable, state, metrics = step(trainable, state, pipe.vae_params, batch, g)
+                metrics_all.append({k: float(v) for k, v in metrics.items()})
+                step_s.append(time.perf_counter() - t0)
+        except torch.cuda.OutOfMemoryError as e:
+            cuts.append(f"{frames} frames did not fit: {str(e).splitlines()[0]}")
+            del trainable, batch
+            continue
+        break
+    else:
+        fail(f"train_decoder: no frame count fit: {cuts}")
+    launches = {k: n for k, n in read_counts().items() if n}
+    moved = any(not torch.equal(a, b) for a, b in zip(first, tt.tree_leaves(trainable)))
+    res = {"latents": list(shape), "frames": frames, "cuts": cuts, "metrics": metrics_all,
+           "step_s": step_s, "s_per_optimizer_step": statistics.mean(step_s[1:]),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "trainable_params": sum(x.numel() for x in tt.tree_leaves(trainable)),
+           "launches": launches, "decoder_moved": moved,
+           "clock_max_clock_power_temperature_after": card_state()}
+    emit({"phase": "train_decoder", **res})
+    if launches or not moved or not all(math.isfinite(v) for m in metrics_all
+                                        for v in m.values()):
+        fail(f"train_decoder: {res}")
+    del trainable, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_reference_train_decoder():
+    """``tests/test_decoder_train.py``'s tiny VAE (``demo_config`` at latent
+    width 8, 32 base channels), decoder fine-tuning in f32 with remat, on
+    the card against the CPU, the same t and noise: the gradient of one
+    micro-batch's loss (gated at TRAIN_F32_GRAD_TOL), then 2 AdamW steps
+    with accumulation 2: each step's loss (gated) and the change to the
+    decoder (printed: Adam's first steps move every element by about lr
+    whatever its gradient, so an element whose gradient is within rounding
+    of 0 may move either way on the two devices)."""
+    import dataclasses
+
+    import torch
+
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.models.vae import demo_config, init_vae
+    from avatar_tpu_torch.train import decoder as td
+    from avatar_tpu_torch.train import train as tt
+
+    vcfg = dataclasses.replace(demo_config(latent_channels=8), base_channels=32,
+                               decoder_base_channels=32)
+    params = init_vae(vcfg, 5, device="cpu")
+    g = torch.Generator().manual_seed(6)
+    params["per_channel_statistics"] = {"std_of_means": 0.5 + torch.rand(8, generator=g),
+                                        "mean_of_means": torch.randn(8, generator=g)}
+    batch = {"latents": torch.randn(TRAIN_ACCUM, 2, 2, 2, 2, 8, generator=g),
+             "pixels": torch.randint(0, 256, (TRAIN_ACCUM, 2, 9, 64, 64, 3), generator=g,
+                                     dtype=torch.uint8)}
+    draws = [(torch.rand(TRAIN_ACCUM, 2, generator=g),
+              torch.randn(TRAIN_ACCUM, 2, 2, 2, 2, 8, generator=g)) for _ in range(2)]
+    cfg = TrainConfig(checkpoint_path="-", train_mode="decoder", learning_rate=1e-3,
+                      batch_size=2, gradient_accumulation_steps=TRAIN_ACCUM,
+                      gradient_checkpointing=True)
+    tr0 = td.init_decoder_trainable(params)
+    runs, grads = {}, {}
+    for device in ("cpu", "cuda"):
+        opt = tt.make_optimizer(cfg)
+        p = _tree_to(params, device, torch.float32)
+        tr = _tree_to(tr0, device, torch.float32)
+        leaves = [x.clone().requires_grad_() for x in tt.tree_leaves(tr)]
+        loss, _ = td.decoder_loss(tt.tree_unflatten(tr, leaves), p, vcfg, cfg,
+                                  {k: v[0].to(device) for k, v in batch.items()},
+                                  remat=True, t=draws[0][0][0].to(device),
+                                  noise=draws[0][1][0].to(device))
+        grads[device] = torch.cat([x.flatten().cpu() for x in torch.autograd.grad(loss, leaves)])
+        state, losses = opt.init(tr), []
+        step = td.make_decoder_train_step(vcfg, cfg, opt)
+        for t, noise in draws:
+            tr, state, m = step(tr, state, p, {k: v.to(device) for k, v in batch.items()},
+                                t=t.to(device), noise=noise.to(device))
+            losses.append(float(m["loss"]))
+        runs[device] = (_tree_to(tr, "cpu", torch.float32), losses)
+    res = {"losses": runs["cuda"][1], "cpu_losses": runs["cpu"][1],
+           "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][1],
+                                                                   runs["cpu"][1])),
+           "grad_rel_rms": ((grads["cuda"] - grads["cpu"]).norm()
+                            / grads["cpu"].norm()).item(),
+           "update_rel_rms": _update_rel_rms(tr0, runs["cuda"][0], runs["cpu"][0])}
+    emit({"phase": "reference_train_decoder", **res, "loss_rtol": TRAIN_F32_LOSS_RTOL,
+          "grad_tol": TRAIN_F32_GRAD_TOL})
+    if not (res["loss_rel_err"] <= TRAIN_F32_LOSS_RTOL
+            and res["grad_rel_rms"] <= TRAIN_F32_GRAD_TOL):
+        fail(f"reference_train_decoder: the card disagrees with the CPU: {res}")
+    return {}
 
 
 # T5 in bf16 on the card against f32 on the CPU, same (bf16) weights, at a
@@ -4646,6 +5479,8 @@ def main() -> int:
                "reference_w8a8": check_reference_w8a8(),
                "reference_vae_w8a8": check_reference_vae_w8a8(),
                "reference_train": check_reference_train(),
+               "reference_train_options": check_reference_train_options(),
+               "reference_train_decoder": check_reference_train_decoder(),
                "train_cli": check_train_cli()})
     t5_embeds, t5_mask, by_path["t5"] = run_t5()
     torch.cuda.empty_cache()
@@ -4721,6 +5556,13 @@ def main() -> int:
     by_path.update(run_cli_phases(pipe, t5_embeds, t5_mask))
     del t5_embeds
     by_path["train"] = run_train(pipe)
+    # the pose path, then training part 1 at full width
+    ff = run_faceformer()
+    by_path["train_audio"] = run_train_audio(pipe, ff)
+    del ff
+    torch.cuda.empty_cache()
+    by_path["train_full_remat"] = run_train_full_remat(pipe)
+    by_path["train_decoder"] = run_train_decoder(pipe)
     for row in rows:
         row["launches_by_path"] = {
             path: counts[row["name"]] for path, counts in by_path.items()

@@ -14,6 +14,7 @@ every attention shape of its CLI phases."""
 import dataclasses
 import json
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -288,10 +289,21 @@ def _int8_convs(tree) -> list:
     return []
 
 
-def test_unported_and_refused_branches_raise(assets, tmp_path):
-    with pytest.raises(NotImplementedError, match="pose path"):
-        tinfer.main(["--text", "hello", "--conditioning_media_paths", str(assets["ref"]),
-                     "--device", "cpu"])
+def test_unported_and_refused_branches_raise(assets, tmp_path, monkeypatch):
+    # --text is ported (the pose path; tests/test_torch_faceformer.py runs
+    # it): the rendered pose directory joins the reference image
+    from avatar_tpu_torch.pipelines import pose_frames
+
+    monkeypatch.setattr(pose_frames, "detect_face_bbox", lambda image: (0.2, 0.2, 0.8, 0.8))
+    monkeypatch.setattr(pose_frames, "generate_faceformer_frames",
+                        lambda text, output_dir, **kw: Path(output_dir))
+    seen = {}
+    monkeypatch.setattr(tinfer, "infer", lambda config: seen.setdefault("config", config))
+    tinfer.main(["--text", "hello", "--conditioning_media_paths", str(assets["ref"]),
+                 "--output_path", str(tmp_path / "o"), "--device", "cpu"])
+    assert seen["config"].conditioning_media_paths == [
+        str(assets["ref"]), str(tmp_path / "o" / "pose_frames")]
+    monkeypatch.undo()
     # quantization_vae is ported: it reaches the VAE instead of raising
     pcfg = dict(tinfer.load_pipeline_config(str(assets["yamls"]["single"])),
                 quantization_vae="w8a8")

@@ -11,9 +11,10 @@ import pytest
 import yaml
 
 from avatar_tpu_torch.cli import infer
-from avatar_tpu_torch.models import dit, latent_upsampler, vae
+from avatar_tpu_torch.cli import train as train_cli
+from avatar_tpu_torch.models import dit, faceformer, latent_upsampler, vae, wav2vec2
 from avatar_tpu_torch.ops import rope
-from avatar_tpu_torch.pipelines import pipeline
+from avatar_tpu_torch.pipelines import pipeline, pose_frames
 from avatar_tpu_torch.utils import weight_import
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -54,6 +55,18 @@ def test_cli_slice_modules_are_checked(rel):
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
 
 
+# the modules ported with training part 1 and the pose path
+TRAIN_POSE_SLICE = ("train/decoder.py", "train/validation.py", "models/wav2vec2.py",
+                    "models/faceformer.py", "pipelines/pose_frames.py", "cli/train.py")
+
+
+@pytest.mark.parametrize("rel", TRAIN_POSE_SLICE)
+def test_train_pose_slice_modules_are_checked(rel):
+    path = ROOT / "avatar_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
 def test_chip_smoke_pipeline_config_is_the_shipped_yaml():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     (node,) = [n.value for n in tree.body if isinstance(n, ast.Assign)
@@ -74,6 +87,10 @@ def test_forbidden_rule_spares_the_port_package():
     weight_import.latent_upsampler_params_from_numpy,
     latent_upsampler.init_latent_upsampler, latent_upsampler.load_latent_upsampler,
     infer.create_ltx_video_pipeline, infer.load_pipeline, infer.InferenceConfig,
+    faceformer.load_faceformer, faceformer.import_faceformer_state,
+    wav2vec2.import_wav2vec2_state, pose_frames.generate_faceformer_frames,
+    weight_import.wav2vec2_params_from_numpy, weight_import.faceformer_params_from_numpy,
+    train_cli.decoder_train_loop, train_cli.encode_train_prompt, train_cli.train_loop,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

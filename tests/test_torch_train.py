@@ -155,10 +155,14 @@ def _counted(fn, name, calls):
 
 
 def test_remat_dots_is_not_ported(params):
+    """remat "dots" runs: its forward equals the one without remat, and an
+    unknown policy raises."""
     _, _, tparams = params
-    with pytest.raises(NotImplementedError, match="dots"):
-        tdit.dit_apply(tparams, TDIT, torch.zeros(1, 4, 8), torch.zeros(1, 3, 4),
-                       torch.zeros(1), torch.zeros(1, 4, 24), remat="dots")
+    args = (tparams, TDIT, torch.ones(1, 4, 8), torch.zeros(1, 3, 4), torch.full((1,), 0.3),
+            torch.ones(1, 4, 24))
+    assert torch.equal(tdit.dit_apply(*args, remat="dots"), tdit.dit_apply(*args))
+    with pytest.raises(ValueError, match="remat"):
+        tdit.dit_apply(*args, remat="offload")
 
 
 STEP_CFG = dict(checkpoint_path="x", learning_rate=1e-3, lora_rank=4, lora_alpha=8,
@@ -237,15 +241,21 @@ def test_lr_schedule_matches_jax(kind, warmup, total):
 
 
 def test_unported_options_raise(params):
+    """Pipeline and sequence parallelism still raise; Adafactor and
+    audio-conditioned batches are ported (held to the JAX package in
+    test_torch_adafactor.py and test_torch_train_options.py)."""
     _, _, tparams = params
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        ttrain.make_optimizer(TConfig(checkpoint_path="x", optimizer="adafactor"))
+    assert isinstance(ttrain.make_optimizer(TConfig(checkpoint_path="x",
+                                                    optimizer="adafactor")),
+                      ttrain.Adafactor)
+    with pytest.raises(ValueError, match="optimizer"):
+        ttrain.make_optimizer(TConfig(checkpoint_path="x", optimizer="sgd"))
     cfg = TConfig(checkpoint_path="x", train_mode="full")
     with pytest.raises(NotImplementedError, match="parallelism"):
         ttrain.make_train_step(TDIT, cfg, ttrain.make_optimizer(cfg), pp_mesh=object())
-    with pytest.raises(NotImplementedError, match="FaceFormer"):
+    with pytest.raises(NotImplementedError, match="parallelism"):
         ttrain.velocity_loss(ttrain.split_full_trainable(tparams), tparams, TDIT, cfg,
-                             {"audio_latents": torch.zeros(1)}, None, None)
+                             {}, None, None, sp_mesh=object())
 
 
 # ---------------------------------------------------------------------------
