@@ -148,6 +148,48 @@ def conv3d_params(
     )
 
 
+def conv3d_same(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: IntOr3 = 1,
+    spatial_padding_mode: str = "zeros",
+    temporal_padding: Tuple[int, int] = (0, 0),
+) -> torch.Tensor:
+    """The reference's ``conv3d_same`` (full precision; its W8A8 form is
+    :func:`int8_conv3d`): x [B, C_in, F, H, W], weight [out, in, kt, kh,
+    kw], spatial SAME padding (zeros, or replicate where the kernel has a
+    spatial pad: the reference raises on replicate at kh = kw = 1), an
+    explicit (lo, hi) zero pad on the frame axis, cuDNN's conv, then the
+    bias in the activation dtype."""
+    kh, kw = weight.shape[3:]
+    if spatial_padding_mode == "replicate" and not (kh // 2 or kw // 2):
+        raise ValueError(f"Unsupported padding mode: {spatial_padding_mode}")
+    x, (_, pad_h, pad_w) = _spatial_pad(x, kh, kw, spatial_padding_mode)
+    lo, hi = temporal_padding
+    if lo != hi:
+        x = F.pad(x, (0, 0, 0, 0, lo, hi))
+        lo = 0
+    out = F.conv3d(x, weight.to(x.dtype), None, stride=_triple(stride),
+                   padding=(lo, pad_h, pad_w))
+    return add_channel_bias(out, bias)
+
+
+def add_channel_bias(out: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``out`` [B, C, ...] + a per-channel ``bias`` [C] in out's dtype."""
+    if bias is None:
+        return out
+    return out + bias.to(out.dtype).reshape((-1,) + (1,) * (out.ndim - 2))
+
+
+def linear_nd(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A 1x1x1 conv, the reference's ``linear_nd``: x [B, C_in, F, H, W],
+    weight [out, in]; the product (f32 accumulation) rounded to x's dtype,
+    then the bias in that dtype."""
+    return add_channel_bias(F.conv3d(x, weight.to(x.dtype)[:, :, None, None, None]), bias)
+
+
 # ---------------------------------------------------------------------------
 # W8A8
 # ---------------------------------------------------------------------------

@@ -225,7 +225,10 @@ class LTXVideoPipeline:
     layer axis, the layout the JAX package scans over (here walked by the
     same Python loop, slice by slice); ``allowed_inference_steps``, if
     given, lists the only timesteps (rounded to 4 decimals) a run may
-    visit."""
+    visit; ``text_encoder`` is kept as ``self.text_encoder`` and not read
+    here (the caller encodes prompts). The parameters up to ``rope_split``
+    take the JAX pipeline's positional order; ``scan_blocks`` and
+    ``device`` are keyword-only."""
 
     def __init__(
         self,
@@ -234,16 +237,19 @@ class LTXVideoPipeline:
         vae_cfg: VAEConfig,
         vae_params: dict,
         schedule: Optional[RectifiedFlowSchedule] = None,
+        text_encoder=None,
         patch_size: int = 1,
         attention_impl: str = "auto",
+        allowed_inference_steps: Optional[List[float]] = None,
         quantize_weights: Union[bool, str] = False,
         quantize_vae: Union[bool, str] = False,
         rope_split: bool = True,
+        *,
         scan_blocks: bool = False,
-        allowed_inference_steps: Optional[List[float]] = None,
         device="cuda",
     ):
         self.device = torch.device(device)
+        self.text_encoder = text_encoder
         self.allowed_inference_steps = allowed_inference_steps
         self.dit_cfg = dit_cfg
         self.attention_impl = attention_impl

@@ -27,7 +27,9 @@ transformer, VAE and scheduler configs, with the transformer's state under
 parameter names and torch layouts (:func:`import_transformer_state`,
 :func:`export_transformer_state`, :func:`load_single_file_checkpoint`,
 :func:`save_single_file_checkpoint`; the VAE's by :func:`import_vae_state`
-and :func:`export_vae_state`).
+and :func:`export_vae_state`; :func:`load_checkpoint` reads both trees
+at once). Diffusers directories name their keys otherwise:
+:func:`normalize_diffusers_state` renames them to the reference's.
 """
 
 from __future__ import annotations
@@ -154,6 +156,15 @@ def faceformer_params_from_numpy(tree: dict, device="cuda",
     return _convert(tree, device, dtype)
 
 
+def video_autoencoder_params_from_numpy(tree: dict, device="cuda",
+                                        dtype: torch.dtype = torch.float32) -> dict:
+    """JAX legacy VideoAutoencoder params (numpy leaves, ``avatar_tpu/
+    models/video_autoencoder.py``'s tree, plain or (2+1)D convs) -> the
+    port's: conv kernels [kt, kh, kw, in, out] become weights [out, in, kt,
+    kh, kw], the 1x1x1 linears [in, out] weights [out, in]."""
+    return _convert(tree, device, dtype)
+
+
 def lora_from_numpy(tree: dict, device="cuda",
                     dtype: torch.dtype = torch.float32) -> dict:
     """A JAX LoRA tree (numpy leaves, ``{"blocks": [{"attn2": {"to_q":
@@ -169,6 +180,57 @@ def lora_from_numpy(tree: dict, device="cuda",
 # ---------------------------------------------------------------------------
 # Single-file checkpoints (reference parameter names, torch layouts)
 # ---------------------------------------------------------------------------
+
+# diffusers-directory key names -> the reference's, applied by substring
+# replacement key by key in table order (the VAE table's longest first)
+TRANSFORMER_KEYS_RENAME = {
+    "proj_in": "patchify_proj",
+    "time_embed": "adaln_single",
+    "norm_q": "q_norm",
+    "norm_k": "k_norm",
+}
+
+VAE_KEYS_RENAME = {
+    "decoder.up_blocks.3.conv_in": "decoder.up_blocks.7",
+    "decoder.up_blocks.3.upsamplers.0": "decoder.up_blocks.8",
+    "decoder.up_blocks.3": "decoder.up_blocks.9",
+    "decoder.up_blocks.2.upsamplers.0": "decoder.up_blocks.5",
+    "decoder.up_blocks.2.conv_in": "decoder.up_blocks.4",
+    "decoder.up_blocks.2": "decoder.up_blocks.6",
+    "decoder.up_blocks.1.upsamplers.0": "decoder.up_blocks.2",
+    "decoder.up_blocks.1": "decoder.up_blocks.3",
+    "decoder.up_blocks.0": "decoder.up_blocks.1",
+    "decoder.mid_block": "decoder.up_blocks.0",
+    "encoder.down_blocks.3": "encoder.down_blocks.8",
+    "encoder.down_blocks.2.downsamplers.0": "encoder.down_blocks.7",
+    "encoder.down_blocks.2": "encoder.down_blocks.6",
+    "encoder.down_blocks.1.downsamplers.0": "encoder.down_blocks.4",
+    "encoder.down_blocks.1.conv_out": "encoder.down_blocks.5",
+    "encoder.down_blocks.1": "encoder.down_blocks.3",
+    "encoder.down_blocks.0.conv_out": "encoder.down_blocks.2",
+    "encoder.down_blocks.0.downsamplers.0": "encoder.down_blocks.1",
+    "encoder.down_blocks.0": "encoder.down_blocks.0",
+    "encoder.mid_block": "encoder.down_blocks.9",
+    "conv_shortcut.conv": "conv_shortcut",
+    "resnets": "res_blocks",
+    "norm3": "norm3.norm",
+    "latents_mean": "per_channel_statistics.mean-of-means",
+    "latents_std": "per_channel_statistics.std-of-means",
+}
+
+
+def normalize_diffusers_state(state: Dict[str, Any], kind: str) -> Dict[str, Any]:
+    """A diffusers directory's state dict -> the reference's key names
+    (``kind``: "transformer" or "vae"), every rule of the table tried on
+    every key in order; the values are kept as they are."""
+    table = TRANSFORMER_KEYS_RENAME if kind == "transformer" else VAE_KEYS_RENAME
+    out = {}
+    for key, value in state.items():
+        for old, new in table.items():
+            key = key.replace(old, new)
+        out[key] = value
+    return out
+
 
 TRANSFORMER_PREFIX = "model.diffusion_model."
 VAE_PREFIX = "vae."
@@ -533,6 +595,19 @@ def load_single_file_checkpoint(
         else:
             transformer_state[k] = v
     return configs, transformer_state, vae_state
+
+
+def load_checkpoint(path: Union[str, Path], device="cuda",
+                    dtype: Optional[torch.dtype] = None):
+    """A single-file checkpoint read whole: (dit_cfg, dit_params, vae_cfg,
+    vae_params, scheduler_cfg), the trees on ``device`` (in ``dtype`` if
+    given; scalars stay f32), the DiT's unpermuted."""
+    configs, t_state, v_state = load_single_file_checkpoint(path)
+    dit_cfg = DiTConfig.from_dict(configs["transformer"])
+    vae_cfg = VAEConfig.from_dict(configs["vae"])
+    dit_params = import_transformer_state(t_state, dit_cfg, device=device, dtype=dtype)
+    vae_params = import_vae_state(v_state, vae_cfg, device=device, dtype=dtype)
+    return dit_cfg, dit_params, vae_cfg, vae_params, configs.get("scheduler")
 
 
 def save_single_file_checkpoint(

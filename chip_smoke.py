@@ -174,7 +174,28 @@ Phases, each printing one JSON line as soon as it has its numbers:
    without remat, with remat "full" and "dots", and AdamW with "dots":
    seconds per step, micro-step device ms, peak memory ("dots" between
    "full" and none) and launches; train_decoder: decoder fine-tuning of
-   the 2B VAE, 97 frames at 256 px, remat per up block, AdamW, 3 steps.
+   the 2B VAE, 97 frames at 256 px, remat per up block, AdamW, 3 steps;
+17. preprocess_vae_latents: the preprocessing CLI's ``save-vae-latents``
+   (``cmd_save_vae_latents``) over the pipeline's 2B VAE in bf16, on 57 x
+   192 x 320 random uint8 clips handed over after decode and resize (no cv2
+   or PIL on the card's machine), through the staging thread, the encode
+   and the save: the encode alone (ms per encode by CUDA events, its
+   kernels' device ms, busy share, dispatch ms, host- or device-bound);
+   runs of 16 and 272 clips, twice, and the steady-state clips and frames
+   / s and stage split of each pair's difference; peak memory; every file
+   read back equal to the latents the encode returned, the uint8 path
+   equal to the float path bit for bit; reference_preprocess: a tiny
+   checkpoint written by the port through ``save-vae-latents`` in f32 on
+   the card and on the CPU with the same draws (1e-5, metadata equal);
+   preprocess_text_latents: ``save-text-latents`` with a random full-width
+   FaceFormer ``.pth`` on two wavs, card against CPU (1e-5), ms per file;
+   profiling: ``utils/profiling.trace`` around one encode in
+   ``annotate("encode")`` (the range and CUDA kernels in the trace file),
+   ``timed`` on a chain of bf16 products inside the spread of CUDA event
+   times, and below it with its synchronize taken out;
+   reference_video_autoencoder: the legacy VideoAutoencoder at ``dims`` 3
+   and (2, 1), card against CPU in f32 (1e-5). None of them launches a
+   kernel of A-L.
 
 The launch counts are set to 0 just before each driven path and read just
 after it. Then the kernel summary line, the ``nvidia-smi`` line, and as
@@ -5413,6 +5434,442 @@ def run_serving_w8a8(pipe, per_batch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Preprocessing, profiling and the legacy VideoAutoencoder
+# ---------------------------------------------------------------------------
+
+# save-vae-latents at the CLI's defaults: 57-frame clips of 192 x 320,
+# cycled from a pool of distinct clips; the end-to-end rate is that of the
+# difference of a short and a long run (their fill and drain cancel),
+# taken twice
+PREPROCESS_FRAMES, PREPROCESS_SIZE, PREPROCESS_POOL = 57, (192, 320), 8
+PREPROCESS_RUNS = (16, 272)
+# the encode is device-bound where its kernels fill this share of the time
+# per encode of back-to-back calls, else host-bound
+DEVICE_BOUND_BUSY = 0.9
+# f32 card against f32 CPU through the VAE's (or VideoAutoencoder's) convs,
+# TF32 off: cuDNN's and the CPU's summation orders differ by ~1e-7 a layer
+PREPROCESS_F32_TOL = 1e-5
+# ``timed`` is held on a chain of bf16 products (count, square size) whose
+# device time, ~25 ms, is about 200 times its dispatch
+TIMED_CHAIN = (16, 8192)
+
+
+def _clip_items(n, frames, size, seed, base="clip"):
+    """``n`` decoded uint8 clips [1, frames, H, W, 3] as the CLI's decode
+    stage hands them on (the card's machine has no cv2 or PIL to decode and
+    resize), at 25 fps."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (1, frames, *size, 3), np.uint8), base, i, frames * i,
+             frames * (i + 1), 25.0) for i in range(n)]
+
+
+def _host_normalized(u8):
+    """preprocess_frames' host expression: f32, times 2 / 255, minus 1."""
+    import numpy as np
+
+    x = u8.astype(np.float32)
+    x *= 2.0 / 255.0
+    x -= 1.0
+    return x
+
+
+class _KeptEncoder:
+    """An encoder whose latents stay referenced on the card (no copy, no
+    synchronize), for checking the files written against them."""
+
+    def __init__(self, enc):
+        self.enc, self.device, self.kept = enc, enc.device, {}
+
+    def encode(self, media, seed, per_channel=True, noise=None):
+        lat = self.enc.encode(media, seed, per_channel, noise)
+        self.kept[seed] = lat
+        return lat
+
+
+def _vae_latents_args(out_dir, save_pixels=False):
+    import types
+
+    h, w = PREPROCESS_SIZE
+    return types.SimpleNamespace(output_dir=str(out_dir), clip_length=PREPROCESS_FRAMES,
+                                 stride=PREPROCESS_FRAMES, height=h, width=w,
+                                 per_channel_normalize=True, format="safetensors",
+                                 save_pixels=save_pixels, inputs=[], ckpt=None)
+
+
+def _save_vae_latents_run(enc, pool, n):
+    """One ``save-vae-latents`` run over ``n`` clips cycled from ``pool``
+    into a temporary directory: (the run's stats, the files that are not
+    [1, 128, 8, 6, 10], finite and equal to the latents the encode
+    returned, the number of files)."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from avatar_tpu_torch.cli import preprocess as tpre
+    from avatar_tpu_torch.utils.safetensors_io import load_safetensors
+
+    f = PREPROCESS_FRAMES
+    items = [(pool[i % len(pool)][0], "clip", i, f * i, f * (i + 1), 25.0) for i in range(n)]
+    kept = _KeptEncoder(enc)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        stats = tpre.cmd_save_vae_latents(_vae_latents_args(tmp), encoder=kept,
+                                          clips=iter(items))
+        n_files, bad = len(list(Path(tmp).iterdir())), []
+        for _, base, i, _, _, _ in items:
+            lat = load_safetensors(Path(tmp) / f"{base}_{i}.safetensors")[0]["latents"]
+            want = kept.kept[i].float().cpu().permute(0, 4, 1, 2, 3)
+            if (tuple(lat.shape) != (1, 128, 8, 6, 10) or not bool(torch.isfinite(lat).all())
+                    or not torch.equal(lat, want)):
+                bad.append((n, i, list(lat.shape)))
+    return stats, bad, n_files
+
+
+def run_preprocess_vae_latents(pipe):
+    """``save-vae-latents`` of the port's preprocessing CLI over the 2B VAE
+    (the pipeline's: ``LTX_VAE_CONFIG`` with timestep conditioning, random
+    weights from a seed, bf16) on 57 x 192 x 320 random uint8 clips handed
+    over after decode and resize, through the staging thread (pinned
+    memory, a side stream), the encode and the save into a temporary
+    directory. The encode alone on a resident clip: ms per encode of
+    back-to-back calls by CUDA events, its kernels' device ms (profiler),
+    the busy share and the host's dispatch ms, and whether it is host- or
+    device-bound. End to end: runs of 16 and 272 clips, twice; the
+    steady-state clips / s, frames / s and stage split of each pair's
+    difference; peak memory. Every file read back through the port's
+    safetensors reader: [1, 128, 8, 6, 10], finite, equal to the latents
+    the encode returned; the uint8 path equal to the float path bit for bit
+    on one clip with the same draw. No kernel of A-L runs."""
+    import torch
+
+    from avatar_tpu_torch.cli import preprocess as tpre
+
+    enc = tpre.VAEEncoder.from_params(pipe.vae_params, pipe.vae_cfg, "bfloat16", "cuda")
+    pool = _clip_items(PREPROCESS_POOL, PREPROCESS_FRAMES, PREPROCESS_SIZE, seed=31)
+    resident = torch.from_numpy(pool[0][0]).cuda()
+    encode_ms = time_ms(lambda: enc.encode(resident, 0), reps=5, batches=3)
+    kernel_ms = device_ms(lambda: enc.encode(resident, 0), reps=3)
+    dispatch = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode(resident, 0)
+        dispatch.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    busy = None if isinstance(kernel_ms, EventsMs) else kernel_ms / encode_ms
+    encode = {"ms_per_encode_events": encode_ms, "kernel_device_ms": kernel_ms,
+              "busy_share": busy, "dispatch_ms": statistics.median(dispatch),
+              "bound": None if busy is None else
+              ("device" if busy >= DEVICE_BOUND_BUSY else "host")}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runs, steady, bad, n_files = [], [], [], []
+    for _ in range(2):
+        pair = []
+        for n in PREPROCESS_RUNS:
+            stats, bad_run, files = _save_vae_latents_run(enc, pool, n)
+            pair.append(stats)
+            bad += bad_run
+            n_files.append((n, files))
+        runs += pair
+        short, long = pair
+        d = {k: long[k] - short[k] for k in ("clips", "frames", "seconds", "wait_s",
+                                              "encode_s", "flush_s")}
+        steady.append({"window_s": d["seconds"], "clips_per_s": d["clips"] / d["seconds"],
+                       "frames_per_s": d["frames"] / d["seconds"],
+                       "ms_per_clip": d["seconds"] / d["clips"] * 1e3,
+                       "stage_share": {k: d[k] / d["seconds"]
+                                       for k in ("wait_s", "encode_s", "flush_s")}})
+    launched = {k: n for k, n in read_counts().items() if n}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the uint8 path against the float path, the same draw
+    noise = torch.randn((1, 8, 6, 10, 128), generator=torch.Generator().manual_seed(3))
+    host = torch.from_numpy(_host_normalized(pool[1][0]))
+    via_u8 = enc.encode(torch.from_numpy(pool[1][0]).cuda(), 1, noise=noise)
+    via_f32 = enc.encode(host, 1, noise=noise)
+    norm_equal = torch.equal(enc.normalize(torch.from_numpy(pool[1][0]).cuda()).float(),
+                             host.cuda().to(enc.dtype).float())
+    res = mark_event_times({
+        "frames_per_clip": PREPROCESS_FRAMES, "size": list(PREPROCESS_SIZE), "dtype": "bf16",
+        "encode": encode,
+        "runs": [{k: r[k] for k in ("clips", "seconds", "wait_s", "encode_s", "flush_s")}
+                 for r in runs],
+        "steady_state": steady, "peak_gib": peak_gib, "files": n_files, "bad_files": bad,
+        "uint8_equals_float": bool(torch.equal(via_u8, via_f32)),
+        "normalize_equal": norm_equal, "launches": launched})
+    emit({"phase": "preprocess_vae_latents", **res})
+    if (bad or any(files != 2 * n for n, files in n_files) or launched
+            or not res["uint8_equals_float"] or not norm_equal):
+        fail(f"preprocess_vae_latents: {res}")
+    return launched
+
+
+def run_reference_preprocess():
+    """``save-vae-latents`` from a tiny single-file checkpoint written by
+    the port (the demo VAE of ``_tiny_models``, per-channel statistics away
+    from 1 / 0), in f32 on the card and on the CPU, the same clips handed
+    over decoded and the same draws: files within 1e-5 relative RMS and
+    metadata equal."""
+    import contextlib
+    import io
+    import json
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from avatar_tpu_torch.cli import preprocess as tpre
+    from avatar_tpu_torch.utils.safetensors_io import load_safetensors
+    from avatar_tpu_torch.utils.weight_import import (
+        export_vae_state,
+        save_single_file_checkpoint,
+    )
+
+    dcfg, dit, vcfg, vae = _tiny_models()
+    g = torch.Generator().manual_seed(12)
+    stats = vae["per_channel_statistics"]
+    stats["std_of_means"] += 0.5 * torch.rand(stats["std_of_means"].shape, generator=g)
+    stats["mean_of_means"] += 0.3 * torch.randn(stats["mean_of_means"].shape, generator=g)
+    items = _clip_items(3, 17, (64, 96), seed=13, base="tiny")
+    shape = (1, 3, 2, 3, vcfg.latent_channels)
+    draws = {i: torch.randn(shape, generator=g) for i in range(3)}
+
+    class Drawn(_KeptEncoder):
+        def encode(self, media, seed, per_channel=True, noise=None):
+            return super().encode(media, seed, per_channel, draws[seed])
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        ckpt = Path(tmp) / "tiny.safetensors"
+        save_single_file_checkpoint(ckpt, dit, dcfg, vae_state=export_vae_state(vae, vcfg),
+                                    vae_config=vcfg.to_dict())
+        out, launched = {}, {}
+        for device in ("cuda", "cpu"):
+            enc = Drawn(tpre.VAEEncoder(str(ckpt), precision="float32", device=device))
+            reset_counts()
+            tpre.cmd_save_vae_latents(_vae_latents_args(Path(tmp) / device), encoder=enc,
+                                      clips=iter(items))
+            launched.update({k: n for k, n in read_counts().items() if n})
+            out[device] = {p.name: (load_safetensors(p)[0]["latents"] if p.suffix ==
+                                    ".safetensors" else json.loads(p.read_text()))
+                           for p in (Path(tmp) / device).iterdir()}
+    errs = {n: _rel_rms(v, out["cpu"][n]) for n, v in out["cuda"].items()
+            if isinstance(v, torch.Tensor)}
+    meta_equal = all(out["cuda"][n] == v for n, v in out["cpu"].items() if isinstance(v, dict))
+    res = {"files": sorted(out["cuda"]), "rel_rms": errs, "tol": PREPROCESS_F32_TOL,
+           "metadata_equal": meta_equal, "launches": launched}
+    emit({"phase": "reference_preprocess", **res})
+    if (sorted(out["cuda"]) != sorted(out["cpu"]) or len(errs) != 3 or not meta_equal
+            or launched or not all(e <= PREPROCESS_F32_TOL for e in errs.values())):
+        fail(f"reference_preprocess: {res}")
+    return launched
+
+
+def run_preprocess_text_latents():
+    """``save-text-latents`` on a random full-width FaceFormer
+    (wav2vec2-base and ``FaceFormerConfig()``, ``random_faceformer_state``)
+    saved as a vocaset-layout ``.pth``, over two wavs written with scipy
+    (4.85 s and ``MAX_AUDIO_SAMPLES``), on the card and on the CPU in f32
+    (TF32 off, as ``faceformer`` sets it): ``{stem}_ff.npy`` within
+    ``FACEFORMER_TOL``; ms per file on the card (the checkpoint's load not
+    included)."""
+    import contextlib
+    import io
+    import tempfile
+    import types
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from avatar_tpu_torch.cli import preprocess as tpre
+    from avatar_tpu_torch.models import faceformer as tff
+    from avatar_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from avatar_tpu_torch.pipelines import pose_frames as tpose
+
+    rng = np.random.default_rng(17)
+    res, launched = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        tmp = Path(tmp)
+        torch.save(random_faceformer_state(Wav2Vec2Config(), tff.FaceFormerConfig(), seed=43,
+                                           device="cpu"), tmp / "vocaset.pth")
+        for name, samples in (("short", int(FACEFORMER_SECONDS * 16000)),
+                              ("max", tpose.MAX_AUDIO_SAMPLES)):
+            wavfile.write(tmp / f"{name}.wav", 16000,
+                          (rng.standard_normal(samples) * 3000).astype(np.int16))
+        wavs = [str(tmp / "short.wav"), str(tmp / "max.wav")]
+        out = {}
+        for device in ("cuda", "cpu"):
+            args = types.SimpleNamespace(inputs=wavs, output_dir=str(tmp / device),
+                                         faceformer_checkpoint=str(tmp / "vocaset.pth"),
+                                         device=device)
+            if device == "cuda":
+                tpre.cmd_save_text_latents(args)  # warm-up
+                reset_counts()
+            res[f"{device}_s_by_file"] = dict(tpre.cmd_save_text_latents(args))
+            if device == "cuda":
+                launched = {k: n for k, n in read_counts().items() if n}
+            out[device] = {p.name: np.load(p) for p in (tmp / device).glob("*_ff.npy")}
+    errs = {n: _rel_rms(torch.from_numpy(v), torch.from_numpy(out["cpu"][n]))
+            for n, v in out["cuda"].items()}
+    res.update({"shapes": {n: list(v.shape) for n, v in out["cuda"].items()},
+                "rel_rms": errs, "tol": FACEFORMER_TOL,
+                "ms_per_file": {k: v * 1e3 for k, v in res["cuda_s_by_file"].items()},
+                "launches": launched})
+    emit({"phase": "preprocess_text_latents", **res})
+    if (sorted(out["cuda"]) != ["max_ff.npy", "short_ff.npy"] or launched
+            or not all(e <= FACEFORMER_TOL for e in errs.values())):
+        fail(f"preprocess_text_latents: {res}")
+    return launched
+
+
+def run_profiling(pipe):
+    """``utils/profiling.py`` on the card. ``trace()`` around one 2B VAE
+    encode of a resident 57 x 192 x 320 clip inside ``annotate("encode")``:
+    the trace file holds the range and CUDA kernel events. ``timed`` over a
+    chain of 16 bf16 products of 8192 x 8192 (device time ~200 times its
+    dispatch): its seconds per call inside the window of single-call CUDA
+    event times taken before and after it, widened on either side by their
+    spread and above by ``timed``'s own cost on a trivial call (launch and
+    synchronize); and the same ``timed`` with its synchronize taken out
+    below that window."""
+    import json
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    import torch
+
+    from avatar_tpu_torch.cli import preprocess as tpre
+    from avatar_tpu_torch.utils import profiling
+
+    enc = tpre.VAEEncoder.from_params(pipe.vae_params, pipe.vae_cfg, "bfloat16", "cuda")
+    clip = torch.from_numpy(_clip_items(1, PREPROCESS_FRAMES, PREPROCESS_SIZE, 37)[0][0]).cuda()
+    enc.encode(clip, 0)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(str(Path(tmp) / "trace")) as prof:
+            with profiling.annotate("encode"):
+                enc.encode(clip, 0)
+        events = json.loads(Path(prof.trace_path).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ranges = [e for e in events if e.get("name") == "encode"]
+
+    count, n = TIMED_CHAIN
+    g = torch.Generator(device="cuda").manual_seed(41)
+    a = torch.randn((n, n), device="cuda", dtype=torch.bfloat16, generator=g)
+    b = torch.randn((n, n), device="cuda", dtype=torch.bfloat16, generator=g) / math.sqrt(n)
+
+    def chain():
+        x = a
+        for _ in range(count):
+            x = x @ b
+        return x
+
+    def event_times(reps=4):
+        out = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end) / 1e3)
+        return out
+
+    chain()
+    torch.cuda.synchronize()
+    single = event_times()
+    _, timed_s = profiling.timed(chain, iters=5, warmup=1)
+    single += event_times()
+    _, trivial_s = profiling.timed(lambda: a[:1, :1] + 1, iters=20, warmup=2)
+    with mock.patch.object(profiling, "_materialize", lambda result: None):
+        _, unsynced_s = profiling.timed(chain, iters=5, warmup=1)
+    torch.cuda.synchronize()
+    spread = max(single) - min(single)
+    lo, hi = min(single) - spread, max(single) + spread + trivial_s
+    res = {"trace_events": len(events), "kernel_events": len(kernels),
+           "encode_ranges": len(ranges),
+           "kernel_device_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
+           "chain": list(TIMED_CHAIN), "timed_s": timed_s, "events_s": single,
+           "trivial_timed_s": trivial_s, "accepted_s": [lo, hi],
+           "unsynchronized_timed_s": unsynced_s}
+    emit({"phase": "profiling", **res})
+    if not kernels or not ranges or not lo <= timed_s <= hi or not unsynced_s < lo:
+        fail(f"profiling: {res}")
+
+
+def run_reference_video_autoencoder():
+    """The legacy VideoAutoencoder, tiny, at ``dims=3`` (pixel norm, patch
+    2) and ``dims=(2, 1)`` (group norm, channel padding, single-frame path
+    too), f32 on the card against f32 on the CPU, same weights: moments and
+    reconstructions within 1e-5 relative RMS. Nothing calls this model; no
+    kernel of A-L runs."""
+    import torch
+
+    from avatar_tpu_torch.models import video_autoencoder as tva
+
+    cases = {
+        "dims3": (tva.VideoAutoencoderConfig(
+            latent_channels=8, block_out_channels=(32, 64, 64), layers_per_block=2,
+            norm_layer="pixel_norm", patch_size=2, patch_size_t=1), (2, 8, 64, 64, 3)),
+        "dims21": (tva.VideoAutoencoderConfig.from_dict(dict(
+            _class_name="VideoAutoencoder", dims=[2, 1], latent_channels=8,
+            block_out_channels=[32, 64], patch_size=2, norm_layer="group_norm",
+            add_channel_padding=True)), (1, 8, 32, 32, 3)),
+        "dims21_frame": (None, (1, 1, 32, 32, 3)),
+    }
+    res, worst, launched = {}, 0.0, {}
+    g = torch.Generator().manual_seed(21)
+    for name, (cfg, shape) in cases.items():
+        cfg = cfg or cases["dims21"][0]
+        params = tva.init_video_autoencoder(cfg, seed=5, device="cpu")
+        x = torch.randn(shape, generator=g)
+        in_time = shape[1] != 1
+        outs = {}
+        for device in ("cpu", "cuda"):
+            p = _tree_to(params, device, torch.float32)
+            reset_counts()
+            with torch.no_grad():
+                m = tva.video_encoder_apply(p, cfg, x.to(device))
+                r = tva.video_decoder_apply(p, cfg, m[..., :cfg.latent_channels],
+                                            upsample_in_time=in_time)
+            launched.update({k: n for k, n in read_counts().items() if n})
+            outs[device] = (m.cpu(), r.cpu())
+        errs = [_rel_rms(outs["cuda"][i], outs["cpu"][i]) for i in (0, 1)]
+        res[name] = {"moments_rel_rms": errs[0], "recon_rel_rms": errs[1],
+                     "recon_shape": list(outs["cuda"][1].shape)}
+        worst = max(worst, *errs)
+        if tuple(outs["cuda"][1].shape) != shape:
+            fail(f"reference_video_autoencoder {name}: {res[name]}")
+    emit({"phase": "reference_video_autoencoder", "runs": res, "tol": PREPROCESS_F32_TOL,
+          "launches": launched})
+    if not worst <= PREPROCESS_F32_TOL or launched:
+        fail(f"reference_video_autoencoder: {worst} > {PREPROCESS_F32_TOL} or {launched}")
+    return launched
+
+
+def run_preprocess_phases(pipe) -> dict:
+    """The five phases of the preprocessing slice; each path's launches of
+    A-L (none)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    paths = {"preprocess_vae_latents": run_preprocess_vae_latents(pipe),
+             "reference_preprocess": run_reference_preprocess(),
+             "preprocess_text_latents": run_preprocess_text_latents()}
+    run_profiling(pipe)
+    paths["reference_video_autoencoder"] = run_reference_video_autoencoder()
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -5563,6 +6020,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["train_full_remat"] = run_train_full_remat(pipe)
     by_path["train_decoder"] = run_train_decoder(pipe)
+    # the preprocessing CLI, profiling and the legacy VideoAutoencoder
+    by_path.update(run_preprocess_phases(pipe))
     for row in rows:
         row["launches_by_path"] = {
             path: counts[row["name"]] for path, counts in by_path.items()

@@ -10,9 +10,10 @@ from pathlib import Path
 import pytest
 import yaml
 
-from avatar_tpu_torch.cli import infer
+from avatar_tpu_torch.cli import infer, preprocess
 from avatar_tpu_torch.cli import train as train_cli
-from avatar_tpu_torch.models import dit, faceformer, latent_upsampler, vae, wav2vec2
+from avatar_tpu_torch.models import (dit, faceformer, latent_upsampler, vae,
+                                     video_autoencoder, wav2vec2)
 from avatar_tpu_torch.ops import rope
 from avatar_tpu_torch.pipelines import pipeline, pose_frames
 from avatar_tpu_torch.utils import weight_import
@@ -67,6 +68,30 @@ def test_train_pose_slice_modules_are_checked(rel):
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
 
 
+# the modules ported with the preprocessing CLI and the rest of the
+# single-device modules
+PREPROCESS_SLICE = ("cli/preprocess.py", "cli/scrape.py", "utils/profiling.py",
+                    "utils/prompt_enhance.py", "models/video_autoencoder.py",
+                    "ops/dual_conv3d.py", "ops/causal_conv3d.py", "utils/weight_import.py")
+
+
+@pytest.mark.parametrize("rel", PREPROCESS_SLICE)
+def test_preprocess_slice_modules_are_checked(rel):
+    path = ROOT / "avatar_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_only_parallel_is_left_to_port():
+    """Every module of the JAX package but ``parallel/`` has a counterpart
+    of the same name in the port."""
+    jax_pkg = ROOT / "avatar_tpu"
+    missing = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
+                     if not (ROOT / "avatar_tpu_torch" / p.relative_to(jax_pkg)).exists())
+    assert missing == [f"parallel/{n}.py" for n in ("__init__", "distributed", "mesh",
+                                                   "pipeline", "sequence")]
+
+
 def test_chip_smoke_pipeline_config_is_the_shipped_yaml():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     (node,) = [n.value for n in tree.body if isinstance(n, ast.Assign)
@@ -91,6 +116,10 @@ def test_forbidden_rule_spares_the_port_package():
     wav2vec2.import_wav2vec2_state, pose_frames.generate_faceformer_frames,
     weight_import.wav2vec2_params_from_numpy, weight_import.faceformer_params_from_numpy,
     train_cli.decoder_train_loop, train_cli.encode_train_prompt, train_cli.train_loop,
+    preprocess.VAEEncoder.__init__, preprocess.VAEEncoder.from_params,
+    weight_import.load_checkpoint, weight_import.video_autoencoder_params_from_numpy,
+    video_autoencoder.init_video_autoencoder,
+    video_autoencoder.import_video_autoencoder_state,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
