@@ -13,10 +13,19 @@ keeps the resume state under ``<output_dir>/state``; a later call resumes
 from its newest step. SIGTERM saves the resume state at the next step and
 returns. ``--train_mode decoder`` (or ``decoder_train: true``) fine-tunes
 the VAE decoder on ``{stem}_pixels.npy`` targets instead
-(:func:`decoder_train_loop`). ``sharding_mode="dp"`` on one device only.
-The prompt embeddings come from ``prompt_embeds_path``, else from the
-port's T5 encoder where its weights and tokenizer are on disk, else are
-zeros (:func:`encode_train_prompt`).
+(:func:`decoder_train_loop`). The prompt embeddings come from
+``prompt_embeds_path``, else from the port's T5 encoder where its weights
+and tokenizer are on disk, else are zeros (:func:`encode_train_prompt`).
+
+Several processes, one per device, train together when launched with
+``--coordinator host:port --num_processes N --process_id i`` (or a GPU
+launcher's ``MASTER_ADDR`` / ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``):
+every ``sharding_mode`` of the JAX package runs (``dp``, ``zero2`` and
+``fsdp`` over ``mesh_data`` x ``mesh_fsdp``; ``sp`` over ``mesh_data`` x
+the rest; ``pp`` over ``pp_stages`` and a data axis; ``train/train.py``),
+each process loads only its rows of each batch, rank 0 logs and exports
+(after gathering the sharded trees) and each rank keeps its own resume
+state under ``state/rank_<i>``.
 """
 
 from __future__ import annotations
@@ -86,9 +95,12 @@ def decoder_train_loop(config, resume: bool = True, device="cuda"):
         load_single_file_checkpoint, save_single_file_checkpoint,
     )
 
-    if config.sharding_mode != "dp":
-        raise NotImplementedError(
-            f"sharding_mode={config.sharding_mode!r} is not ported (one device, 'dp')")
+    from avatar_tpu_torch.parallel import process_count
+
+    if process_count() > 1:
+        # the reference's decoder loop is data-parallel over one process's
+        # devices and ignores sharding_mode; one process per device here
+        raise ValueError("decoder training runs in one process")
     configs, t_state, v_state = load_single_file_checkpoint(config.checkpoint_path)
     vae_cfg = VAEConfig.from_dict(configs["vae"])
     dtype = torch.bfloat16 if config.precision in ("bfloat16", "bf16") else None
@@ -184,7 +196,8 @@ def decoder_train_loop(config, resume: bool = True, device="cuda"):
 
 
 def train_loop(config, resume: bool = True, device="cuda"):
-    """Train as ``config`` says; returns the trainable tree."""
+    """Train as ``config`` says; returns the trainable tree (this rank's
+    share of it over a mesh)."""
     if config.decoder_train or config.train_mode == "decoder":
         return decoder_train_loop(config, resume=resume, device=device)
     from avatar_tpu_torch.data.dataset import (
@@ -194,18 +207,50 @@ def train_loop(config, resume: bool = True, device="cuda"):
     from avatar_tpu_torch.train.checkpoints import (
         TrainStateCheckpointer, export_training_checkpoint,
     )
+    from avatar_tpu_torch.parallel import (
+        is_main_process, make_mesh, process_count, process_index, sync_processes,
+    )
+    from avatar_tpu_torch.parallel.mesh import Mesh
+    from avatar_tpu_torch.parallel.pipeline import make_pp_mesh
     from avatar_tpu_torch.train.train import (
-        ema_params, init_trainable, make_lr_schedule, make_optimizer,
-        make_train_step, tree_leaves, validate_step_fn,
+        TrainSharding, ema_params, init_trainable, make_lr_schedule, make_optimizer,
+        make_train_step, tree_leaves, tree_map, validate_step_fn,
     )
     from avatar_tpu_torch.utils.metrics import MetricsLogger
     from avatar_tpu_torch.utils.weight_import import (
         import_transformer_state, load_single_file_checkpoint,
     )
 
-    if config.sharding_mode != "dp":
-        raise NotImplementedError(
-            f"sharding_mode={config.sharding_mode!r} is not ported (one device, 'dp')")
+    n_proc, pid = process_count(), process_index()
+    main_proc = is_main_process()
+    mode = config.sharding_mode
+    sharding = None
+    if mode == "sp":
+        data = config.mesh_data if config.mesh_data > 0 else 1
+        if n_proc % data or n_proc // data < 2:
+            raise ValueError(f"sharding_mode=sp needs mesh_data ({data}) to divide the "
+                             f"{n_proc} processes with an sp axis >= 2")
+        sharding = TrainSharding(Mesh(np.arange(n_proc).reshape(data, n_proc // data),
+                                      ("data", "sp")), "sp")
+    elif mode == "pp":
+        if config.train_mode != "lora_audio":
+            raise ValueError("sharding_mode=pp supports train_mode lora_audio only")
+        if n_proc % config.pp_stages or config.pp_stages < 2:
+            raise ValueError(f"pp_stages={config.pp_stages} must be >=2 and divide the "
+                             f"{n_proc} processes")
+        sharding = TrainSharding(make_pp_mesh(config.pp_stages, n_proc // config.pp_stages),
+                                 "pp")
+    elif mode in ("dp", "zero2", "fsdp"):
+        if n_proc > 1 or mode != "dp":
+            sharding = TrainSharding(make_mesh(data=config.mesh_data, fsdp=config.mesh_fsdp),
+                                     mode)
+    else:
+        raise ValueError(f"unknown sharding_mode {mode!r}")
+    if sharding is not None and config.batch_size % sharding.batch_group.size:
+        raise ValueError(f"batch_size {config.batch_size} not divisible by the "
+                         f"{sharding.batch_group.size} ranks of the batch axes")
+    rows_index = 0 if sharding is None else sharding.batch_group.index
+    rows_count = 1 if sharding is None else sharding.batch_group.size
 
     # -- model --
     configs, t_state, _ = load_single_file_checkpoint(config.checkpoint_path)
@@ -227,8 +272,10 @@ def train_loop(config, resume: bool = True, device="cuda"):
     if config.val_condition_latents_dir and config.val_encoder_latents_dir:
         val_dataset = LatentPairDataset(config.val_condition_latents_dir,
                                         config.val_encoder_latents_dir)
-    print(f"[train] {len(dataset)} train clips"
-          + (f", {len(val_dataset)} val clips" if val_dataset else ""))
+    if main_proc:
+        print(f"[train] {len(dataset)} train clips"
+              + (f", {len(val_dataset)} val clips" if val_dataset else "")
+              + (f"; {n_proc} processes, sharding_mode={mode}" if n_proc > 1 else ""))
     steps_per_epoch = len(dataset) // (
         config.batch_size * config.gradient_accumulation_steps)
     total_steps = steps_per_epoch * (config.num_epochs or 0)
@@ -238,18 +285,29 @@ def train_loop(config, resume: bool = True, device="cuda"):
     trainable = init_trainable(
         dit_params, dit_cfg, config,
         torch.Generator(device=device).manual_seed(config.seed))
-    opt_state = optimizer.init(trainable)
-    step_fn = make_train_step(dit_cfg, config, optimizer, rope_split=rope_split)
-    val_fn = validate_step_fn(dit_cfg, config, rope_split=rope_split)
+    n_trainable = sum(t.numel() for t in tree_leaves(trainable))
+    n_total = sum(t.numel() for t in tree_leaves(dit_params))
+    if sharding is None:
+        opt_state = optimizer.init(trainable)
+    else:
+        run_params, trainable = sharding.place(run_params, trainable)
+        opt_state = sharding.init_optimizer(optimizer, trainable)
+        if mode == "fsdp":
+            # the device holds this rank's chunks; the unpermuted tree that
+            # the exports merge into waits on the host
+            dit_params = tree_map(lambda x: x.cpu(), dit_params)
+    step_fn = make_train_step(dit_cfg, config, optimizer, rope_split=rope_split,
+                              sharding=sharding)
+    val_fn = validate_step_fn(dit_cfg, config, rope_split=rope_split, sharding=sharding)
     prompt_embeds, prompt_mask = encode_train_prompt(
         config, dit_cfg.caption_channels, device)
 
-    # -- logging / checkpoints --
-    n_trainable = sum(t.numel() for t in tree_leaves(trainable))
-    n_total = sum(t.numel() for t in tree_leaves(dit_params))
-    print(f"[params] total={n_total} trainable={n_trainable}")
+    # -- logging / checkpoints (rank 0 logs and exports) --
+    if main_proc:
+        print(f"[params] total={n_total} trainable={n_trainable}")
     logger = MetricsLogger(
-        output_dir=config.output_dir, wandb_project=config.wandb_project,
+        output_dir=config.output_dir if main_proc else None,
+        wandb_project=config.wandb_project if main_proc else None,
         wandb_run_name=config.wandb_run_name,
         wandb_config={"batch_size": config.batch_size,
                       "learning_rate": config.learning_rate,
@@ -262,12 +320,16 @@ def train_loop(config, resume: bool = True, device="cuda"):
     checkpointer = None
     global_step = start_epoch = 0
     if config.output_dir:
-        checkpointer = TrainStateCheckpointer(Path(config.output_dir) / "state")
+        state_dir = Path(config.output_dir) / "state"
+        # each rank's share of the state (the same layout resumes it)
+        checkpointer = TrainStateCheckpointer(
+            state_dir / f"rank_{pid}" if n_proc > 1 else state_dir)
         if resume and checkpointer.latest_step() is not None:
             global_step, restored = checkpointer.restore(device=device)
             trainable, opt_state = restored["trainable"], restored["opt_state"]
             start_epoch = int(restored["extra"].get("epoch", 0))
-            print(f"[train] resumed from step {global_step} (epoch {start_epoch})")
+            if main_proc:
+                print(f"[train] resumed from step {global_step} (epoch {start_epoch})")
 
     # SIGTERM (a preemption notice): save the resume state at the next step
     # boundary and return, so that the next call resumes from that step
@@ -296,7 +358,8 @@ def train_loop(config, resume: bool = True, device="cuda"):
             for batch in prefetch_batches(
                     epoch_batches(dataset, config.batch_size,
                                   config.gradient_accumulation_steps,
-                                  seed=config.seed, epoch=epoch),
+                                  seed=config.seed, epoch=epoch,
+                                  process_index=rows_index, process_count=rows_count),
                     device_put=to_device):
                 arrays = {k: v for k, v in batch.items() if k != "stem"}
                 trainable, opt_state, metrics = step_fn(
@@ -316,18 +379,22 @@ def train_loop(config, resume: bool = True, device="cuda"):
                     if checkpointer is not None:
                         checkpointer.save(global_step, trainable, opt_state,
                                           extra={"epoch": epoch})
-                        print(f"[train] preemption checkpoint at step {global_step}")
+                        if main_proc:
+                            print(f"[train] preemption checkpoint at step {global_step}")
                     return trainable
 
             epoch_loss = sum(losses) / len(losses) if losses else 0.0
             logger.log(global_step, {"train/epoch_loss": epoch_loss})
-            print(f"Epoch {epoch + 1} finished. Average loss: {epoch_loss:.6f}")
+            if main_proc:
+                print(f"Epoch {epoch + 1} finished. Average loss: {epoch_loss:.6f}")
 
             if val_dataset is not None:
                 val_losses = []
                 val_gen = torch.Generator(device=device).manual_seed(epoch)
                 for batch in epoch_batches(val_dataset, config.batch_size, 1, seed=0,
-                                           epoch=0, shuffle=False):
+                                           epoch=0, shuffle=False,
+                                           process_index=rows_index,
+                                           process_count=rows_count):
                     micro = {k: to_device(v[0]) for k, v in batch.items() if k != "stem"}
                     m = val_fn(trainable, run_params, micro, prompt_embeds, prompt_mask,
                                val_gen)
@@ -335,30 +402,47 @@ def train_loop(config, resume: bool = True, device="cuda"):
                 if val_losses:
                     val_loss = sum(val_losses) / len(val_losses)
                     logger.log(global_step, {"val/loss": val_loss, "val/epoch": epoch})
-                    print(f"Validation epoch {epoch + 1}, loss: {val_loss:.6f}")
+                    if main_proc:
+                        print(f"Validation epoch {epoch + 1}, loss: {val_loss:.6f}")
 
             if config.output_dir and (epoch + 1) % config.save_every_n_epochs == 0:
                 is_best = epoch_loss < best_loss
                 best_loss = min(best_loss, epoch_loss)
                 meta = {"epoch": str(epoch + 1), "global_step": str(global_step)}
                 out = Path(config.output_dir)
-                path = export_training_checkpoint(
-                    out / f"model_epoch_{epoch + 1}.safetensors", dit_params, dit_cfg,
-                    trainable, config, metadata=meta, is_best=is_best)
-                print(f"[train] saved {path}")
+                # every rank joins the gathers; rank 0 writes the merged,
+                # unstacked export
+                host_trainable = (trainable if sharding is None
+                                  else sharding.full_tree(trainable, held_as="trainable"))
+                host_ema = None
                 if config.ema_decay > 0:
+                    host_ema = ema_params(opt_state)
+                    if sharding is not None:
+                        host_ema = sharding.full_tree(host_ema, held_as="state")
+                if mode == "fsdp":
+                    host_trainable = tree_map(lambda x: x.cpu(), host_trainable)
+                    if host_ema is not None:
+                        host_ema = tree_map(lambda x: x.cpu(), host_ema)
+                if main_proc:
                     path = export_training_checkpoint(
-                        out / f"model_epoch_{epoch + 1}_ema.safetensors", dit_params,
-                        dit_cfg, ema_params(opt_state), config,
-                        metadata={**meta, "ema_decay": str(config.ema_decay)})
+                        out / f"model_epoch_{epoch + 1}.safetensors", dit_params, dit_cfg,
+                        host_trainable, config, metadata=meta, is_best=is_best)
                     print(f"[train] saved {path}")
+                    if host_ema is not None:
+                        path = export_training_checkpoint(
+                            out / f"model_epoch_{epoch + 1}_ema.safetensors", dit_params,
+                            dit_cfg, host_ema, config,
+                            metadata={**meta, "ema_decay": str(config.ema_decay)})
+                        print(f"[train] saved {path}")
+                sync_processes()
                 checkpointer.save(global_step, trainable, opt_state,
                                   extra={"epoch": epoch + 1})
     finally:
         if previous_handler is not None:
             signal.signal(signal.SIGTERM, previous_handler)
         logger.finish()
-    print("Training complete!")
+    if main_proc:
+        print("Training complete!")
     return trainable
 
 
@@ -369,9 +453,19 @@ def main(argv=None):
                         default="full")
     parser.add_argument("--no_resume", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
+    # one process per device: the coordinator is process 0's host:port;
+    # omitted, a launcher's MASTER_ADDR / RANK / WORLD_SIZE are read
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="coordinator address host:port (process 0)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     args = parser.parse_args(argv)
 
     from avatar_tpu_torch.core.config import load_train_config_from_yaml
+    from avatar_tpu_torch.parallel import initialize
+
+    initialize(coordinator_address=args.coordinator, num_processes=args.num_processes,
+               process_id=args.process_id, device=args.device)
 
     config = load_train_config_from_yaml(args.config)
     config.train_mode = args.train_mode

@@ -17,7 +17,10 @@ The port runs the inference paths:
   flash kernels); cross-attention likewise without RoPE;
 - STG through ``skip_layer_mask`` and a :class:`SkipLayerStrategy`;
 - blocks as a list or stacked on a leading layer axis
-  (:func:`stack_block_params`); no sequence parallelism;
+  (:func:`stack_block_params`, at home in ``parallel/pipeline.py``);
+- sequence parallelism (``sp_axis``, ``parallel/sequence.py``), tensor
+  parallelism (``tp_axis``, ``parallel/mesh.py:dit_apply_tp``) and FSDP's
+  gather on use (``gather_params``);
 - training: LoRA deltas on the attention projections (``lora``,
   ``lora_scale``; the cross-attention k/v ones inside
   :func:`precompute_cross_attention_kv`) and ``remat="full"``, each block
@@ -64,6 +67,10 @@ from avatar_tpu_torch.ops.rope import (
     precompute_freqs_cis,
     rope_channel_permutation,
     split_freqs,
+)
+from avatar_tpu_torch.parallel.pipeline import (  # noqa: F401 (re-exported)
+    stack_block_params,
+    unstack_block_params,
 )
 
 
@@ -242,13 +249,40 @@ def _std_norm(params: Optional[dict], x: torch.Tensor, cfg: DiTConfig):
     return layer_norm(x, scale, bias, eps=cfg.norm_eps)
 
 
-def _qk_norm(params: Optional[dict], x: torch.Tensor, cfg: DiTConfig):
+def _qk_norm(params: Optional[dict], x: torch.Tensor, cfg: DiTConfig, tp_axis=None):
+    """The q/k norm over the whole inner width; under tensor parallelism
+    (``tp_axis``: x holds this rank's heads) its sums are all-reduced."""
     # eps is fixed at 1e-5 here, unlike the block norms (cfg.norm_eps)
     if params is None:
         return x
+    if tp_axis is None:
+        if cfg.qk_norm == "rms_norm":
+            return rms_norm(x, params["scale"], eps=1e-5)
+        return layer_norm(x, params["scale"], params.get("bias"), eps=1e-5)
+    from avatar_tpu_torch.parallel.collectives import psum_plain
+
+    xf = x.float()
+    width = cfg.inner_dim
     if cfg.qk_norm == "rms_norm":
-        return rms_norm(x, params["scale"], eps=1e-5)
-    return layer_norm(x, params["scale"], params.get("bias"), eps=1e-5)
+        var = psum_plain((xf * xf).sum(-1, keepdim=True), tp_axis) / width
+        out = (xf * torch.rsqrt(var + 1e-5)).to(x.dtype)
+    else:
+        mean = psum_plain(xf.sum(-1, keepdim=True), tp_axis) / width
+        var = psum_plain((xf - mean).square().sum(-1, keepdim=True), tp_axis) / width
+        out = ((xf - mean) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+    out = out * params["scale"].to(x.dtype)
+    return out + params["bias"].to(x.dtype) if "bias" in params else out
+
+
+def _row_parallel(params: dict, x: torch.Tensor, tp_axis) -> torch.Tensor:
+    """A row-parallel linear: this rank's input columns times its slice of
+    the weight, all-reduced over the tensor-parallel group, then the bias
+    once."""
+    from avatar_tpu_torch.parallel.collectives import psum_plain
+
+    out = psum_plain(linear({"weight": params["weight"]}, x), tp_axis)
+    bias = params.get("bias")
+    return out if bias is None else out + bias.to(out.dtype)
 
 
 def _bounded(params: dict, cfg: DiTConfig) -> bool:
@@ -358,6 +392,9 @@ def _attention(
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
     keep: Optional[_KeptProducts] = None,
+    sp_axis=None,
+    sp_impl: str = "ulysses",
+    tp_axis=None,
 ) -> torch.Tensor:
     """Self-attention over ``x`` (RoPE from ``freqs_cis``) or, with
     ``cross_kv`` (token-major (k, v) [B, Lk, inner]), cross-attention.
@@ -374,9 +411,23 @@ def _attention(
     device. ``lora`` holds this attention's deltas ({"to_q": {"a", "b"},
     ...}); with ``cross_kv`` its to_k/to_v ones are already in k and v.
     ``keep``: remat "dots" (:class:`_KeptProducts`).
+
+    ``sp_axis`` (this rank's group of the sequence axis; ``x`` is its token
+    shard): self-attention is Ulysses or, with ``sp_impl="ring"``, ring
+    attention, head-major after plain RoPE; cross-attention is local
+    head-major attention to the replicated caption k/v
+    (``parallel/sequence.py``). Neither token-major kernel runs there, as
+    in the JAX package; the ring's chunks are dense under "xla".
+    ``tp_axis`` (tensor parallelism): the params hold this rank's heads
+    (``parallel/mesh.py:shard_dit_params_tp``), the q/k norm all-reduces
+    its sums and to_out is row-parallel; no LoRA there.
     """
     b = x.shape[0]
     heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
+    if tp_axis is not None:
+        if lora is not None:
+            raise ValueError("tensor parallelism runs without LoRA (inference)")
+        heads //= tp_axis.size
     scale = hd**-0.5
     bounded = _bounded(params, cfg)
     kernels = attention_impl in ("auto", "flash")
@@ -384,7 +435,7 @@ def _attention(
     use_split_rope = rope_split and not is_cross and freqs_cis is not None
     qk_perm = None
     if lora is not None and use_split_rope:
-        qk_perm = torch.from_numpy(rope_channel_permutation(cfg.inner_dim))
+        qk_perm = torch.from_numpy(rope_channel_permutation(heads * hd))
     proj = partial(_lora_linear, lora=lora, lora_scale=lora_scale, keep=keep)
 
     def mixed(out):
@@ -394,17 +445,19 @@ def _attention(
                 out = _stg_mix(out, x, skip_layer_mask)
             elif skip_layer_strategy == SkipLayerStrategy.AttentionValues:
                 out = _stg_mix(out, v, skip_layer_mask)
+        if tp_axis is not None:
+            return _row_parallel(params["to_out"], out, tp_axis)
         return proj(params["to_out"], out, name="to_out")
 
     q = _qk_norm(params.get("q_norm"), proj(params["to_q"], x, name="to_q", perm=qk_perm),
-                 cfg)
+                 cfg, tp_axis)
     if is_cross:
         k, v = cross_kv
     else:
         k = _qk_norm(params.get("k_norm"),
-                     proj(params["to_k"], x, name="to_k", perm=qk_perm), cfg)
+                     proj(params["to_k"], x, name="to_k", perm=qk_perm), cfg, tp_axis)
         v = proj(params["to_v"], x, name="to_v")
-        if (use_split_rope and kv_mask is None and kernels
+        if (use_split_rope and kv_mask is None and kernels and sp_axis is None
                 and rope_fused_supports(q.shape[1], heads, hd, q.dtype)):
             return mixed(rope_fused_attention(
                 q, k, v, freqs_cis[0], freqs_cis[1], heads, scale, bounded))
@@ -414,25 +467,48 @@ def _attention(
     if use_split_rope:
         q, k = split_to_head_major(q, heads), split_to_head_major(k, heads)
 
+    def split(t):
+        return t.reshape(b, -1, heads, hd).transpose(1, 2)
+
+    def merged(out):
+        return out.transpose(1, 2).reshape(b, -1, heads * hd)
+
+    if sp_axis is not None:
+        from avatar_tpu_torch.parallel import sequence
+
+        if is_cross:
+            out = sequence.ulysses_cross_attention(
+                split(q), split(k), split(v), kv_mask=kv_mask,
+                attention_impl=attention_impl, bounded_logits=bounded)
+        elif sp_impl == "ring":
+            out = sequence.ring_attention(
+                split(q), split(k), split(v), sp_axis, kv_mask=kv_mask,
+                bounded_logits=bounded,
+                chunk_impl="dense" if attention_impl == "xla" else "auto")
+        else:
+            out = sequence.ulysses_attention(
+                split(q), split(k), split(v), sp_axis, kv_mask=kv_mask,
+                attention_impl=attention_impl, bounded_logits=bounded)
+        return mixed(merged(out))
+
     if (kernels and (kv_mask is None or kv_mask.ndim == 2)
             and fused_supports(q.shape[1], k.shape[1], heads, hd, q.dtype)):
         return mixed(fused_token_attention(q, k, v, kv_mask, heads, scale, bounded))
 
-    def split(t):
-        return t.reshape(b, -1, heads, hd).transpose(1, 2)
-
     out = scaled_dot_product_attention(
         split(q), split(k), split(v), mask=kv_mask, impl=attention_impl,
         bounded_logits=bounded)
-    return mixed(out.transpose(1, 2).reshape(b, -1, heads * hd))
+    return mixed(merged(out))
 
 
-def _feed_forward(params: dict, x, cfg: DiTConfig, keep: Optional[_KeptProducts] = None):
+def _feed_forward(params: dict, x, cfg: DiTConfig, keep: Optional[_KeptProducts] = None,
+                  tp_axis=None):
     """``x`` is [B, N, C] or, on the fused W8A8 route, its
     :class:`PrequantRows`. With a W8A8 ``proj_out`` and a per-sample
     sequence of at least ``W8A8_PALLAS_MIN_TOKENS`` the activation and the
     row quantization run as one kernel (``fused_act_quant``). ``keep``:
-    remat "dots"."""
+    remat "dots"; ``tp_axis``: proj_in column-parallel, proj_out
+    row-parallel."""
     h = _linear(params["proj_in"], x, keep)
     if (cfg.activation_fn in int8_matmul.ACTIVATIONS
             and "kernel_q8" in params["proj_out"] and h.ndim == 3
@@ -448,6 +524,8 @@ def _feed_forward(params: dict, x, cfg: DiTConfig, keep: Optional[_KeptProducts]
         h = h * F.gelu(gate)
     else:
         raise ValueError(cfg.activation_fn)
+    if tp_axis is not None:
+        return _row_parallel(params["proj_out"], h, tp_axis)
     return _linear(params["proj_out"], h, keep)
 
 
@@ -475,7 +553,8 @@ def _gated(gate, out):
 def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
                  skip_layer_mask=None, skip_layer_strategy=None,
                  attention_impl="auto", rope_split=False, lora=None,
-                 lora_scale=1.0, keep=None):
+                 lora_scale=1.0, keep=None, sp_axis=None, sp_impl="ulysses",
+                 tp_axis=None):
     """BasicTransformerBlock with AdaLN-single; ``timestep`` is the
     [B, 1 or N, n_ada*inner] AdaLN embedding, ``skip_layer_mask`` this
     block's [B] row of the STG mask. With ``adaptive_norm="none"`` the
@@ -488,7 +567,10 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
     norm, the modulation and the row quantization before self-attention
     and before the FF run as one kernel (``fused_rms_mod_quant``), whose
     int8 rows feed the q/k/v and FF-in products directly. ``lora`` is this
-    block's {"attn1"?, "attn2"?} deltas; ``keep`` its remat "dots" state."""
+    block's {"attn1"?, "attn2"?} deltas; ``keep`` its remat "dots" state;
+    ``sp_axis`` / ``sp_impl``: sequence parallelism (:func:`_attention`;
+    the fused W8A8 route is off there, as in the JAX package) and
+    ``tp_axis``: tensor parallelism (:func:`_attention`, :func:`_feed_forward`)."""
     b = x.shape[0]
     lora = lora or {}
     original_x = x
@@ -499,7 +581,7 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
         and timestep.shape[1] == 1
         and x.ndim == 3 and x.shape[1] >= int8_matmul.W8A8_PALLAS_MIN_TOKENS
         and "kernel_q8" in params["attn1"]["to_q"]
-        and skip_layer_mask is None)
+        and skip_layer_mask is None and sp_axis is None and tp_axis is None)
     shift_msa = scale_msa = gate_msa = shift_mlp = scale_mlp = gate_mlp = None
     if adaln:
         n_ada = params["scale_shift_table"].shape[0]
@@ -517,46 +599,22 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
         params["attn1"], norm_x, cfg, freqs_cis=freqs_cis,
         skip_layer_mask=skip_layer_mask, skip_layer_strategy=skip_layer_strategy,
         attention_impl=attention_impl, rope_split=rope_split,
-        lora=lora.get("attn1"), lora_scale=lora_scale, keep=keep))
+        lora=lora.get("attn1"), lora_scale=lora_scale, keep=keep,
+        sp_axis=sp_axis, sp_impl=sp_impl, tp_axis=tp_axis))
     attn_in = x if adaln or "attn2_norm" not in params else _std_norm(
         params["attn2_norm"], x, cfg)
     x = x + _attention(params["attn2"], attn_in, cfg, kv_mask=kv_mask,
                        attention_impl=attention_impl, cross_kv=cross_kv,
-                       lora=lora.get("attn2"), lora_scale=lora_scale, keep=keep)
+                       lora=lora.get("attn2"), lora_scale=lora_scale, keep=keep,
+                       sp_axis=sp_axis, tp_axis=tp_axis)
 
     norm_x = _norm_modulate(params.get("norm2"), x, scale_mlp, shift_mlp, cfg,
                             fused_quant_norm and "kernel_q8" in params["ff"]["proj_in"])
-    x = x + _gated(gate_mlp, _feed_forward(params["ff"], norm_x, cfg, keep))
+    x = x + _gated(gate_mlp, _feed_forward(params["ff"], norm_x, cfg, keep, tp_axis))
     if (skip_layer_mask is not None
             and skip_layer_strategy == SkipLayerStrategy.TransformerBlock):
         x = _stg_mix(x, original_x, skip_layer_mask)
     return x
-
-
-def stack_block_params(blocks: Sequence[dict]) -> dict:
-    """List of per-block param dicts of one structure -> one tree whose
-    leaves carry a leading layer axis [L, ...]."""
-    first = blocks[0]
-    if isinstance(first, dict):
-        return {k: stack_block_params([blk[k] for blk in blocks]) for k in first}
-    return torch.stack(list(blocks))
-
-
-def _layer_slice(stacked, i: int):
-    if isinstance(stacked, dict):
-        return {k: _layer_slice(v, i) for k, v in stacked.items()}
-    return stacked[i]
-
-
-def _num_stacked(stacked) -> int:
-    while isinstance(stacked, dict):
-        stacked = next(iter(stacked.values()))
-    return stacked.shape[0]
-
-
-def unstack_block_params(stacked: dict) -> List[dict]:
-    """Inverse of :func:`stack_block_params` (the slices are views)."""
-    return [_layer_slice(stacked, i) for i in range(_num_stacked(stacked))]
 
 
 def _blocks_list(blocks: Union[dict, Sequence[dict]]) -> Sequence[dict]:
@@ -578,12 +636,17 @@ def precompute_cross_attention_kv(
     dtype: Optional[torch.dtype] = None,
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
+    tp_axis=None,
+    gather=None,
 ):
     """Caption projection and every block's cross-attention (k, v)
     [B, L, inner], computed once per run, with the attn2 to_k/to_v LoRA
     deltas of ``lora`` where it holds them. Returns (cross_kv, projected):
     ``cross_kv`` is a list of per-block pairs, or for stacked blocks the
-    stacked pair (k [L, B, Lk, inner], v [L, B, Lk, inner])."""
+    stacked pair (k [L, B, Lk, inner], v [L, B, Lk, inner]). ``tp_axis``:
+    the blocks hold this rank's heads (k/v [.., inner / tp]). ``gather``
+    (``dit_apply``'s ``gather_params``) gives each block's attn2 and LoRA
+    their full tensors just before the block's k and v are computed."""
     eh = encoder_hidden_states
     if dtype is not None:
         eh = eh.to(dtype)
@@ -592,11 +655,14 @@ def precompute_cross_attention_kv(
     lora_blocks = ([None] * len(blocks) if lora is None
                    else _blocks_list(lora["blocks"]))
     cross_kv = []
-    for block, block_lora in zip(blocks, lora_blocks, strict=True):
+    for i, (block, block_lora) in enumerate(zip(blocks, lora_blocks, strict=True)):
+        if gather is not None:
+            block = gather({"attn2": block["attn2"]}, ("blocks", i))
+            block_lora = None if block_lora is None else gather(block_lora, ("lora", i))
         attn2 = block["attn2"]
         a2_lora = None if block_lora is None else block_lora.get("attn2")
         proj = partial(_lora_linear, x=eh, lora=a2_lora, lora_scale=lora_scale)
-        k = _qk_norm(attn2.get("k_norm"), proj(attn2["to_k"], name="to_k"), cfg)
+        k = _qk_norm(attn2.get("k_norm"), proj(attn2["to_k"], name="to_k"), cfg, tp_axis)
         cross_kv.append((k.contiguous(), proj(attn2["to_v"], name="to_v").contiguous()))
     if not isinstance(params["blocks"], (list, tuple)):
         ks, vs = zip(*cross_kv)
@@ -660,6 +726,45 @@ def _dit_epilogue(params, x, embedded_timestep):
     return linear(params["proj_out"], x)
 
 
+def apply_blocks(x, blocks, lora_blocks, cross_kv, cfg: DiTConfig, *, freqs_cis, ada,
+                 kv_mask, skip_layer_mask=None, skip_layer_strategy=None,
+                 attention_impl="auto", rope_split=True, lora_scale=1.0, remat=False,
+                 sp_axis=None, sp_impl="ulysses", tp_axis=None, gather=None):
+    """``x`` through ``blocks`` (per-block param dicts) in order, block i
+    with ``lora_blocks[i]`` (or None), ``cross_kv[i]`` (a per-block list,
+    or the stacked pair) and row i of ``skip_layer_mask``; each block under
+    ``remat`` (:func:`dit_apply`). Shared with the pipeline-parallel
+    stages (``parallel/pipeline.py``)."""
+    if remat not in (False, True, "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r} (False, True, 'full' or 'dots')")
+    gather = gather or (lambda tree, path: tree)
+    if lora_blocks is None:
+        lora_blocks = [None] * len(blocks)
+    if not isinstance(cross_kv, (list, tuple)) or torch.is_tensor(cross_kv[0]):
+        cross_kv = list(zip(*cross_kv))  # stacked pair -> per-block pairs
+    for i, (block, kv) in enumerate(zip(blocks, cross_kv, strict=True)):
+        def run(x, keep=None, i=i, block=block, kv=kv):
+            lb = lora_blocks[i]
+            return _block_apply(
+                gather(block, ("blocks", i)), x, cfg=cfg, freqs_cis=freqs_cis,
+                timestep=ada, cross_kv=kv, kv_mask=kv_mask,
+                skip_layer_mask=None if skip_layer_mask is None else skip_layer_mask[i],
+                skip_layer_strategy=skip_layer_strategy, attention_impl=attention_impl,
+                rope_split=rope_split, lora=None if lb is None else gather(lb, ("lora", i)),
+                lora_scale=lora_scale, keep=keep, sp_axis=sp_axis, sp_impl=sp_impl,
+                tp_axis=tp_axis)
+
+        if remat == "dots":
+            keep = _KeptProducts()
+            x = torch.utils.checkpoint.checkpoint(keep.run, partial(run, keep=keep), x,
+                                                  use_reentrant=False)
+        elif remat:
+            x = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+        else:
+            x = run(x)
+    return x
+
+
 def dit_apply(
     params: dict,
     cfg: DiTConfig,
@@ -678,6 +783,10 @@ def dit_apply(
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
     remat=False,
+    sp_axis=None,
+    sp_impl: str = "ulysses",
+    gather_params=None,
+    tp_axis=None,
 ) -> torch.Tensor:
     """Velocity tokens [B, N, out_channels].
 
@@ -704,9 +813,26 @@ def dit_apply(
     products, every linear projection and the LoRA's two products, are
     kept and the rest of the block, the attention kernels included, is
     recomputed; :class:`_KeptProducts`).
+
+    ``sp_axis`` / ``sp_impl``: this rank's group of the sequence axis, the
+    inputs its token shard (``parallel/sequence.py:dit_apply_sp``).
+    ``gather_params(tree, path)``, if given, returns the full tensors of a
+    sharded subtree (FSDP): it is called on the top-level params (path
+    ``()``), on each block's params (``("blocks", i)``) and LoRA
+    (``("lora", i)``) where the block runs, inside its remat, and on each
+    block's attn2 where its cross-attention k and v are computed, so that
+    a block's gathered weights live only while they are used (the copies
+    autograd saves: ``train/train.py:FsdpGather``). ``tp_axis``: tensor
+    parallelism, the params this rank's heads and ``freqs_cis`` their
+    channels (``parallel/mesh.py:dit_apply_tp``).
     """
     if remat not in (False, True, "full", "dots"):
         raise ValueError(f"unknown remat {remat!r} (False, True, 'full' or 'dots')")
+    gather = gather_params or (lambda tree, path: tree)
+    blocks = _blocks_list(params["blocks"])
+    lora_blocks = [None] * len(blocks) if lora is None else _blocks_list(lora["blocks"])
+    params = dict(gather({k: v for k, v in params.items() if k != "blocks"}, ()),
+                  blocks=blocks)
     x, freqs_cis, ada, embedded = _dit_prologue(
         params, cfg, hidden_states, indices_grid, timestep, freqs_cis,
         timestep_tables, rope_split,
@@ -716,29 +842,16 @@ def dit_apply(
             raise ValueError("need encoder_hidden_states or cross_kv")
         cross_kv, _ = precompute_cross_attention_kv(
             params, cfg, encoder_hidden_states, dtype=x.dtype, lora=lora,
-            lora_scale=lora_scale)
-    if not isinstance(cross_kv, (list, tuple)) or torch.is_tensor(cross_kv[0]):
-        cross_kv = list(zip(*cross_kv))  # stacked pair -> per-block pairs
+            lora_scale=lora_scale, tp_axis=tp_axis, gather=gather_params)
     kv_mask = None
     if encoder_attention_mask is not None:
         kv_mask = encoder_attention_mask.to(torch.float32).contiguous()
-    blocks = _blocks_list(params["blocks"])
-    lora_blocks = [None] * len(blocks) if lora is None else _blocks_list(lora["blocks"])
-    for i, (block, kv) in enumerate(zip(blocks, cross_kv, strict=True)):
-        run = partial(
-            _block_apply, block, cfg=cfg, freqs_cis=freqs_cis, timestep=ada,
-            cross_kv=kv, kv_mask=kv_mask,
-            skip_layer_mask=None if skip_layer_mask is None else skip_layer_mask[i],
-            skip_layer_strategy=skip_layer_strategy, attention_impl=attention_impl,
-            rope_split=rope_split, lora=lora_blocks[i], lora_scale=lora_scale)
-        if remat == "dots":
-            keep = _KeptProducts()
-            x = torch.utils.checkpoint.checkpoint(keep.run, partial(run, keep=keep), x,
-                                                  use_reentrant=False)
-        elif remat:
-            x = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
-        else:
-            x = run(x)
+    x = apply_blocks(
+        x, blocks, lora_blocks, cross_kv, cfg, freqs_cis=freqs_cis, ada=ada,
+        kv_mask=kv_mask, skip_layer_mask=skip_layer_mask,
+        skip_layer_strategy=skip_layer_strategy, attention_impl=attention_impl,
+        rope_split=rope_split, lora_scale=lora_scale, remat=remat, sp_axis=sp_axis,
+        sp_impl=sp_impl, tp_axis=tp_axis, gather=gather)
     return _dit_epilogue(params, x, embedded)
 
 

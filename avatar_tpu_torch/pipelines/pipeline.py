@@ -17,10 +17,20 @@ caller's ``torch.Generator`` unless it is handed in as a tensor
 (``ref_noise``, ``pose_noise``, ``media_noise``, ``init_noise``,
 ``item_noise`` and ``prefix_noise`` per conditioning item,
 ``image_cond_noise`` and ``step_noise`` per step, ``decode_noise``).
+
+Over several devices (one process each, ``parallel/``): ``sp_mesh`` shards
+the denoiser's tokens (``dit_apply_sp``), ``pp_mesh`` its blocks over
+pipeline stages (``dit_apply_pp``), ``dp_mesh`` the batch: each rank
+encodes, denoises and decodes its rows and the outputs are all-gathered,
+so every rank returns the whole batch. Under ``dp_mesh`` each draw from
+the generator is made at the whole batch's shape and each rank takes its
+rows, so a sample's draws are those of the one-device run (the VAE
+decoder's own noise injection, where a VAE has it, draws per rank).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Union
@@ -49,6 +59,8 @@ from avatar_tpu_torch.ops.rope import (
     precompute_freqs_cis,
     split_freqs,
 )
+from avatar_tpu_torch.parallel.collectives import all_gather_plain, chunk_of
+from avatar_tpu_torch.parallel.mesh import map_with_path
 from avatar_tpu_torch.utils.quantize import quantize_dit_params, quantize_vae_params
 
 OUTPUT_TYPES = ("latent", "np", "uint8", "yuv420")
@@ -226,9 +238,13 @@ class LTXVideoPipeline:
     same Python loop, slice by slice); ``allowed_inference_steps``, if
     given, lists the only timesteps (rounded to 4 decimals) a run may
     visit; ``text_encoder`` is kept as ``self.text_encoder`` and not read
-    here (the caller encodes prompts). The parameters up to ``rope_split``
-    take the JAX pipeline's positional order; ``scan_blocks`` and
-    ``device`` are keyword-only."""
+    here (the caller encodes prompts). ``sp_mesh`` / ``sp_axis`` /
+    ``sp_impl``, ``dp_mesh`` / ``dp_axis`` and ``pp_mesh`` / ``pp_axis`` /
+    ``pp_microbatches``: the multi-device modes (module docstring; every
+    rank of the mesh builds the pipeline and makes the same calls); a
+    ``pp_mesh`` pipeline keeps only its stage's blocks. The parameters up
+    to ``pp_microbatches`` take the JAX pipeline's positional order;
+    ``scan_blocks`` and ``device`` are keyword-only."""
 
     def __init__(
         self,
@@ -244,11 +260,31 @@ class LTXVideoPipeline:
         quantize_weights: Union[bool, str] = False,
         quantize_vae: Union[bool, str] = False,
         rope_split: bool = True,
+        sp_mesh=None,
+        sp_axis: str = "sp",
+        sp_impl: str = "ulysses",
+        dp_mesh=None,
+        dp_axis: str = "data",
+        pp_mesh=None,
+        pp_axis: str = "pp",
+        pp_microbatches: Optional[int] = None,
         *,
         scan_blocks: bool = False,
         device="cuda",
     ):
         self.device = torch.device(device)
+        if pp_mesh is not None:
+            assert sp_mesh is None and dp_mesh is None, (
+                "pp_mesh composes with a 'data' axis in the same mesh, not with "
+                "sp_mesh/dp_mesh")
+        if scan_blocks and pp_mesh is None:
+            assert sp_mesh is None, (
+                "scan_blocks composes with dp_mesh but not sp_mesh (the "
+                "sequence-parallel denoiser manages its own block schedule)")
+        self.sp_mesh, self.sp_axis, self.sp_impl = sp_mesh, sp_axis, sp_impl
+        self.dp_mesh, self.dp_axis = dp_mesh, dp_axis
+        self.pp_mesh, self.pp_axis, self.pp_microbatches = pp_mesh, pp_axis, pp_microbatches
+        self._dp = None if dp_mesh is None else dp_mesh.group(dp_axis)
         self.text_encoder = text_encoder
         self.allowed_inference_steps = allowed_inference_steps
         self.dit_cfg = dit_cfg
@@ -265,9 +301,13 @@ class LTXVideoPipeline:
         self.raw_dit_params = dit_params
         if rope_split:
             dit_params = permute_dit_params_for_split_rope(dit_params, dit_cfg)
-        if scan_blocks:
-            dit_params = dict(dit_params,
-                              blocks=stack_block_params(dit_params["blocks"]))
+        if scan_blocks or pp_mesh is not None:
+            blocks = stack_block_params(dit_params["blocks"])
+            if pp_mesh is not None:
+                # this stage's L/S blocks only (pp_param_sharding's shard)
+                pg = pp_mesh.group(pp_axis)
+                blocks = map_with_path(lambda _, t: chunk_of(t, pg, 0).contiguous(), blocks)
+            dit_params = dict(dit_params, blocks=blocks)
         self.dit_params = dit_params
         self.vae_cfg = vae_cfg
         if quantize_vae:
@@ -281,6 +321,16 @@ class LTXVideoPipeline:
 
     # -- pieces -------------------------------------------------------------
 
+    def _randn(self, shape, generator) -> torch.Tensor:
+        """A standard normal f32 draw of ``shape`` from ``generator``; under
+        ``dp_mesh`` this rank's rows of the whole batch's draw."""
+        if self._dp is None:
+            return torch.randn(tuple(shape), generator=generator, device=self.device,
+                               dtype=torch.float32)
+        full = torch.randn((shape[0] * self._dp.size,) + tuple(shape[1:]),
+                           generator=generator, device=self.device, dtype=torch.float32)
+        return chunk_of(full, self._dp, 0)
+
     def encode_media(self, media, generator, noise=None,
                      per_channel_normalize=True) -> torch.Tensor:
         if noise is not None:
@@ -288,6 +338,18 @@ class LTXVideoPipeline:
         return vae_encode(self.vae_params, self.vae_cfg, media.to(self.device),
                           generator=generator, noise=noise,
                           per_channel_normalize=per_channel_normalize)
+
+    def _encode_rows(self, media, generator, noise=None,
+                     per_channel_normalize=True) -> torch.Tensor:
+        """:meth:`encode_media` inside a generation, whose ``media`` under
+        ``dp_mesh`` are this rank's rows: the posterior draw is made at the
+        whole batch's shape and this rank's rows taken."""
+        if noise is None and self._dp is not None:
+            b, f, h, w = media.shape[:4]
+            noise = self._randn((b, (f - 1) // self.video_scale_factor + 1,
+                                 h // self.vae_scale_factor, w // self.vae_scale_factor,
+                                 self.vae_cfg.latent_channels), generator)
+        return self.encode_media(media, generator, noise, per_channel_normalize)
 
     def prepare_latents(self, generator, latent_shape, dtype,
                         noise: Optional[torch.Tensor] = None,
@@ -307,16 +369,20 @@ class LTXVideoPipeline:
         if latents is not None and media_items is not None:
             raise ValueError("give latents or media_items, not both")
         if media_items is not None:
-            latents = self.encode_media(media_items.to(dtype), generator, media_noise,
+            latents = self._encode_rows(media_items.to(dtype), generator, media_noise,
                                         per_channel_normalize)
         if noise is not None:
             if tuple(noise.shape) != tuple(latent_shape):
                 raise ValueError(f"init noise {tuple(noise.shape)} != {latent_shape}")
             noise = noise.to(self.device, dtype)
         else:
-            seeds = (torch.randint(0, 2**62, (latent_shape[0],), generator=generator,
-                                   device=generator.device).tolist()
-                     if sample_seeds is None else [int(s) for s in sample_seeds])
+            if sample_seeds is None:
+                n = latent_shape[0] * (1 if self._dp is None else self._dp.size)
+                seeds = torch.randint(0, 2**62, (n,), generator=generator,
+                                      device=generator.device)
+                seeds = (seeds if self._dp is None else chunk_of(seeds, self._dp, 0)).tolist()
+            else:
+                seeds = [int(s) for s in sample_seeds]
             if len(seeds) != latent_shape[0]:
                 raise ValueError(f"{len(seeds)} sample_seeds for a batch of {latent_shape[0]}")
             out = []
@@ -377,7 +443,7 @@ class LTXVideoPipeline:
             if media.ndim != 5 or media.shape[1] % 8 != 1:
                 raise ValueError(f"conditioning media {tuple(media.shape)}: expected "
                                  "[B, 8k + 1, H, W, 3]")
-            lat = self.encode_media(media.to(dtype), generator, enc_noise,
+            lat = self._encode_rows(media.to(dtype), generator, enc_noise,
                                     per_channel_normalize).to(dtype)
             if frame_no == 0:
                 h_m, w_m = media.shape[2:4]
@@ -424,8 +490,7 @@ class LTXVideoPipeline:
                     init_mask[:, start:end] = strength
                 lat = lat[:, :f_prefix]
             if pre_noise is None:
-                pre_noise = torch.randn(lat.shape, generator=generator, device=dev,
-                                        dtype=torch.float32)
+                pre_noise = self._randn(lat.shape, generator)
             pre_noise = pre_noise.to(dev, dtype)
             lat = pre_noise + strength * (lat - pre_noise)
             tok, coords = patchify(lat, self.patch_size)
@@ -532,8 +597,8 @@ class LTXVideoPipeline:
                 timing = dict(timestep_tables=(ada_table[level], emb_table[level]))
             else:
                 timing = dict(timestep=_tile(token_t(level), num_conds))
-            pred = dit_apply(
-                params, cfg, latent_in, encoder_attention_mask=mask,
+            pred = self._velocity(
+                params, latent_in, encoder_attention_mask=mask,
                 skip_layer_mask=step_mask, skip_layer_strategy=skip_layer_strategy,
                 attention_impl=self.attention_impl, freqs_cis=freqs,
                 rope_split=self.rope_split, cross_kv=cross_kv, **timing,
@@ -564,8 +629,7 @@ class LTXVideoPipeline:
             t = sigmas[i]
             if noisy_cond:
                 if image_cond_noise is None:
-                    noise = torch.randn(latents.shape, generator=generator,
-                                        device=self.device, dtype=torch.float32)
+                    noise = self._randn(latents.shape, generator)
                 else:
                     noise = image_cond_noise[i]
                 noise_scale = (image_cond_noise_scale * t**2).to(dtype)
@@ -579,11 +643,33 @@ class LTXVideoPipeline:
                 # update is rf_step on the averaged velocity
                 predicted = pin(rf_step(sigmas, pred, t_tok, latents), latents, t)
                 pred = 0.5 * (pred + guided_velocity(predicted, i, i + 1))
+            noise = None if step_noise is None else step_noise[i]
+            if noise is None and stochastic and self._dp is not None:
+                noise = self._randn(latents.shape, generator)
             latents = pin(rf_step(
                 sigmas, pred, t_tok, latents, stochastic_sampling=stochastic,
-                generator=generator,
-                noise=None if step_noise is None else step_noise[i]), latents, t)
+                generator=generator, noise=noise), latents, t)
         return latents
+
+    def _velocity(self, params, latent_in, **kw) -> torch.Tensor:
+        """The DiT on the walk's input: ``dit_apply``, or under ``pp_mesh``
+        / ``sp_mesh`` its pipeline- / sequence-parallel form (the whole
+        output on every rank)."""
+        cfg = self.dit_cfg
+        if self.pp_mesh is not None:
+            from avatar_tpu_torch.parallel.pipeline import dit_apply_pp
+
+            return dit_apply_pp(
+                params, cfg, latent_in, None, kw.pop("timestep", None), mesh=self.pp_mesh,
+                axis=self.pp_axis, num_microbatches=self.pp_microbatches,
+                data_axis="data" if "data" in self.pp_mesh.shape else None, **kw)
+        if self.sp_mesh is not None:
+            from avatar_tpu_torch.parallel.sequence import dit_apply_sp
+
+            return dit_apply_sp(
+                params, cfg, latent_in, None, kw.pop("timestep", None), mesh=self.sp_mesh,
+                axis=self.sp_axis, sp_impl=self.sp_impl, **kw)
+        return dit_apply(params, cfg, latent_in, **kw)
 
     def decode_latents(self, latents, p: GenerationParams, generator=None,
                        noise: Optional[torch.Tensor] = None,
@@ -601,8 +687,7 @@ class LTXVideoPipeline:
         timestep = None
         if self.vae_cfg.timestep_conditioning:
             if noise is None:
-                noise = torch.randn(latents.shape, generator=generator,
-                                    device=self.device, dtype=torch.float32)
+                noise = self._randn(latents.shape, generator)
             noise = noise.to(self.device, latents.dtype)
             scale = torch.tensor(dns, dtype=torch.float32, device=self.device)
             scale = scale.reshape(-1, 1, 1, 1, 1).to(latents.dtype)
@@ -660,7 +745,70 @@ class LTXVideoPipeline:
         with the other. ``stage_times``, if given, receives the seconds of
         the encode, denoise and decode stages (each ends in a device
         synchronize). ``sample_seeds`` ([B] ints) seed each sample's
-        initial noise (see :meth:`prepare_latents`)."""
+        initial noise (see :meth:`prepare_latents`). Under ``dp_mesh`` each
+        rank generates its rows of the batch (a multiple of the axis) and
+        every rank returns the whole batch."""
+        kw = dict(locals())
+        kw.pop("self")
+        dg = self._dp
+        if dg is None:
+            return self._generate(**kw)
+        b = prompt_embeds.shape[0]
+        assert b % dg.size == 0, (
+            f"dp_mesh: batch {b} must be a multiple of the '{self.dp_axis}' axis size "
+            f"{dg.size} (the serving layer pads)")
+
+        def rows(x, dim=0):
+            return None if x is None else chunk_of(x, dg, dim)
+
+        for name in ("prompt_embeds", "prompt_attention_mask", "negative_prompt_embeds",
+                     "negative_prompt_attention_mask", "latents", "media_items",
+                     "ref_image", "pose_frames", "ref_latents", "pose_latents", "ref_noise",
+                     "pose_noise", "media_noise", "init_noise", "decode_noise"):
+            kw[name] = rows(kw[name])
+        for name in ("image_cond_noise", "step_noise"):
+            kw[name] = rows(kw[name], 1)
+        for name in ("item_noise", "prefix_noise"):
+            if kw[name] is not None:
+                kw[name] = [rows(x) for x in kw[name]]
+        if conditioning_items:
+            kw["conditioning_items"] = [dataclasses.replace(it, media_item=rows(it.media_item))
+                                        for it in conditioning_items]
+        if sample_seeds is not None:
+            per = b // dg.size
+            kw["sample_seeds"] = list(sample_seeds)[dg.index * per:(dg.index + 1) * per]
+        return all_gather_plain(self._generate(**kw), dg, 0)
+
+    def _generate(
+        self,
+        params: GenerationParams,
+        generator: torch.Generator,
+        prompt_embeds: torch.Tensor,  # [B, L, caption_channels]
+        prompt_attention_mask: torch.Tensor,  # [B, L]
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        negative_prompt_attention_mask: Optional[torch.Tensor] = None,
+        latents: Optional[torch.Tensor] = None,  # [B, F', H', W', C]
+        media_items: Optional[torch.Tensor] = None,  # [B, F, H, W, 3]
+        conditioning_items: Optional[Sequence[ConditioningItem]] = None,
+        ref_image: Optional[torch.Tensor] = None,  # [B, 1, H, W, 3]
+        pose_frames: Optional[torch.Tensor] = None,  # [B, F, H, W, 3]
+        ref_latents: Optional[torch.Tensor] = None,  # [B, 1, h, w, C]
+        pose_latents: Optional[torch.Tensor] = None,  # [B, f, h, w, C]
+        output_type: str = "np",
+        dtype: torch.dtype = torch.bfloat16,
+        ref_noise: Optional[torch.Tensor] = None,
+        pose_noise: Optional[torch.Tensor] = None,
+        media_noise: Optional[torch.Tensor] = None,
+        init_noise: Optional[torch.Tensor] = None,
+        item_noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        prefix_noise: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        image_cond_noise: Optional[torch.Tensor] = None,  # [steps, B, N, C]
+        step_noise: Optional[torch.Tensor] = None,  # [steps, B, N, C]
+        decode_noise: Optional[torch.Tensor] = None,
+        stage_times: Optional[Dict[str, float]] = None,
+        sample_seeds: Optional[Sequence[int]] = None,
+    ) -> torch.Tensor:
+        """:meth:`__call__` on this rank's rows."""
         p = params
         if output_type not in OUTPUT_TYPES:
             raise ValueError(f"output_type must be one of {OUTPUT_TYPES}")
@@ -731,9 +879,9 @@ class LTXVideoPipeline:
         pose_lat = None if pose_latents is None else pose_latents.to(dev, dtype)
         pcn = p.vae_per_channel_normalize
         if ref_image is not None:
-            ref_lat = self.encode_media(ref_image.to(dtype), generator, ref_noise, pcn)
+            ref_lat = self._encode_rows(ref_image.to(dtype), generator, ref_noise, pcn)
         if pose_frames is not None:
-            pose_lat = self.encode_media(pose_frames.to(dtype), generator,
+            pose_lat = self._encode_rows(pose_frames.to(dtype), generator,
                                          pose_noise, pcn)
         if ref_lat is None or pose_lat is None:
             # the avatar lerp needs both; with one, the JAX package encodes

@@ -22,10 +22,13 @@ of ``avatar_tpu/pipelines/serving.py``).
   stream, ordered after the generation, with an event that
   :meth:`AvatarServer._drain_fetches` waits on.
 
-The JAX package's data-parallel padding (a batch padded to the mesh size)
-has no counterpart: the port's pipeline runs on one device. All device
-work runs on the worker thread; callers get futures whose results are
-numpy arrays (bf16 outputs as f32).
+- A data-parallel pipeline (``dp_mesh``) needs a batch that is a multiple
+  of its axis: the batch is padded by repeating the last request, and the
+  padding's outputs are dropped. Every rank of the mesh runs a server and
+  submits the same requests, so that the ranks form the same batches.
+
+All device work runs on the worker thread; callers get futures whose
+results are numpy arrays (bf16 outputs as f32).
 """
 
 from __future__ import annotations
@@ -223,9 +226,16 @@ class AvatarServer:
         futs = [f for _, f in batch]
         r0 = reqs[0]
         pipe = self.pipeline
+        # data-parallel pipelines need the batch to be a multiple of the mesh
+        # axis: pad by repeating the last request and drop its outputs (each
+        # sample's noise comes from its own seed, whatever the batch)
+        n_pad = 0
+        if getattr(pipe, "dp_mesh", None) is not None:
+            n_pad = (-len(reqs)) % pipe.dp_mesh.shape[pipe.dp_axis]
+        padded = reqs + [reqs[-1]] * n_pad
 
         def stack(getter):
-            parts = [getter(r) for r in reqs]
+            parts = [getter(r) for r in padded]
             if any(p is None for p in parts):
                 return None
             return torch.cat([_host(p) for p in parts])
@@ -244,7 +254,7 @@ class AvatarServer:
                                          per_channel_normalize=pcn)
 
             def stack_latents(getter):
-                parts = [getter(r) for r in reqs]
+                parts = [getter(r) for r in padded]
                 if any(p is None for p in parts):
                     return None
                 return torch.cat([self._media_cache.get(p, pcn, encode_one)
@@ -261,7 +271,7 @@ class AvatarServer:
             ref_image=ref, pose_frames=pose, ref_latents=ref_lat, pose_latents=pose_lat,
             output_type=r0.output_type,
             # each sample's initial noise from its own request's seed
-            sample_seeds=[r.seed for r in reqs],
+            sample_seeds=[r.seed for r in padded],
         )
         self._pending_fetch.append((futs, self._fetch(out)))
         self.stats["batches"] += 1

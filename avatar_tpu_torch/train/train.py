@@ -18,15 +18,36 @@
 Random numbers come from a ``torch.Generator``, which cannot give
 ``jax.random``'s draws; :func:`velocity_loss` and the step therefore also
 take the timesteps and the noise as tensors, so that both packages can be
-fed the same ones. One device, ``sharding_mode="dp"``.
+fed the same ones.
+
+Over a mesh (:class:`TrainSharding`, one process per device) every
+sharding mode of the JAX package runs: "dp", "zero2" and "fsdp" over a
+('data', 'fsdp') mesh, "sp" over ('data', 'sp'), "pp" over ('data',
+'pp'). Each rank holds its rows of the batch; the t and noise draws are
+made for the whole batch from the step's generator on every rank, and
+each rank takes its rows, so the draws are those of the one-device step.
+The loss every rank differentiates is its rows' loss divided by the ranks
+that share its rows, and the gradients are summed over the ranks, so a
+step equals the one-device step on the whole batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+
+from avatar_tpu_torch.parallel.collectives import (
+    AxisGroup,
+    all_gather,
+    all_gather_plain,
+    chunk_of,
+    psum_plain,
+    reduce_scatter_plain,
+)
 
 from avatar_tpu_torch.core.config import TrainConfig
 from avatar_tpu_torch.diffusion.rf import add_noise, velocity_target
@@ -173,11 +194,6 @@ def shift_timesteps_device(
 # ---------------------------------------------------------------------------
 
 
-def _unported(pp_mesh, sp_mesh) -> None:
-    if pp_mesh is not None or sp_mesh is not None:
-        raise NotImplementedError("pipeline and sequence parallelism are not ported")
-
-
 def velocity_loss(
     trainable: dict,
     dit_params: dict,
@@ -195,6 +211,8 @@ def velocity_loss(
     noise: Optional[torch.Tensor] = None,
     pp_mesh=None,
     sp_mesh=None,
+    data_axis: Optional[AxisGroup] = None,
+    gather_params=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The velocity MSE of one micro-batch and its metrics.
 
@@ -208,8 +226,17 @@ def velocity_loss(
     likewise unless ``noise`` [B, N, C] f32 gives it. ``rope_split``:
     ``dit_params`` are in the split-RoPE layout, and self-attention takes
     the RoPE-fused kernel (safe for "lora_audio": the permutation touches
-    only frozen attn1 q/k)."""
-    _unported(pp_mesh, sp_mesh)
+    only frozen attn1 q/k).
+
+    ``pp_mesh`` ("lora_audio" only; blocks and LoRA blocks stacked or
+    this stage's) runs the DiT through ``dit_apply_pp``, ``sp_mesh``
+    through ``dit_apply_sp`` (``cfg.sp_impl``); both without their data
+    axis: ``batch`` holds this rank's rows. ``data_axis`` (the group of
+    ranks whose rows make up the batch): the metrics are those of the
+    whole batch; the returned loss stays this rank's rows' (the step
+    scales it). ``gather_params``: FSDP's gather on use (``dit_apply``)."""
+    if pp_mesh is not None and train_mode != "lora_audio":
+        raise ValueError("sharding_mode=pp needs train_mode lora_audio")
     if train_mode == "lora_audio":
         lora = trainable["lora"]
         params = overlay_params(
@@ -255,15 +282,29 @@ def velocity_loss(
         embeds = prompt_embeds.expand(b, *prompt_embeds.shape[1:]).to(model_dtype)
         mask = prompt_mask.expand(b, *prompt_mask.shape[1:])
 
-    out = dit_apply(
-        params, dit_cfg, cond, coords, t.to(model_dtype), embeds, mask,
-        attention_impl=attention_impl, rope_split=rope_split, lora=lora,
-        lora_scale=scale, remat=remat)
+    common = dict(attention_impl=attention_impl, rope_split=rope_split, lora=lora,
+                  lora_scale=scale, remat=remat)
+    if pp_mesh is not None:
+        from avatar_tpu_torch.parallel.pipeline import dit_apply_pp
+
+        out = dit_apply_pp(params, dit_cfg, cond, coords, t.to(model_dtype), embeds, mask,
+                           mesh=pp_mesh, num_microbatches=cfg.pp_microbatches or None,
+                           **common)
+    elif sp_mesh is not None:
+        from avatar_tpu_torch.parallel.sequence import dit_apply_sp
+
+        out = dit_apply_sp(params, dit_cfg, cond, coords, t.to(model_dtype), embeds, mask,
+                           mesh=sp_mesh, sp_impl=cfg.sp_impl, **common)
+    else:
+        out = dit_apply(params, dit_cfg, cond, coords, t.to(model_dtype), embeds, mask,
+                        gather_params=gather_params, **common)
 
     out = out.float()
-    std_target = torch.std(v_target, correction=1)
     mse = torch.mean((out - v_target) ** 2)
     loss = cfg.transformer_loss_weight * mse
+    if data_axis is not None and data_axis.size > 1:
+        return loss, _batch_metrics(out.detach(), v_target, cfg, data_axis)
+    std_target = torch.std(v_target, correction=1)
     metrics = {
         "loss": loss,
         "transformer_mse": mse,
@@ -271,6 +312,22 @@ def velocity_loss(
         "nrmse": torch.sqrt(loss) / (std_target + 1e-12),
     }
     return loss, metrics
+
+
+def _batch_metrics(out, v_target, cfg: TrainConfig, data_axis: AxisGroup) -> Dict:
+    """The metrics of the whole batch from its ranks' rows: the squared
+    error and the target's moments summed (f64) over ``data_axis``."""
+    diff = out.double() - v_target.double()
+    v = v_target.double()
+    sums = psum_plain(torch.stack([(diff * diff).sum(), v.sum(), (v * v).sum()]), data_axis)
+    n = v.numel() * data_axis.size
+    mse = (sums[0] / n).float()
+    var = ((sums[2] - sums[1] ** 2 / n) / (n - 1)).float()
+    std_target = torch.sqrt(var)
+    loss = cfg.transformer_loss_weight * mse
+    return {"loss": loss, "transformer_mse": mse,
+            "rel_mse": loss / (std_target**2 + 1e-12),
+            "nrmse": torch.sqrt(loss) / (std_target + 1e-12)}
 
 
 # ---------------------------------------------------------------------------
@@ -324,13 +381,18 @@ class _Chain:
     - the learning rate is lr(count) with the count before this step;
     - EMA: d = min(decay, (1 + n) / (10 + n)) at the n-th step,
       ema = d ema + (1 - d) p_new in f32, stored in ema's dtype.
+
+    Over a mesh the trees hold this rank's shards (:class:`TrainSharding`):
+    ``shard`` gives, per leaf in :func:`tree_leaves` order, None or a
+    :class:`LeafShard`, and the clipping norm sums the shards' squares
+    over their groups.
     """
 
     def __init__(self, lr, max_grad_norm: float = 0.0, ema_decay: float = 0.0):
         self.lr, self.max_grad_norm, self.ema_decay = lr, max_grad_norm, ema_decay
 
-    def init(self, params) -> Dict[str, Any]:
-        state = {"count": 0, **self._init(params)}
+    def init(self, params, shard=None) -> Dict[str, Any]:
+        state = {"count": 0, **self._init(params, shard)}
         if self.ema_decay:
             state["ema"] = tree_map(lambda p: p.detach().clone(), params)
             state["ema_count"] = 0
@@ -339,15 +401,18 @@ class _Chain:
     def learning_rate(self, step: int) -> float:
         return self.lr(step) if callable(self.lr) else self.lr
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, shard=None):
         """(new params, new state) after one step on ``grads``."""
         if self.max_grad_norm and self.max_grad_norm > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads)))
+            squares = [torch.sum(g.float() ** 2) for g in tree_leaves(grads)]
+            if shard is not None:
+                squares = [sq if sh is None else sh.sum(sq) for sq, sh in zip(squares, shard)]
+            g_norm = torch.sqrt(sum(squares))
             clip = g_norm >= self.max_grad_norm
             grads = tree_map(
                 lambda g: torch.where(clip, g / g_norm.to(g.dtype) * self.max_grad_norm, g),
                 grads)
-        params, state = self._apply(grads, state, params)
+        params, state = self._apply(grads, state, params, shard)
         if self.ema_decay:
             n = state["ema_count"] + 1
             # d and 1 - d as f32 values, as the JAX package forms them
@@ -382,14 +447,15 @@ class AdamW(_Chain):
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.mu_dtype = weight_decay, mu_dtype
 
-    def _init(self, params) -> Dict[str, Any]:
+    def _init(self, params, shard=None) -> Dict[str, Any]:
         return {
             "mu": tree_map(lambda p: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype),
                            params),
             "nu": tree_map(torch.zeros_like, params),
         }
 
-    def _apply(self, grads, state, params):
+    def _apply(self, grads, state, params, shard=None):
+        # elementwise: a shard updates alone
         count = state["count"] + 1
         bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** count
         bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** count
@@ -436,6 +502,11 @@ class Adafactor(_Chain):
     out. :meth:`factored_dims` therefore breaks ties of size towards the
     lower axis, so that d0 and d1 are the same logical axes as in JAX, and
     the update is the transposed JAX update.
+
+    A sharded leaf (:class:`LeafShard`) takes its means over whole rows and
+    columns, and its block RMS, from sums all-reduced over its group; its
+    moments are the shards of the whole leaf's (a moment whose reduced
+    axis is the sharded one is whole on every rank).
     """
 
     def factored_dims(self, shape) -> Optional[Tuple[int, int]]:
@@ -449,9 +520,11 @@ class Adafactor(_Chain):
             return None
         return order[-2], order[-1]
 
-    def _init(self, params) -> Dict[str, Any]:
-        def moments(p):
-            dims = self.factored_dims(p.shape)
+    def _init(self, params, shard=None) -> Dict[str, Any]:
+        shard = shard or [None] * len(tree_leaves(params))
+
+        def moments(p, sh):
+            dims = self.factored_dims(p.shape if sh is None else sh.full_shape)
             one = torch.zeros(1, dtype=p.dtype, device=p.device)
             if dims is None:
                 return one, one.clone(), torch.zeros_like(p)
@@ -461,35 +534,48 @@ class Adafactor(_Chain):
             return (torch.zeros(row, dtype=p.dtype, device=p.device),
                     torch.zeros(col, dtype=p.dtype, device=p.device), one)
 
-        made = [moments(p) for p in tree_leaves(params)]
+        made = [moments(p, sh) for p, sh in zip(tree_leaves(params), shard)]
         return {name: tree_unflatten(params, [m[i] for m in made])
                 for i, name in enumerate(("v_row", "v_col", "v"))}
 
-    def _apply(self, grads, state, params):
+    def _apply(self, grads, state, params, shard=None):
         decay = 1.0 - torch.tensor(state["count"] + 1, dtype=torch.float32) ** (
             -ADAFACTOR_DECAY_RATE)
         keep = 1.0 - decay
         lr = self.learning_rate(state["count"])
         out = {"v_row": [], "v_col": [], "v": []}
         new_params = []
-        for g, vr, vc, v, p in zip(tree_leaves(grads), tree_leaves(state["v_row"]),
-                                   tree_leaves(state["v_col"]), tree_leaves(state["v"]),
-                                   tree_leaves(params)):
+        shard = shard or [None] * len(tree_leaves(params))
+        for g, vr, vc, v, p, sh in zip(tree_leaves(grads), tree_leaves(state["v_row"]),
+                                       tree_leaves(state["v_col"]), tree_leaves(state["v"]),
+                                       tree_leaves(params), shard):
             g2 = g * g + ADAFACTOR_EPS
-            dims = self.factored_dims(p.shape)
+            dims = self.factored_dims(p.shape if sh is None else sh.full_shape)
+
+            def mean(x, dim, along, keepdim=False):
+                """x's mean over ``dim``, which is the leaf's axis ``along``."""
+                if sh is None or sh.dim != along:
+                    return x.mean(dim, keepdim=keepdim)
+                return sh.sum(x.sum(dim, keepdim=keepdim)) / sh.full_shape[along]
+
+            def whole_mean(x):
+                if sh is None or sh.dim is None:
+                    return torch.mean(x)
+                return sh.sum(x.sum()) / sh.numel
+
             if dims is None:
                 v = (decay * v + keep * g2).to(p.dtype)
                 u = g * v**-0.5
             else:
                 d1, d0 = dims
-                vr = (decay * vr + keep * g2.mean(d0)).to(p.dtype)
-                vc = (decay * vc + keep * g2.mean(d1)).to(p.dtype)
-                row_factor = (vr / vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True))**-0.5
+                vr = (decay * vr + keep * mean(g2, d0, d0)).to(p.dtype)
+                vc = (decay * vc + keep * mean(g2, d1, d1)).to(p.dtype)
+                row_factor = (vr / mean(vr, d1 - 1 if d1 > d0 else d1, d1, keepdim=True))**-0.5
                 u = g * row_factor.unsqueeze(d0) * (vc**-0.5).unsqueeze(d1)
-            u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / ADAFACTOR_CLIPPING_THRESHOLD,
+            u = u / torch.clamp(torch.sqrt(whole_mean(u * u)) / ADAFACTOR_CLIPPING_THRESHOLD,
                                 min=1.0)
             u = lr * u
-            rms = torch.sqrt(torch.mean(p * p))
+            rms = torch.sqrt(whole_mean(p * p))
             u = u * torch.where(rms <= ADAFACTOR_MIN_PARAM_SCALE,
                                 torch.full_like(rms, ADAFACTOR_MIN_PARAM_SCALE), rms)
             new_params.append((p + -1 * u).to(p.dtype))
@@ -554,14 +640,310 @@ def _micro(tree, i):
     return None if tree is None else tree[i]
 
 
+class LeafShard:
+    """A trainable leaf as this rank holds it: its chunk along ``dim`` of a
+    whole leaf of ``full_shape`` split over ``group`` (ZeRO), or with
+    ``dim`` None a whole leaf that only this rank of ``group`` holds (a
+    pipeline stage's LoRA blocks). :meth:`sum` adds a partial sum over
+    the group."""
+
+    def __init__(self, dim: Optional[int], full_shape, group: AxisGroup):
+        self.dim, self.full_shape, self.group = dim, tuple(full_shape), group
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.full_shape)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return psum_plain(x, self.group)
+
+
+class FsdpGather:
+    """FSDP's gather on use: ``gather_params`` of ``dit_apply``. Called on a
+    subtree and its path (``()``, ``("blocks", i)``, ``("lora", i)``), it
+    returns the subtree's full tensors: the frozen chunks all-gathered
+    plainly, the trainable ones through the differentiable gather (its
+    backward reduce-scatters).
+
+    Entered around the forward, it keeps autograd from holding the full
+    tensors until the backward: a tensor that autograd saves and that
+    views a gathered buffer is saved as its chunk and gathered again when
+    the backward needs it (``saved_tensors_hooks``), so a block's gathered
+    weights are freed when the block has run, with or without remat. Every
+    rank's backward runs the same nodes in the same order, so the gathers
+    it adds line up across the ranks."""
+
+    def __init__(self, group: AxisGroup, dims, lora_dims):
+        self.group, self.dims, self.lora_dims = group, dims, lora_dims
+        # storage address of each gathered tensor still alive -> (chunk, dim)
+        self._buffers: Dict[int, Tuple[torch.Tensor, int]] = {}
+        self._saving = None
+
+    def _gather_leaf(self, chunk: torch.Tensor, dim: int) -> torch.Tensor:
+        full = (all_gather(chunk, self.group, dim) if chunk.requires_grad
+                else all_gather_plain(chunk, self.group, dim))
+        key = full.untyped_storage().data_ptr()
+        if full.numel() and key != chunk.untyped_storage().data_ptr():
+            self._buffers[key] = (chunk.detach(), dim)
+            weakref.finalize(full, self._buffers.pop, key, None)
+        return full
+
+    def _gather_tree(self, tree, spec):
+        if isinstance(tree, dict):
+            return {k: self._gather_tree(v, spec.get(k) if isinstance(spec, dict) else None)
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [self._gather_tree(v, spec[i]) for i, v in enumerate(tree)]
+        if spec is None or not torch.is_tensor(tree):
+            return tree
+        return self._gather_leaf(tree, spec)
+
+    def __call__(self, tree, path):
+        if path == ():
+            return self._gather_tree(tree, self.dims)
+        if path[0] == "blocks":
+            return self._gather_tree(tree, self.dims["blocks"][path[1]])
+        return self._gather_tree(tree, self.lora_dims["blocks"][path[1]])
+
+    def _pack(self, t: torch.Tensor):
+        entry = self._buffers.get(t.untyped_storage().data_ptr())
+        if entry is None or entry[0].dtype != t.dtype:
+            return t
+        chunk, dim = entry
+        return (chunk, dim, tuple(t.shape), t.stride(), t.storage_offset())
+
+    def _unpack(self, packed):
+        if torch.is_tensor(packed):
+            return packed
+        chunk, dim, shape, stride, offset = packed
+        return all_gather_plain(chunk, self.group, dim).as_strided(shape, stride, offset)
+
+    def __enter__(self):
+        self._saving = torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack)
+        self._saving.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        saving, self._saving = self._saving, None
+        return saving.__exit__(*exc)
+
+
+class TrainSharding:
+    """Where a train step's batch and trees lie over ``mesh`` in ``mode``
+    (``TrainConfig.sharding_mode``), one process per device:
+
+    - "dp", "zero2", "fsdp": a ('data', 'fsdp'[, 'tp']) mesh (``make_mesh``);
+      the batch's rows shard over data x fsdp. "zero2" shards the
+      optimizer state of every trainable leaf that the reference's rule
+      shards (``parallel/mesh.py:opt_state_sharding``; ``min_size``): the
+      gradients are reduce-scattered, each rank updates its chunk and the
+      chunks are all-gathered. "fsdp" keeps those leaves, and the frozen
+      params' (``param_sharding``), as chunks, gathered on use block by
+      block, the gather's backward reduce-scattering the gradient; a
+      block's gathered weights are freed after it and gathered again for
+      its backward (:class:`FsdpGather`).
+    - "sp": a ('data', 'sp') mesh; rows over data, tokens over sp
+      (``dit_apply_sp``); everything replicated.
+    - "pp": a ('data', 'pp') mesh, "lora_audio" only; rows over data; each
+      stage holds its L/S blocks (stacked) and LoRA blocks (a list).
+
+    Every rank differentiates its rows' loss over ``loss_divisor`` (the
+    ranks that share the loss: the batch shards times the sp or pp
+    ranks, which all hold the whole output) and the gradients are summed
+    over the ranks that hold the same leaf.
+    """
+
+    def __init__(self, mesh, mode: str, min_size: Optional[int] = None):
+        from avatar_tpu_torch.parallel.mesh import MIN_SHARD_SIZE
+
+        if mode not in ("dp", "zero2", "fsdp", "sp", "pp"):
+            raise ValueError(f"unknown sharding_mode {mode!r}")
+        self.mesh, self.mode = mesh, mode
+        self.min_size = MIN_SHARD_SIZE if min_size is None else min_size
+        if mode in ("dp", "zero2", "fsdp"):
+            self.batch_axes = tuple(a for a in ("data", "fsdp") if a in mesh.shape)
+            self.shared_axis = None
+        else:
+            self.shared_axis = mode
+            if mode not in mesh.shape:
+                raise ValueError(f"sharding_mode={mode!r} needs a mesh with a {mode!r} axis")
+            self.batch_axes = ("data",) if "data" in mesh.shape else ()
+        self.batch_group = mesh.group(self.batch_axes)
+        self.everyone = mesh.group(mesh.axis_names)
+        self.loss_divisor = self.batch_group.size * (
+            mesh.size(self.shared_axis) if self.shared_axis else 1)
+        self.frozen_dims = None
+        self.trainable_dims = None
+        self.full_shapes = None
+
+    @property
+    def pp_mesh(self):
+        return self.mesh if self.mode == "pp" else None
+
+    @property
+    def sp_mesh(self):
+        return self.mesh if self.mode == "sp" else None
+
+    def place(self, dit_params: dict, trainable: dict):
+        """(dit_params, trainable) as this rank holds them, from the whole
+        trees (the same on every rank)."""
+        from avatar_tpu_torch.parallel.mesh import (
+            map_with_path, opt_state_sharding, param_sharding, shard_pytree)
+        from avatar_tpu_torch.parallel.pipeline import stack_block_params
+
+        mesh = self.mesh
+        self.full_shapes = [tuple(x.shape) for x in tree_leaves(trainable)]
+        if self.mode in ("zero2", "fsdp"):
+            self.trainable_dims = opt_state_sharding(mesh, trainable, mode=self.mode,
+                                                     min_size=self.min_size)
+        if self.mode == "fsdp":
+            self.frozen_dims = param_sharding(mesh, dit_params, "fsdp", self.min_size)
+            dit_params = shard_pytree(dit_params, self.frozen_dims, mesh)
+            trainable = shard_pytree(trainable, self.trainable_dims, mesh)
+        elif self.mode == "pp":
+            pg = mesh.group("pp")
+            blocks = dit_params["blocks"]
+            if isinstance(blocks, (list, tuple)):
+                blocks = stack_block_params(blocks)
+            dit_params = dict(dit_params, blocks=map_with_path(
+                lambda p, x: chunk_of(x, pg, 0).contiguous(), blocks))
+            lora_blocks = list(trainable["lora"]["blocks"])
+            per = len(lora_blocks) // pg.size
+            trainable = dict(trainable, lora=dict(
+                trainable["lora"], blocks=lora_blocks[pg.index * per:(pg.index + 1) * per]))
+        return dit_params, trainable
+
+    def _leaf_dims(self, trainable) -> List[Optional[int]]:
+        if self.trainable_dims is None:
+            return [None] * len(tree_leaves(trainable))
+        return tree_leaves(self.trainable_dims)
+
+    def leaf_shards(self, trainable) -> List[Optional[LeafShard]]:
+        """Per leaf of this rank's trainable (:func:`tree_leaves` order),
+        None or its :class:`LeafShard`."""
+        if self.mode == "pp":
+            pg = self.mesh.group("pp")
+            return [LeafShard(None, x.shape, pg) if is_lora else None
+                    for x, is_lora in zip(tree_leaves(trainable),
+                                          tree_leaves(_lora_flags(trainable)))]
+        fsdp = self.mesh.group("fsdp") if "fsdp" in self.mesh.shape else None
+        return [None if d is None else LeafShard(d, shape, fsdp)
+                for d, shape in zip(self._leaf_dims(trainable), self.full_shapes)]
+
+    def rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of a whole-batch tensor."""
+        return chunk_of(x, self.batch_group, dim)
+
+    def reduce_grads(self, grads: List[torch.Tensor], trainable) -> List[torch.Tensor]:
+        """This rank's summed gradient of each leaf it holds."""
+        data = self.mesh.group("data") if "data" in self.mesh.shape else None
+        out = []
+        for g, d, sh in zip(grads, self._leaf_dims(trainable), self.leaf_shards(trainable)):
+            if self.mode == "pp" and sh is not None:
+                out.append(g if data is None else psum_plain(g, data))
+            elif d is None:
+                out.append(psum_plain(g, self.everyone))
+            else:
+                if self.mode == "zero2":
+                    g = reduce_scatter_plain(g, self.mesh.group("fsdp"), d)
+                out.append(g if data is None else psum_plain(g, data))
+        return out
+
+    def optimizer_view(self, trainable):
+        """The trainable as the optimizer updates it: ZeRO-2's chunks of the
+        whole leaves, else as held."""
+        if self.mode != "zero2":
+            return trainable
+        fsdp = self.mesh.group("fsdp")
+        return tree_unflatten(trainable, [
+            x if d is None else chunk_of(x, fsdp, d).contiguous()
+            for x, d in zip(tree_leaves(trainable), self._leaf_dims(trainable))])
+
+    def after_update(self, trainable):
+        """ZeRO-2: the updated chunks all-gathered into whole leaves."""
+        if self.mode != "zero2":
+            return trainable
+        fsdp = self.mesh.group("fsdp")
+        return tree_unflatten(trainable, [
+            x if d is None else all_gather_plain(x, fsdp, d)
+            for x, d in zip(tree_leaves(trainable), self._leaf_dims(trainable))])
+
+    def full_tree(self, tree, held_as: str = "trainable"):
+        """The whole tree on every rank (every rank must call it) from this
+        rank's share of a tree of the trainable's structure: the trainable
+        (``held_as="trainable"``) or a tree held as the optimizer holds it,
+        such as the EMA (``"state"``)."""
+        chunked = self.mode == "fsdp" or (self.mode == "zero2" and held_as == "state")
+        if chunked:
+            fsdp = self.mesh.group("fsdp")
+            return tree_unflatten(tree, [
+                x if d is None else all_gather_plain(x, fsdp, d)
+                for x, d in zip(tree_leaves(tree), self._leaf_dims(tree))])
+        if self.mode != "pp":
+            return tree
+        # each stage's LoRA blocks, gathered in stage order
+        pg = self.mesh.group("pp")
+        local = tree["lora"]["blocks"]
+        stacked = all_gather_plain_tree(stack_tree(local), pg)
+        blocks = [tree_map(lambda x, i=i: x[i], stacked)
+                  for i in range(len(local) * pg.size)]
+        return dict(tree, lora=dict(tree["lora"], blocks=blocks))
+
+    def init_optimizer(self, optimizer: "_Chain", trainable):
+        """The optimizer state of this rank's share."""
+        return optimizer.init(self.optimizer_view(trainable), self.leaf_shards(trainable))
+
+    def gather_hook(self) -> Optional["FsdpGather"]:
+        """FSDP's gather on use for ``dit_apply`` (:class:`FsdpGather`);
+        None in the other modes."""
+        if self.mode != "fsdp":
+            return None
+        train_dims = dict(self.trainable_dims)
+        lora_dims = train_dims.pop("lora", None)
+        return FsdpGather(self.mesh.group("fsdp"),
+                          overlay_params(self.frozen_dims, train_dims), lora_dims)
+
+    def draws(self, micro: Dict[str, torch.Tensor], cfg: TrainConfig, generator,
+              t: Optional[torch.Tensor], noise: Optional[torch.Tensor]):
+        """This rank's rows of the whole batch's t and noise: given (whole
+        batch) or drawn from ``generator`` in the one-device order (t, then
+        the noise)."""
+        latents = micro["latents"]
+        b = latents.shape[0] * self.batch_group.size
+        n = math.prod(latents.shape[1:4])
+        if t is None:
+            t = sample_rf_timesteps(
+                b, cfg.rf_log_normal_mu or 0.0, cfg.rf_log_normal_sigma or 1.0,
+                cfg.rf_quantile_min, cfg.rf_quantile_max, generator, latents.device)
+        if noise is None:
+            noise = torch.randn((b, n, latents.shape[-1]), generator=generator,
+                                device=latents.device)
+        return self.rows(t), self.rows(noise)
+
+
+def stack_tree(trees: List[Any]):
+    """Trees of one structure -> one tree of their leaves stacked on a new
+    leading axis."""
+    return tree_unflatten(trees[0], [torch.stack(xs) for xs in
+                                     zip(*(tree_leaves(t) for t in trees))])
+
+
+def all_gather_plain_tree(tree, ag: AxisGroup):
+    return tree_map(lambda x: all_gather_plain(x, ag, 0), tree)
+
+
+def _lora_flags(trainable):
+    """True at the leaves under "lora", False elsewhere."""
+    return {k: tree_map(lambda x, k=k: k == "lora", v) for k, v in trainable.items()}
+
+
 def make_train_step(
     dit_cfg: DiTConfig,
     cfg: TrainConfig,
     optimizer: _Chain,
     attention_impl: str = "auto",
     rope_split: bool = False,
-    pp_mesh=None,
-    sp_mesh=None,
+    sharding: Optional[TrainSharding] = None,
 ) -> Callable:
     """The step ``(trainable, opt_state, dit_params, batch, prompt_embeds,
     prompt_mask, generator=None, t=None, noise=None) -> (trainable,
@@ -570,52 +952,84 @@ def make_train_step(
     ``batch`` arrays are [accum, micro_b, ...]; ``t`` [accum, micro_b] and
     ``noise`` [accum, micro_b, N, C], where given, replace the draws per
     micro-batch. The gradients are summed in f32 over the micro-batches and
-    divided by their number; the metrics are their means."""
+    divided by their number; the metrics are their means.
+
+    ``sharding``: the trees
+    are this rank's (:meth:`TrainSharding.place`, the optimizer state from
+    :meth:`TrainSharding.init_optimizer`), ``batch`` holds this rank's
+    rows, and ``t`` / ``noise``, where given, the whole batch's."""
     accum = cfg.gradient_accumulation_steps
     remat = _remat(cfg)
-    if pp_mesh is not None or sp_mesh is not None:
-        raise NotImplementedError("pipeline and sequence parallelism are not ported")
+    if sharding is not None and sharding.mode == "pp" and cfg.train_mode != "lora_audio":
+        raise ValueError("sharding_mode=pp needs train_mode lora_audio")
+    mesh_kw = {} if sharding is None else dict(
+        pp_mesh=sharding.pp_mesh, sp_mesh=sharding.sp_mesh, data_axis=sharding.batch_group)
 
     def step(trainable, opt_state, dit_params, batch, prompt_embeds, prompt_mask,
              generator=None, t=None, noise=None):
         leaves = tree_leaves(trainable)
         sums = [torch.zeros_like(x, dtype=torch.float32) for x in leaves]
         per_micro = []
+        hook = None if sharding is None else sharding.gather_hook()
         for i in range(accum):
+            micro = {k: v[i] for k, v in batch.items()}
+            t_i, noise_i = _micro(t, i), _micro(noise, i)
+            scale = 1.0
+            if sharding is not None:
+                t_i, noise_i = sharding.draws(micro, cfg, generator, t_i, noise_i)
+                scale = 1.0 / sharding.loss_divisor
             with torch.enable_grad():
                 live = [x.detach().requires_grad_() for x in leaves]
-                loss, metrics = velocity_loss(
-                    tree_unflatten(trainable, live), dit_params, dit_cfg, cfg,
-                    {k: v[i] for k, v in batch.items()}, prompt_embeds, prompt_mask,
-                    generator, cfg.train_mode, attention_impl, remat, rope_split,
-                    t=_micro(t, i), noise=_micro(noise, i))
-                grads = torch.autograd.grad(loss, live)
-            for acc, g in zip(sums, grads):
-                acc += g.float()
+                with hook if hook is not None else contextlib.nullcontext():
+                    loss, metrics = velocity_loss(
+                        tree_unflatten(trainable, live), dit_params, dit_cfg, cfg, micro,
+                        prompt_embeds, prompt_mask, generator, cfg.train_mode,
+                        attention_impl, remat, rope_split, t=t_i, noise=noise_i,
+                        gather_params=hook, **mesh_kw)
+                # backward() (not autograd.grad) runs every node of the graph,
+                # a pipeline stage's hand-offs included
+                (loss * scale if scale != 1.0 else loss).backward()
+            for acc, x in zip(sums, live):
+                if x.grad is not None:
+                    acc += x.grad.float()
             per_micro.append({k: v.detach() for k, v in metrics.items()})
         if accum > 1:
             sums = [g / accum for g in sums]
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
-        trainable, opt_state = optimizer.update(
-            tree_unflatten(trainable, sums), opt_state, trainable)
-        return trainable, opt_state, metrics
+        if sharding is None:
+            trainable, opt_state = optimizer.update(
+                tree_unflatten(trainable, sums), opt_state, trainable)
+            return trainable, opt_state, metrics
+        sums = sharding.reduce_grads(sums, trainable)
+        view = sharding.optimizer_view(trainable)
+        view, opt_state = optimizer.update(tree_unflatten(trainable, sums), opt_state, view,
+                                           shard=sharding.leaf_shards(trainable))
+        return sharding.after_update(view), opt_state, metrics
 
     return step
 
 
 def validate_step_fn(dit_cfg: DiTConfig, cfg: TrainConfig, attention_impl: str = "auto",
-                     rope_split: bool = False, pp_mesh=None, sp_mesh=None) -> Callable:
+                     rope_split: bool = False,
+                     sharding: Optional[TrainSharding] = None) -> Callable:
     """``(trainable, dit_params, batch, prompt_embeds, prompt_mask,
     generator=None, t=None, noise=None) -> metrics``: the same noising and
-    velocity MSE on one micro-batch, without gradients."""
+    velocity MSE on one micro-batch, without gradients (over a mesh as
+    :func:`make_train_step`)."""
 
     @torch.no_grad()
     def step(trainable, dit_params, batch, prompt_embeds, prompt_mask,
              generator=None, t=None, noise=None):
+        kw = {}
+        if sharding is not None:
+            t, noise = sharding.draws(batch, cfg, generator, t, noise)
+            kw = dict(pp_mesh=sharding.pp_mesh, sp_mesh=sharding.sp_mesh,
+                      data_axis=sharding.batch_group,
+                      gather_params=sharding.gather_hook())
         _, metrics = velocity_loss(
             trainable, dit_params, dit_cfg, cfg, batch, prompt_embeds, prompt_mask,
             generator, cfg.train_mode, attention_impl, rope_split=rope_split,
-            t=t, noise=noise, pp_mesh=pp_mesh, sp_mesh=sp_mesh)
+            t=t, noise=noise, **kw)
         return metrics
 
     return step

@@ -154,7 +154,21 @@ Phases, each printing one JSON line as soon as it has its numbers:
    training point (batch 8, 480 tokens, caption 256, accumulation 2, 3
    optimizer steps): losses, launches per micro-step (A, B, E and F on the
    Hopper kernels only), seconds per step, peak memory and a profile of
-   one micro-step with A's, B's, E's and F's device ms;
+   one micro-step with A's, B's, E's and F's device ms; then the
+   multi-device layer over an NCCL process group of one (this card):
+   parallel_world1: the long point's DiT input (5376 tokens) through
+   ``dit_apply_sp`` (Ulysses, ring) and ``dit_apply_pp`` at one stage
+   against ``dit_apply`` (``PARALLEL_TOL``), each timed, its launches by
+   route (C for every attention under sp, no A or B), and a ``dp_mesh``
+   pipeline's generation equal to the pipeline's; ring_chunks: the ring's
+   chunk step over 4 chunks of 1,344 keys at [1|2, 32, 5376, 64] bf16 (C
+   bounded, D not; F backward), merged O, lse, dQ, dK, dV against the
+   whole-sequence kernels and their plain versions, a row with no kept key
+   0 in O and every gradient, 4 launches of each kernel, the chunked
+   forward and backward timed beside the whole-sequence C / D and F;
+   train_parallel_world1: one step of ``train``'s shape under sp (Ulysses,
+   ring), zero2 and fsdp, AdamW and Adafactor, each against the dp step
+   (loss, update), peak memory;
 14. reference_train_options (after reference_train): the tiny DiT in f32
    with Adafactor ("lora_audio" and "full", factored leaves), card against
    CPU, and one micro-step's gradients under remat "dots" against "full"
@@ -5870,6 +5884,378 @@ def run_preprocess_phases(pipe) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer at world size 1 (parallel/)
+# ---------------------------------------------------------------------------
+
+# The sequence- and pipeline-parallel DiT against the unsharded one, both
+# bf16 on the card: they run the same function through other kernels (C for
+# every attention under sp, where the unsharded long path runs C and B), so
+# they differ as the kernel path differs from plain attention
+# (KERNEL_PATH_TOL).
+PARALLEL_TOL = KERNEL_PATH_TOL
+# The ring's 4 chunks merged against the whole-sequence kernels, bf16: O, dK
+# and dV are each one kernel's output rounded once (KERNEL_ULPS and F's
+# F_ULPS); dQ sums 4 bf16-rounded partials in f32, so it may sit up to half
+# an ulp of each partial further (RING_DQ_ULPS); the merged lse is an f32
+# log-sum-exp of the chunks' (LSE_TOL).
+F_ULPS = 4
+RING_DQ_ULPS = 8
+RING_CHUNKS = 4
+
+
+def init_world1():
+    """An NCCL process group of one (this process, the card) on a TCP store
+    at a free localhost port: the multi-device layer's collectives then run
+    on NCCL, at world size 1."""
+    import socket
+
+    from avatar_tpu_torch.parallel import initialize
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize(f"localhost:{port}", 1, 0, device="cuda", timeout_s=300)
+
+
+def _long_inputs(pipe, g):
+    """The long operating point's denoiser input (5376 tokens, 256 caption
+    tokens of which 200 kept) and the walk's hoisted tables, bf16."""
+    import torch
+
+    from avatar_tpu_torch.models.dit import (
+        precompute_cross_attention_kv, precompute_timestep_tables)
+    from avatar_tpu_torch.ops.rope import get_latent_coords, precompute_freqs_cis, split_freqs
+
+    dcfg, bf16 = pipe.dit_cfg, torch.bfloat16
+    x = torch.randn(1, LONG_TOKENS, dcfg.in_channels, generator=g, device="cuda").to(bf16)
+    grid = get_latent_coords(*LONG_GRID, batch_size=1, device="cuda").float()
+    embeds = torch.randn(1, CAPTION, dcfg.caption_channels, generator=g,
+                         device="cuda").to(bf16)
+    mask = torch.ones(1, CAPTION, device="cuda")
+    mask[0, 200:] = 0.0
+    freqs = split_freqs(precompute_freqs_cis(
+        grid, dim=dcfg.inner_dim, theta=dcfg.positional_embedding_theta,
+        max_pos=dcfg.positional_embedding_max_pos, out_dtype=bf16))
+    kv, _ = precompute_cross_attention_kv(pipe.dit_params, dcfg, embeds, dtype=bf16)
+    ada, emb = precompute_timestep_tables(pipe.dit_params, dcfg,
+                                          torch.tensor([0.7], device="cuda"), 1, bf16)
+    return x, dict(encoder_attention_mask=mask, freqs_cis=freqs, cross_kv=kv,
+                   timestep_tables=(ada[0], emb[0]), rope_split=True)
+
+
+def run_parallel_world1(pipe) -> dict:
+    """``dit_apply_sp`` (Ulysses, ring) and ``dit_apply_pp`` (one stage) on
+    the long operating point's input, each against the unsharded
+    ``dit_apply`` (PARALLEL_TOL) and timed beside it (CUDA events), with its
+    launches by route; then a ``dp_mesh`` pipeline's generation at 161 f ·
+    512 px against the same pipeline without the mesh on the same
+    generator (equal: the same kernels, a gather of one rank). All over an
+    NCCL process group of one (:func:`init_world1`)."""
+    import numpy as np
+    import torch
+
+    from avatar_tpu_torch.models.dit import dit_apply
+    from avatar_tpu_torch.parallel import (
+        Mesh, dit_apply_pp, dit_apply_sp, make_pp_mesh, stack_block_params)
+    from avatar_tpu_torch.pipelines.pipeline import GenerationParams, LTXVideoPipeline
+
+    dcfg = pipe.dit_cfg
+    g = torch.Generator(device="cuda").manual_seed(41)
+    x, common = _long_inputs(pipe, g)
+    sp_mesh, pp_mesh = Mesh(np.arange(1), ("sp",)), make_pp_mesh(1)
+    stacked = dict(pipe.dit_params, blocks=stack_block_params(pipe.dit_params["blocks"]))
+    paths = {
+        "unsharded": lambda: dit_apply(pipe.dit_params, dcfg, x, **common),
+        "sp_ulysses": lambda: dit_apply_sp(pipe.dit_params, dcfg, x, None, None,
+                                           mesh=sp_mesh, sp_impl="ulysses", **common),
+        "sp_ring": lambda: dit_apply_sp(pipe.dit_params, dcfg, x, None, None,
+                                        mesh=sp_mesh, sp_impl="ring", **common),
+        "pp_1": lambda: dit_apply_pp(stacked, dcfg, x, None, None, mesh=pp_mesh, **common),
+    }
+    by_path, rows, base = {}, {}, None
+    with torch.no_grad():
+        for name, fn in paths.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in read_counts().items() if n}
+            if not torch.isfinite(out).all():
+                fail(f"parallel_world1 {name}: non-finite output")
+            if base is None:
+                base = out.float()
+            row = {"launches": launches, "ms": time_ms(fn, reps=3, batches=3)}
+            if name != "unsharded":
+                row["rel_rms_vs_unsharded"] = _rel_rms(out.float(), base)
+                if row["rel_rms_vs_unsharded"] > PARALLEL_TOL:
+                    fail(f"parallel_world1 {name}: {row['rel_rms_vs_unsharded']} from the "
+                         f"unsharded DiT (limit {PARALLEL_TOL})")
+                by_path[f"parallel_world1_{name}"] = launches
+            rows[name] = row
+    for name in ("sp_ulysses", "sp_ring"):
+        got = rows[name]["launches"]
+        if any(got.get(k) for k in TOKEN_MAJOR_BF16):
+            fail(f"parallel_world1 {name}: a token-major kernel ran under sp: {got}")
+        if got.get("flash_bounded_sm90") != 2 * LAYERS:
+            fail(f"parallel_world1 {name}: {got.get('flash_bounded_sm90')} launches of C, "
+                 f"expected {2 * LAYERS} (self- and cross-attention per block)")
+    del stacked
+    # the dp pipeline at world 1 against the same pipeline without the mesh
+    pipe_dp = LTXVideoPipeline(pipe.dit_cfg, pipe.raw_dit_params, pipe.vae_cfg,
+                               pipe.vae_params, dp_mesh=Mesh(np.arange(1), ("data",)),
+                               device="cuda")
+    params = GenerationParams(height=512, width=512, num_frames=161, num_inference_steps=3,
+                              guidance_scale=1.0, stg_scale=0.0, rescaling_scale=1.0)
+    embeds = torch.randn(1, CAPTION, dcfg.caption_channels, generator=g, device="cuda")
+    mask = torch.ones(1, CAPTION, device="cuda")
+    outs = {}
+    for name, p in (("unsharded", pipe), ("dp_1", pipe_dp)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs[name] = p(params, torch.Generator(device="cuda").manual_seed(5), embeds, mask,
+                           output_type="latent")
+        torch.cuda.synchronize()
+        rows[f"pipeline_{name}"] = {"seconds": time.perf_counter() - t0,
+                                    "launches": {k: n for k, n in read_counts().items() if n}}
+    by_path["parallel_world1_dp_1"] = rows["pipeline_dp_1"]["launches"]
+    if not torch.equal(outs["dp_1"], outs["unsharded"]):
+        fail(f"parallel_world1 dp_1: {_rel_rms(outs['dp_1'].float(), outs['unsharded'].float())}"
+             " from the pipeline without the mesh (expected equal)")
+    del pipe_dp
+    torch.cuda.empty_cache()
+    emit({"phase": "parallel_world1", "backend": "nccl", "world_size": 1,
+          "tokens": LONG_TOKENS, "caption": CAPTION, "paths": rows,
+          "tolerance": PARALLEL_TOL})
+    return by_path
+
+
+def _ring_case(g, batch, masked):
+    """q, k (rms-normalized rows: qk-norm-like logits, |s| <= 8 at scale
+    1/8), v, the output gradient and the kv keep-mask: with ``masked``,
+    batch row 0 keeps 80% of its keys and none of the second chunk's, row
+    1 keeps none."""
+    import torch
+
+    bf16 = torch.bfloat16
+
+    def draw():
+        return torch.randn(batch, HEADS, LONG_TOKENS, HEAD_DIM, generator=g, device="cuda")
+
+    q, k = (rms_rows(draw()).to(bf16) for _ in range(2))
+    v, gout = draw().to(bf16), draw().to(bf16)
+    mask = None
+    if masked:
+        mask = (torch.rand(batch, LONG_TOKENS, generator=g, device="cuda") > 0.2).float()
+        c = LONG_TOKENS // RING_CHUNKS
+        mask[0, c:2 * c] = 0.0
+        mask[1:] = 0.0
+    return q, k, v, gout, mask
+
+
+def check_ring_chunks(peaks) -> dict:
+    """The ring's chunk step on one card: [B, 32, 5376, 64] bf16 split into
+    RING_CHUNKS chunks of 1,344 keys, each hop one flash forward (C when
+    bounded, D when not) merged by log-sum-exp, the backward one F (dK/dV
+    and dQ) per hop against the merged lse and O. The merged O and lse, dQ,
+    dK and dV against the whole-sequence kernels and their plain versions
+    on the same inputs; with a kv mask, a batch row with no kept key gets
+    O = 0 and zero gradients. Launch counts: RING_CHUNKS forwards, dkv and
+    dq launches per run; the chunked forward and backward timed beside the
+    whole-sequence C / D and F (CUDA events)."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+    from avatar_tpu_torch.parallel.sequence import (
+        ring_flash_chunk_backward, ring_flash_chunk_forward, ring_global_lse)
+
+    g = torch.Generator(device="cuda").manual_seed(43)
+    scale = HEAD_DIM ** -0.5
+    c = LONG_TOKENS // RING_CHUNKS
+    cases = {"bounded": (True, 1, False), "online": (False, 1, False),
+             "bounded_masked": (True, 2, True), "online_masked": (False, 2, True)}
+    out_rows, by_path = {}, {}
+    for name, (bounded, batch, masked) in cases.items():
+        q, k, v, gout, mask = _ring_case(g, batch, masked)
+        ks = [k[:, :, i * c:(i + 1) * c].contiguous() for i in range(RING_CHUNKS)]
+        vs = [v[:, :, i * c:(i + 1) * c].contiguous() for i in range(RING_CHUNKS)]
+        ms = [None if mask is None else mask[:, i * c:(i + 1) * c].contiguous()
+              for i in range(RING_CHUNKS)]
+
+        def chunked_forward():
+            acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+            lse = torch.full(q.shape[:3], fa.NEG_INF, dtype=torch.float32, device="cuda")
+            for kc, vc, mc in zip(ks, vs, ms):
+                acc, lse = ring_flash_chunk_forward(q, kc, vc, mc, acc, lse, scale, bounded)
+            return acc.to(q.dtype), lse
+
+        def chunked_backward(out, lse):
+            lse = ring_global_lse(lse)
+            dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+            dks, dvs = [], []
+            for kc, vc, mc in zip(ks, vs, ms):
+                zero = torch.zeros(kc.shape, dtype=torch.float32, device="cuda")
+                dq, dk, dv = ring_flash_chunk_backward(q, kc, vc, mc, out, lse, gout, scale,
+                                                       dq, zero, zero.clone())
+                dks.append(dk)
+                dvs.append(dv)
+            return dq, torch.cat(dks, 2), torch.cat(dvs, 2)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        out, lse = chunked_forward()
+        dq, dk, dv = chunked_backward(out, lse)
+        torch.cuda.synchronize()
+        launches = {k_: n for k_, n in read_counts().items() if n}
+        mode = "bounded" if bounded else "online"
+        expect = {f"flash_{mode}": RING_CHUNKS, f"flash_{mode}_sm90": RING_CHUNKS,
+                  "flash_bwd_dkv": RING_CHUNKS, "flash_bwd_dkv_sm90": RING_CHUNKS,
+                  "flash_bwd_dq": RING_CHUNKS, "flash_bwd_dq_sm90": RING_CHUNKS}
+        if launches != expect:
+            fail(f"ring_chunks {name}: launched {launches}, expected {expect}")
+        if not masked:
+            by_path[f"ring_chunks_{mode}"] = launches
+        # the whole sequence: C / D and F, then the plain versions
+        o_w, lse_w = fa._flash_forward(q, k, v, mask, scale, bounded)
+        dq_w, dk_w, dv_w = fa._flash_backward(q, k, v, mask, o_w, lse_w, gout, scale)
+        # the plain versions a batch row at a time (their f32 logits are
+        # 3.7 GB a row)
+        plain = []
+        for b_ in range(batch):
+            sl = slice(b_, b_ + 1)
+            m_ = None if mask is None else mask[sl]
+            qf, sf = fa.fold_scale(q[sl], scale)
+            o_b, lse_b = fa._flash_plain(qf, k[sl], v[sl], m_, sf, mode)
+            plain.append((o_b, lse_b) + fa._flash_backward_plain(
+                q[sl], k[sl], v[sl], m_, o_b, lse_b, gout[sl], scale))
+        o_p, lse_p, dq_p, dk_p, dv_p = (torch.cat(t) for t in zip(*plain))
+        del plain
+        row = {}
+        for ref_name, refs in (("whole", (o_w, lse_w, dq_w, dk_w, dv_w)),
+                               ("plain", (o_p, lse_p, dq_p, dk_p, dv_p))):
+            errs = KernelErrors(f"ring_chunks {name} against the {ref_name} sequence")
+            errs.add("o", out, refs[0])
+            f_errs = KernelErrors(f"ring_chunks {name} dK/dV against the {ref_name} sequence",
+                                  ulps=F_ULPS)
+            f_errs.add("dk", dk, refs[3])
+            f_errs.add("dv", dv, refs[4])
+            q_errs = KernelErrors(f"ring_chunks {name} dQ against the {ref_name} sequence",
+                                  ulps=RING_DQ_ULPS)
+            q_errs.add("dq", dq, refs[2])
+            keep = refs[1] < 0.5 * fa.LSE_MASKED
+            lse_err = (ring_global_lse(lse) - refs[1])[keep].abs().max().item()
+            if not lse_err <= LSE_TOL:
+                fail(f"ring_chunks {name}: lse {lse_err} from the {ref_name} sequence")
+            row[ref_name] = {"o": errs.check(), "dk_dv": f_errs.check(), "dq": q_errs.check(),
+                             "lse": lse_err}
+        if masked:
+            dead = [t[1:] for t in (out, dq, dk, dv)]
+            if any(bool(t.abs().max() != 0) for t in dead):
+                fail(f"ring_chunks {name}: a row with no kept key got a nonzero output or "
+                     "gradient")
+        row["launches"] = launches
+        if not masked:
+            row["chunked_forward_ms"] = time_ms(chunked_forward, reps=5, batches=3)
+            row["whole_forward_ms"] = time_ms(
+                lambda: fa._flash_forward(q, k, v, mask, scale, bounded), reps=5, batches=3)
+            row["chunked_backward_ms"] = time_ms(lambda: chunked_backward(out, lse), reps=5,
+                                                 batches=3)
+            row["whole_backward_ms"] = time_ms(
+                lambda: fa._flash_backward(q, k, v, mask, o_w, lse_w, gout, scale),
+                reps=5, batches=3)
+        out_rows[name] = row
+        del q, k, v, gout, ks, vs
+    emit({"phase": "ring_chunks", "shape": [1, HEADS, LONG_TOKENS, HEAD_DIM],
+          "chunks": RING_CHUNKS, "keys_per_chunk": c, "cases": out_rows,
+          "tolerance_ulps": {"o": KERNEL_ULPS, "dk_dv": F_ULPS, "dq": RING_DQ_ULPS},
+          "lse_tol": LSE_TOL})
+    return by_path
+
+
+def run_train_parallel_world1(pipe) -> dict:
+    """One "lora_audio" optimizer step at ``run_train``'s shape (batch 8 x
+    480 tokens, 2 micro-batches) under the sharded train step
+    (``TrainSharding``) at world size 1 over NCCL: "sp" with Ulysses and
+    with the ring, "zero2" and "fsdp", each with AdamW and Adafactor,
+    against the unsharded ("dp") step on the same batch and generator:
+    the loss within TRAIN_LOSS_RTOL, the update within TRAIN_UPDATE_TOL
+    relative RMS. Peak memory per run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from avatar_tpu_torch.core.config import TrainConfig
+    from avatar_tpu_torch.parallel import Mesh, make_mesh
+    from avatar_tpu_torch.train import train as tt
+
+    dcfg = pipe.dit_cfg
+    g = torch.Generator(device="cuda").manual_seed(47)
+    batch = _train_batch(dcfg, g)
+    embeds = torch.randn(1, CAPTION, dcfg.caption_channels, generator=g, device="cuda")
+    mask = torch.ones(1, CAPTION, device="cuda")
+    mask[0, 200:] = 0.0
+    base_cfg = TrainConfig(checkpoint_path="-", train_mode="lora_audio", learning_rate=1e-4,
+                           lora_rank=32, lora_alpha=32, batch_size=TRAIN_BATCH,
+                           gradient_accumulation_steps=TRAIN_ACCUM, rf_log_normal_mu=-0.5,
+                           rf_log_normal_sigma=1.0)
+    trainable0 = tt.init_trainable(pipe.raw_dit_params, dcfg, base_cfg,
+                                   torch.Generator(device="cuda").manual_seed(3))
+    modes = {"sp_ulysses": ("sp", "ulysses"), "sp_ring": ("sp", "ring"),
+             "zero2": ("zero2", None), "fsdp": ("fsdp", None)}
+    rows, by_path = {}, {}
+    for opt_name in ("adamw", "adafactor"):
+        cfg = dataclasses.replace(base_cfg, optimizer=opt_name)
+        runs = {}
+        for name, (mode, sp_impl) in [("dp", (None, None))] + list(modes.items()):
+            opt = tt.make_optimizer(cfg)
+            params, trainable = pipe.dit_params, trainable0
+            run_cfg = cfg if sp_impl is None else dataclasses.replace(cfg, sp_impl=sp_impl)
+            if mode is None:
+                state, sharding = opt.init(trainable), None
+            else:
+                mesh = (Mesh(np.arange(1).reshape(1, 1), ("data", "sp")) if mode == "sp"
+                        else make_mesh(data=1, fsdp=1))
+                sharding = tt.TrainSharding(mesh, mode)
+                params, trainable = sharding.place(params, trainable)
+                state = sharding.init_optimizer(opt, trainable)
+            step = tt.make_train_step(dcfg, run_cfg, opt, rope_split=True, sharding=sharding)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            trainable, state, metrics = step(trainable, state, params, batch, embeds, mask,
+                                             torch.Generator(device="cuda").manual_seed(9))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: n for k, n in read_counts().items() if n}
+            if sharding is not None:
+                trainable = sharding.full_tree(trainable)
+                by_path[f"train_parallel_world1_{name}_{opt_name}"] = launches
+            runs[name] = (float(metrics["loss"]), trainable)
+            row = {"loss": float(metrics["loss"]), "seconds": seconds,
+                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "launches": launches}
+            if mode is not None:
+                ref_loss, ref_tr = runs["dp"]
+                row["loss_rel"] = abs(row["loss"] - ref_loss) / abs(ref_loss)
+                row["update_rel_rms"] = _update_rel_rms(trainable0, trainable, ref_tr)
+                if not (row["loss_rel"] <= TRAIN_LOSS_RTOL
+                        and row["update_rel_rms"] <= TRAIN_UPDATE_TOL):
+                    fail(f"train_parallel_world1 {name} {opt_name}: loss {row['loss_rel']}, "
+                         f"update {row['update_rel_rms']} from the dp step")
+            rows[f"{name}_{opt_name}"] = row
+            del state, step
+        del runs
+        torch.cuda.empty_cache()
+    emit({"phase": "train_parallel_world1", "backend": "nccl", "world_size": 1,
+          "batch": TRAIN_BATCH, "tokens": TRAIN_TOKENS, "accum": TRAIN_ACCUM, "runs": rows,
+          "loss_rtol": TRAIN_LOSS_RTOL, "update_tol": TRAIN_UPDATE_TOL})
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -6013,6 +6399,13 @@ def main() -> int:
     by_path.update(run_cli_phases(pipe, t5_embeds, t5_mask))
     del t5_embeds
     by_path["train"] = run_train(pipe)
+    # the multi-device layer at world size 1, over NCCL
+    t0 = time.perf_counter()
+    init_world1()
+    by_path.update(run_parallel_world1(pipe))
+    by_path.update(check_ring_chunks(peaks))
+    by_path.update(run_train_parallel_world1(pipe))
+    emit({"phase": "parallel_phases", "seconds": time.perf_counter() - t0})
     # the pose path, then training part 1 at full width
     ff = run_faceformer()
     by_path["train_audio"] = run_train_audio(pipe, ff)
@@ -6030,6 +6423,9 @@ def main() -> int:
         if not row["launches"]:
             fail(f"{row['name']} was launched on no driven path")
     emit({"kernels": [mark_event_times(row) for row in rows]})
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -15,6 +15,7 @@ from avatar_tpu_torch.cli import train as train_cli
 from avatar_tpu_torch.models import (dit, faceformer, latent_upsampler, vae,
                                      video_autoencoder, wav2vec2)
 from avatar_tpu_torch.ops import rope
+from avatar_tpu_torch.parallel import distributed as parallel_distributed
 from avatar_tpu_torch.pipelines import pipeline, pose_frames
 from avatar_tpu_torch.utils import weight_import
 
@@ -82,14 +83,32 @@ def test_preprocess_slice_modules_are_checked(rel):
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
 
 
-def test_only_parallel_is_left_to_port():
-    """Every module of the JAX package but ``parallel/`` has a counterpart
-    of the same name in the port."""
+# the multi-device layer
+PARALLEL_SLICE = ("parallel/__init__.py", "parallel/collectives.py",
+                  "parallel/distributed.py", "parallel/mesh.py", "parallel/pipeline.py",
+                  "parallel/sequence.py")
+
+
+@pytest.mark.parametrize("rel", PARALLEL_SLICE)
+def test_parallel_slice_modules_are_checked(rel):
+    path = ROOT / "avatar_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module of the JAX package has a counterpart of the same name
+    in the port, and the port's ``parallel`` exports the JAX package's
+    public names."""
+    import avatar_tpu.parallel as jparallel
+
+    import avatar_tpu_torch.parallel as tparallel
+
     jax_pkg = ROOT / "avatar_tpu"
     missing = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
                      if not (ROOT / "avatar_tpu_torch" / p.relative_to(jax_pkg)).exists())
-    assert missing == [f"parallel/{n}.py" for n in ("__init__", "distributed", "mesh",
-                                                   "pipeline", "sequence")]
+    assert missing == []
+    assert not set(jparallel.__all__) - set(tparallel.__all__)
 
 
 def test_chip_smoke_pipeline_config_is_the_shipped_yaml():
@@ -119,7 +138,7 @@ def test_forbidden_rule_spares_the_port_package():
     preprocess.VAEEncoder.__init__, preprocess.VAEEncoder.from_params,
     weight_import.load_checkpoint, weight_import.video_autoencoder_params_from_numpy,
     video_autoencoder.init_video_autoencoder,
-    video_autoencoder.import_video_autoencoder_state,
+    video_autoencoder.import_video_autoencoder_state, parallel_distributed.initialize,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

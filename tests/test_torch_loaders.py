@@ -113,9 +113,10 @@ def test_load_checkpoint_matches_jax(checkpoint, dtype):
 
 
 def test_pipeline_takes_text_encoder_in_reference_order(checkpoint):
-    """The arguments both constructors share, up to ``rope_split``, in the
-    reference's positional order; ``text_encoder`` is kept as given and
-    ``scan_blocks`` and ``device`` are keyword-only."""
+    """The arguments both constructors share, up to ``pp_microbatches`` (the
+    mesh parameters after ``rope_split``), in the reference's positional
+    order; ``text_encoder`` is kept as given and ``scan_blocks`` and
+    ``device`` are keyword-only."""
     jdcfg, jdit_p, jvcfg, jvae_p, _ = jwi.load_checkpoint(checkpoint)
     tdcfg, tdit_p, tvcfg, tvae_p, _ = twi.load_checkpoint(checkpoint, device="cpu")
     encoder = object()
@@ -132,8 +133,9 @@ def test_pipeline_takes_text_encoder_in_reference_order(checkpoint):
     jnames = list(inspect.signature(jpipe.LTXVideoPipeline.__init__).parameters)
     params = inspect.signature(tpipe.LTXVideoPipeline.__init__).parameters
     positional = [n for n, p in params.items() if p.kind == p.POSITIONAL_OR_KEYWORD]
-    assert positional == jnames[:jnames.index("rope_split") + 1]
+    assert positional == jnames[:jnames.index("pp_microbatches") + 1]
     assert {n for n, p in params.items() if p.kind == p.KEYWORD_ONLY} == {"scan_blocks",
                                                                           "device"}
+    meshes = (None, "sp", "ulysses", None, "data", None, "pp", None)
     with pytest.raises(TypeError):
-        tpipe.LTXVideoPipeline(tdcfg, tdit_p, tvcfg, tvae_p, None, *shared, True)
+        tpipe.LTXVideoPipeline(tdcfg, tdit_p, tvcfg, tvae_p, None, *shared, *meshes, True)

@@ -4,7 +4,8 @@ listings in ``cuobjdump -sass``'s format; ``tools/conv_plan_sweep.py``'s
 cost model against ``conv_plan`` and its fit; the source variants of
 ``tools/kernel_ab.py`` against the committed sources (a variant whose patch
 no longer applies would fail only on the card); ``tools/w8a8_path.py``
-refuses to run without a card."""
+refuses to run without a card; ``tools/parallel_check.py`` rehearses on
+gloo."""
 
 import json
 
@@ -202,3 +203,29 @@ def test_w8a8_path_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert w8a8_path.main(["this"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_parallel_check_rehearses_on_gloo(tmp_path):
+    """``tools/parallel_check.py``'s gloo rehearsal: two CPU processes run
+    every mode (sp, pp, dp, the train modes) on the tiny f32 model and each
+    check holds (the tool exits 0, every line "ok"); without a card and
+    without ``--device cpu`` it refuses."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "avatar_tpu_torch.tools.parallel_check", "--device", "cpu",
+         "--tiny", "--world", "2"], cwd=str(tmp_path), env=env, capture_output=True,
+        text=True, timeout=120)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    lines = [json.loads(ln) for ln in run.stdout.splitlines() if ln.startswith("{")]
+    assert [ln.get("check") for ln in lines[:-1]] == ["sp", "pp", "dp", "train"]
+    assert all(ln["ok"] for ln in lines)
+    refused = subprocess.run(
+        [sys.executable, "-m", "avatar_tpu_torch.tools.parallel_check"], cwd=str(tmp_path),
+        env=env, capture_output=True, text=True, timeout=60)
+    assert refused.returncode == 1 and "no CUDA device" in refused.stderr

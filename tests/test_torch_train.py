@@ -241,9 +241,14 @@ def test_lr_schedule_matches_jax(kind, warmup, total):
 
 
 def test_unported_options_raise(params):
-    """Pipeline and sequence parallelism still raise; Adafactor and
-    audio-conditioned batches are ported (held to the JAX package in
-    test_torch_adafactor.py and test_torch_train_options.py)."""
+    """Nothing is left unported: an unknown optimizer raises, and so do the
+    reference's own refusals of the parallel modes (pipeline parallelism in
+    "full" mode, a sequence mesh without an 'sp' axis); Adafactor,
+    audio-conditioned batches and the parallel modes are ported (held in
+    test_torch_adafactor.py, test_torch_train_options.py and
+    test_torch_parallel_train.py)."""
+    from avatar_tpu_torch.parallel import make_mesh, make_pp_mesh
+
     _, _, tparams = params
     assert isinstance(ttrain.make_optimizer(TConfig(checkpoint_path="x",
                                                     optimizer="adafactor")),
@@ -251,11 +256,14 @@ def test_unported_options_raise(params):
     with pytest.raises(ValueError, match="optimizer"):
         ttrain.make_optimizer(TConfig(checkpoint_path="x", optimizer="sgd"))
     cfg = TConfig(checkpoint_path="x", train_mode="full")
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        ttrain.make_train_step(TDIT, cfg, ttrain.make_optimizer(cfg), pp_mesh=object())
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(ValueError, match="lora_audio"):
+        ttrain.make_train_step(TDIT, cfg, ttrain.make_optimizer(cfg),
+                               sharding=ttrain.TrainSharding(make_pp_mesh(1), "pp"))
+    with pytest.raises(ValueError, match="lora_audio"):
         ttrain.velocity_loss(ttrain.split_full_trainable(tparams), tparams, TDIT, cfg,
-                             {}, None, None, sp_mesh=object())
+                             {}, None, None, train_mode="full", pp_mesh=make_pp_mesh(1))
+    with pytest.raises(ValueError, match="'sp' axis"):
+        ttrain.TrainSharding(make_mesh(), "sp")
 
 
 # ---------------------------------------------------------------------------
