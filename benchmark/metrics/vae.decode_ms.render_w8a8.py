@@ -1,0 +1,10 @@
+"""vae.decode_ms.render_w8a8: vae.decode_ms.render, read in the W8A8 render:
+the pipeline's decode span (VAE decode and the I420 pass), median over the
+traced run's videos."""
+
+import statistics
+
+
+def read(rec):
+    spans = rec.spans.get("decode_s")
+    return statistics.median(spans) * 1e3 if spans else None
