@@ -72,6 +72,7 @@ from avatar_tpu_torch.parallel.pipeline import (  # noqa: F401 (re-exported)
     stack_block_params,
     unstack_block_params,
 )
+from avatar_tpu_torch.utils.profiling import annotate
 
 
 class SkipLayerStrategy(enum.Enum):
@@ -583,34 +584,42 @@ def _block_apply(params, x, cfg, freqs_cis, timestep, cross_kv, kv_mask,
         and "kernel_q8" in params["attn1"]["to_q"]
         and skip_layer_mask is None and sp_axis is None and tp_axis is None)
     shift_msa = scale_msa = gate_msa = shift_mlp = scale_mlp = gate_mlp = None
-    if adaln:
-        n_ada = params["scale_shift_table"].shape[0]
-        ada = params["scale_shift_table"].to(x.dtype)[None, None] + timestep.reshape(
-            b, timestep.shape[1], n_ada, -1).to(x.dtype)
-        if cfg.adaptive_norm == "single_scale_shift":
-            shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
-                ada[:, :, i] for i in range(6))
-        else:
-            scale_msa, gate_msa, scale_mlp, gate_mlp = (ada[:, :, i] for i in range(4))
-    norm_x = _norm_modulate(params.get("norm1"), x, scale_msa, shift_msa, cfg,
-                            fused_quant_norm)
+    with annotate("dit.norm"):
+        if adaln:
+            n_ada = params["scale_shift_table"].shape[0]
+            ada = params["scale_shift_table"].to(x.dtype)[None, None] + timestep.reshape(
+                b, timestep.shape[1], n_ada, -1).to(x.dtype)
+            if cfg.adaptive_norm == "single_scale_shift":
+                shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
+                    ada[:, :, i] for i in range(6))
+            else:
+                scale_msa, gate_msa, scale_mlp, gate_mlp = (ada[:, :, i] for i in range(4))
+        norm_x = _norm_modulate(params.get("norm1"), x, scale_msa, shift_msa, cfg,
+                                fused_quant_norm)
 
-    x = x + _gated(gate_msa, _attention(
-        params["attn1"], norm_x, cfg, freqs_cis=freqs_cis,
-        skip_layer_mask=skip_layer_mask, skip_layer_strategy=skip_layer_strategy,
-        attention_impl=attention_impl, rope_split=rope_split,
-        lora=lora.get("attn1"), lora_scale=lora_scale, keep=keep,
-        sp_axis=sp_axis, sp_impl=sp_impl, tp_axis=tp_axis))
-    attn_in = x if adaln or "attn2_norm" not in params else _std_norm(
-        params["attn2_norm"], x, cfg)
-    x = x + _attention(params["attn2"], attn_in, cfg, kv_mask=kv_mask,
-                       attention_impl=attention_impl, cross_kv=cross_kv,
-                       lora=lora.get("attn2"), lora_scale=lora_scale, keep=keep,
-                       sp_axis=sp_axis, tp_axis=tp_axis)
+    with annotate("dit.attn1"):
+        out = _attention(
+            params["attn1"], norm_x, cfg, freqs_cis=freqs_cis,
+            skip_layer_mask=skip_layer_mask, skip_layer_strategy=skip_layer_strategy,
+            attention_impl=attention_impl, rope_split=rope_split,
+            lora=lora.get("attn1"), lora_scale=lora_scale, keep=keep,
+            sp_axis=sp_axis, sp_impl=sp_impl, tp_axis=tp_axis)
+    x = x + _gated(gate_msa, out)
+    with annotate("dit.attn2"):
+        attn_in = x if adaln or "attn2_norm" not in params else _std_norm(
+            params["attn2_norm"], x, cfg)
+        out = _attention(params["attn2"], attn_in, cfg, kv_mask=kv_mask,
+                         attention_impl=attention_impl, cross_kv=cross_kv,
+                         lora=lora.get("attn2"), lora_scale=lora_scale, keep=keep,
+                         sp_axis=sp_axis, tp_axis=tp_axis)
+    x = x + out
 
-    norm_x = _norm_modulate(params.get("norm2"), x, scale_mlp, shift_mlp, cfg,
-                            fused_quant_norm and "kernel_q8" in params["ff"]["proj_in"])
-    x = x + _gated(gate_mlp, _feed_forward(params["ff"], norm_x, cfg, keep, tp_axis))
+    with annotate("dit.norm"):
+        norm_x = _norm_modulate(params.get("norm2"), x, scale_mlp, shift_mlp, cfg,
+                                fused_quant_norm and "kernel_q8" in params["ff"]["proj_in"])
+    with annotate("dit.ff"):
+        out = _feed_forward(params["ff"], norm_x, cfg, keep, tp_axis)
+    x = x + _gated(gate_mlp, out)
     if (skip_layer_mask is not None
             and skip_layer_strategy == SkipLayerStrategy.TransformerBlock):
         x = _stg_mix(x, original_x, skip_layer_mask)
@@ -745,14 +754,16 @@ def apply_blocks(x, blocks, lora_blocks, cross_kv, cfg: DiTConfig, *, freqs_cis,
     for i, (block, kv) in enumerate(zip(blocks, cross_kv, strict=True)):
         def run(x, keep=None, i=i, block=block, kv=kv):
             lb = lora_blocks[i]
-            return _block_apply(
-                gather(block, ("blocks", i)), x, cfg=cfg, freqs_cis=freqs_cis,
-                timestep=ada, cross_kv=kv, kv_mask=kv_mask,
-                skip_layer_mask=None if skip_layer_mask is None else skip_layer_mask[i],
-                skip_layer_strategy=skip_layer_strategy, attention_impl=attention_impl,
-                rope_split=rope_split, lora=None if lb is None else gather(lb, ("lora", i)),
-                lora_scale=lora_scale, keep=keep, sp_axis=sp_axis, sp_impl=sp_impl,
-                tp_axis=tp_axis)
+            with annotate("dit.block"):
+                return _block_apply(
+                    gather(block, ("blocks", i)), x, cfg=cfg, freqs_cis=freqs_cis,
+                    timestep=ada, cross_kv=kv, kv_mask=kv_mask,
+                    skip_layer_mask=None if skip_layer_mask is None else skip_layer_mask[i],
+                    skip_layer_strategy=skip_layer_strategy, attention_impl=attention_impl,
+                    rope_split=rope_split,
+                    lora=None if lb is None else gather(lb, ("lora", i)),
+                    lora_scale=lora_scale, keep=keep, sp_axis=sp_axis, sp_impl=sp_impl,
+                    tp_axis=tp_axis)
 
         if remat == "dots":
             keep = _KeptProducts()

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from avatar_tpu_torch.ops import int8_matmul
+from avatar_tpu_torch.utils.profiling import annotate
 
 
 def _uniform(shape, bound, gen, device, dtype):
@@ -101,17 +102,19 @@ def linear(params: dict, x) -> torch.Tensor:
             out2d = int8_matmul.w8a8_matmul(x_q, x_s, w_q, params["scale"], bias=bias,
                                             out_dtype=x.dtype)
             return out2d.reshape(*x.shape[:-1], out2d.shape[-1])
-        x_s = torch.clamp_min(
-            int8_matmul.div127(x.abs().amax(dim=-1, keepdim=True).float()), 1e-30)
-        x_q = torch.clamp(torch.round(x.float() * (1.0 / x_s)), -127, 127).to(torch.int8)
-        acc = _int8_mm(x_q.reshape(m, k), w_q).reshape(*x.shape[:-1], w_q.shape[0])
-        out = (acc.float() * x_s * params["scale"].float()).to(x.dtype)
-        return out if bias is None else out + bias.to(out.dtype)
-    if "kernel_q" in params:
-        weight = params["kernel_q"].to(x.dtype) * params["scale"].to(x.dtype)[:, None]
-    else:
-        weight = params["weight"].to(x.dtype)
-    return F.linear(x, weight, None if bias is None else bias.to(x.dtype))
+        with annotate("int8.xla"):
+            x_s = torch.clamp_min(
+                int8_matmul.div127(x.abs().amax(dim=-1, keepdim=True).float()), 1e-30)
+            x_q = torch.clamp(torch.round(x.float() * (1.0 / x_s)), -127, 127).to(torch.int8)
+            acc = _int8_mm(x_q.reshape(m, k), w_q).reshape(*x.shape[:-1], w_q.shape[0])
+            out = (acc.float() * x_s * params["scale"].float()).to(x.dtype)
+            return out if bias is None else out + bias.to(out.dtype)
+    with annotate("gemm.bf16"):
+        if "kernel_q" in params:
+            weight = params["kernel_q"].to(x.dtype) * params["scale"].to(x.dtype)[:, None]
+        else:
+            weight = params["weight"].to(x.dtype)
+        return F.linear(x, weight, None if bias is None else bias.to(x.dtype))
 
 
 def group_norm(params: dict, x: torch.Tensor, num_groups: int, eps: float = 1e-6,

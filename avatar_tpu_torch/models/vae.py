@@ -44,6 +44,7 @@ from avatar_tpu_torch.ops.pixel_shuffle import (
     pixel_unshuffle_3d,
     unpatchify_pixels,
 )
+from avatar_tpu_torch.utils.profiling import annotate, annotated
 
 BlockSpec = Tuple[str, Dict[str, Any]]
 
@@ -470,8 +471,9 @@ def _apply_resnet(params, x, cfg, causal, timestep_embed=None, draw=None):
     if "conv_shortcut" in params:
         w = params["conv_shortcut"]["weight"].to(x.dtype)
         b = params["conv_shortcut"].get("bias")
-        shortcut = F.conv3d(shortcut, w[:, :, None, None, None],
-                            None if b is None else b.to(x.dtype))
+        with annotate("conv.cudnn"):
+            shortcut = F.conv3d(shortcut, w[:, :, None, None, None],
+                                None if b is None else b.to(x.dtype))
     return shortcut + h
 
 
@@ -543,17 +545,18 @@ def _encode_ncdhw(params, cfg, x):
     x = patchify_pixels(x, patch_size_hw=cfg.patch_size, patch_size_t=1)
     x = conv3d_params(params["conv_in"], x, **conv_kw)
     for block, (name, _) in zip(params["blocks"], cfg.encoder_blocks, strict=True):
-        if name == "res_x":
-            x = _apply_mid_block(block, x, cfg, causal=True)
-        elif name == "res_x_y":
-            x = _apply_resnet(block, x, cfg, causal=True)
-        elif name in _DOWN_STRIDE:
-            x = conv3d_params(block, x, stride=_DOWN_STRIDE[name], **conv_kw)
-        elif name in _RES_DOWN_STRIDE:
-            x = _apply_space_to_depth_down(block, x, _RES_DOWN_STRIDE[name], cfg,
-                                           causal=True)
-        else:
-            raise ValueError(name)
+        with annotate("vae.block"):
+            if name == "res_x":
+                x = _apply_mid_block(block, x, cfg, causal=True)
+            elif name == "res_x_y":
+                x = _apply_resnet(block, x, cfg, causal=True)
+            elif name in _DOWN_STRIDE:
+                x = conv3d_params(block, x, stride=_DOWN_STRIDE[name], **conv_kw)
+            elif name in _RES_DOWN_STRIDE:
+                x = _apply_space_to_depth_down(block, x, _RES_DOWN_STRIDE[name], cfg,
+                                               causal=True)
+            else:
+                raise ValueError(name)
     x = F.silu(_apply_norm(params["conv_norm_out"], x, cfg))
     x = conv3d_params(params["conv_out"], x, **conv_kw)
     if cfg.latent_log_var == "uniform":
@@ -582,6 +585,7 @@ class _Replay:
         self.i = 0
 
 
+@annotated("vae.block")
 def _decoder_block(block, name, bparams, x, cfg, scaled_t, draw):
     causal = cfg.causal_decoder
     if name in ("res_x", "attn_res_x"):
@@ -697,6 +701,7 @@ def un_normalize_latents(latents, params, cfg, per_channel=True):
     return latents / cfg.scaling_factor
 
 
+@annotated("vae.encode")
 def vae_encode(
     params: dict,
     cfg: VAEConfig,
@@ -730,6 +735,7 @@ def vae_encode(
     return normalize_latents(latents, params, cfg, per_channel_normalize)
 
 
+@annotated("vae.decode")
 def vae_decode(
     params: dict,
     cfg: VAEConfig,

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from avatar_tpu_torch.ops.flash_attention import flash_attention, supports
+from avatar_tpu_torch.utils.profiling import annotated
 
 
 def mask_to_bias(mask: torch.Tensor, num_dims: int) -> torch.Tensor:
@@ -27,6 +28,7 @@ def mask_to_bias(mask: torch.Tensor, num_dims: int) -> torch.Tensor:
     return bias
 
 
+@annotated("attn.sdpa")
 def xla_attention(
     q: torch.Tensor,
     k: torch.Tensor,

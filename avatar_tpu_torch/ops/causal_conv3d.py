@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from avatar_tpu_torch.ops.int8_matmul import _FLOATS, _I, _P, _check, _device, _stream, div127
 from avatar_tpu_torch.ops.kernel_build import load
+from avatar_tpu_torch.utils.profiling import annotate, annotated
 
 IntOr3 = Union[int, Tuple[int, int, int]]
 
@@ -113,6 +114,7 @@ def _spatial_pad(x: torch.Tensor, kh: int, kw: int, spatial_padding_mode: str):
     return x, (0, 0, 0)
 
 
+@annotated("conv.cudnn")
 def causal_conv3d(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -148,6 +150,7 @@ def conv3d_params(
     )
 
 
+@annotated("conv.cudnn")
 def conv3d_same(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -182,6 +185,7 @@ def add_channel_bias(out: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.T
     return out + bias.to(out.dtype).reshape((-1,) + (1,) * (out.ndim - 2))
 
 
+@annotated("conv.cudnn")
 def linear_nd(x: torch.Tensor, weight: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A 1x1x1 conv, the reference's ``linear_nd``: x [B, C_in, F, H, W],
@@ -274,9 +278,12 @@ def _int8_conv3d_plain(x, kernel_q8, kernel_scale, bias, stride, causal,
                        spatial_padding_mode):
     """Kernel L's plain version: the levels' exact sums, then the
     epilogue."""
-    s = act_scale(x)
-    acc = _int8_sums(_levels(x, s), kernel_q8, stride, causal, spatial_padding_mode)
-    return _dequant(acc, s, kernel_scale, bias, x.dtype)
+    with annotate("conv.L1"):
+        s = act_scale(x)
+        levels = _levels(x, s)
+    with annotate("conv.L2"):
+        acc = _int8_sums(levels, kernel_q8, stride, causal, spatial_padding_mode)
+        return _dequant(acc, s, kernel_scale, bias, x.dtype)
 
 
 @dataclass(frozen=True)
@@ -489,7 +496,10 @@ def int8_conv3d(
     if _device(x) == "cpu":
         return _int8_conv3d_plain(x, kernel_q8, kernel_scale, bias, stride, causal,
                                   spatial_padding_mode)
-    x = x.contiguous()
-    s = act_scale(x)
-    return conv_levels(quantize_levels(x, s), s, kernel_q8, kernel_scale, bias, x.dtype,
-                       stride, causal, spatial_padding_mode)
+    with annotate("conv.L1"):
+        x = x.contiguous()
+        s = act_scale(x)
+        levels = quantize_levels(x, s)
+    with annotate("conv.L2"):
+        return conv_levels(levels, s, kernel_q8, kernel_scale, bias, x.dtype, stride, causal,
+                           spatial_padding_mode)

@@ -80,6 +80,7 @@ import torch
 
 from avatar_tpu_torch.ops.kernel_build import load
 from avatar_tpu_torch.ops.rope import apply_rotary_emb_split
+from avatar_tpu_torch.utils.profiling import annotate, annotated
 
 BOUNDED_LOGIT_CLAMP = 80.0
 NEG_INF = -1e30
@@ -481,6 +482,7 @@ def _needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+@annotated("attn.A")
 def _rope_forward(q, k, v, cos_s, sin_s, heads, scale, bounded):
     if _wrapper_device(q) == "cpu":
         return _rope_attention_plain(q, k, v, cos_s, sin_s, heads, scale, bounded)
@@ -509,6 +511,7 @@ def _rope_forward(q, k, v, cos_s, sin_s, heads, scale, bounded):
     return out
 
 
+@annotated("attn.B")
 def _token_forward(q, k, v, kv_mask, heads, scale, bounded):
     if _wrapper_device(q) == "cpu":
         return _token_attention_plain(q, k, v, kv_mask, heads, scale, bounded)
@@ -727,6 +730,8 @@ def token_major_strides(b: int, length: int, c: int, heads: int) -> Tuple[int, i
 
 # the mode argument of flash_sm90_bf16
 SM90_MODES = {"bounded": 0, "online": 1, "single": 2}
+# the span of each forward kernel
+MODE_SPANS = {"bounded": "attn.C", "online": "attn.D", "single": "attn.E"}
 
 
 def _flash_sm90_call(q, k, v, kv_mask, out, lse, mode, scale):
@@ -759,43 +764,44 @@ def _flash_forward(q, k, v, kv_mask, scale: float, bounded: bool
     b, heads, lq, d = q.shape
     lk = k.shape[2]
     mode = flash_mode(lq, lk, bounded)
-    q, scale = fold_scale(q, scale)
-    if _wrapper_device(q) == "cpu":
-        return _flash_plain(q, k, v, kv_mask, scale, mode)
-    check_kernel_args("flash_attention", q.dtype, d, 512)
-    impl = forward_impl(mode, q.dtype, d)
-    if impl == "sm90":
-        # a layout the tensor maps cannot read is copied, as on the WMMA route
-        q, k, v = (t if _tma_strides(t) is not None else t.contiguous()
-                   for t in (q, k, v))
-    else:
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    for name, t, n in (("q", q, lq), ("k", k, lk), ("v", v, lk)):
-        _check_cuda(name, t, (b, heads, n, d), q.dtype, contiguous=impl == "wmma")
-    mask_ptr = None
-    if kv_mask is not None:
-        kv_mask = kv_mask.to(torch.float32).contiguous()
-        _check_cuda("kv_mask", kv_mask, (b, lk), torch.float32)
-        mask_ptr = kv_mask.data_ptr()
-    # empty_like keeps q's layout: a token-major view gets a token-major O
-    out = torch.empty_like(q)
-    lse = torch.empty((b, heads, lq), device=q.device, dtype=torch.float32)
-    name = f"flash_{mode}"
-    if impl == "sm90":
-        _flash_sm90_call(q, k, v, kv_mask, out, lse, mode, scale)
-    else:
-        suffix, defines = kernel_variant(q.dtype, d)
-        fn = _c_entry("flash_forward", f"{name}_{suffix}", 6, 5, bounded_flag=False,
-                      defines=defines)
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-            lse.data_ptr(), b, heads, lq, lk, d, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-        _raise_on(err, f"{name}_{suffix}")
-    launch_counts[name] += 1
-    launch_counts[f"{name}_{impl}"] += 1
-    return out, lse
+    with annotate(MODE_SPANS[mode]):
+        q, scale = fold_scale(q, scale)
+        if _wrapper_device(q) == "cpu":
+            return _flash_plain(q, k, v, kv_mask, scale, mode)
+        check_kernel_args("flash_attention", q.dtype, d, 512)
+        impl = forward_impl(mode, q.dtype, d)
+        if impl == "sm90":
+            # a layout the tensor maps cannot read is copied, as on the WMMA route
+            q, k, v = (t if _tma_strides(t) is not None else t.contiguous()
+                       for t in (q, k, v))
+        else:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        for name, t, n in (("q", q, lq), ("k", k, lk), ("v", v, lk)):
+            _check_cuda(name, t, (b, heads, n, d), q.dtype, contiguous=impl == "wmma")
+        mask_ptr = None
+        if kv_mask is not None:
+            kv_mask = kv_mask.to(torch.float32).contiguous()
+            _check_cuda("kv_mask", kv_mask, (b, lk), torch.float32)
+            mask_ptr = kv_mask.data_ptr()
+        # empty_like keeps q's layout: a token-major view gets a token-major O
+        out = torch.empty_like(q)
+        lse = torch.empty((b, heads, lq), device=q.device, dtype=torch.float32)
+        name = f"flash_{mode}"
+        if impl == "sm90":
+            _flash_sm90_call(q, k, v, kv_mask, out, lse, mode, scale)
+        else:
+            suffix, defines = kernel_variant(q.dtype, d)
+            fn = _c_entry("flash_forward", f"{name}_{suffix}", 6, 5, bounded_flag=False,
+                          defines=defines)
+            err = fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+                lse.data_ptr(), b, heads, lq, lk, d, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+            _raise_on(err, f"{name}_{suffix}")
+        launch_counts[name] += 1
+        launch_counts[f"{name}_{impl}"] += 1
+        return out, lse
 
 
 def _check_backward_inputs(q, k, v, g, lse, delta, kv_mask):
@@ -858,6 +864,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask, scale: float):
     return dq
 
 
+@annotated("attn.F")
 def _flash_backward(q, k, v, kv_mask, out, lse, g, scale: float):
     """(dq, dk, dv) of :func:`flash_attention` at the caller's q and scale:
     the two backward kernels on the card, their plain version on the CPU.
@@ -924,6 +931,7 @@ def _dense_entry(kernel: str, route: str, dtype: torch.dtype, d: int):
                           defines=defines)
 
 
+@annotated("attn.G")
 def _flash_dense_forward(q, k, v, bias3, scale: float):
     """(out, lse) of the dense-bias forward: kernel ``flash_dense_fwd_*`` on
     the card by the route :func:`dense_impl` names, its plain version on the
@@ -991,6 +999,7 @@ def flash_dense_bwd_db(q, k, v, g, lse, delta, bias3, scale: float):
     return db
 
 
+@annotated("attn.G")
 def _flash_dense_backward(q, k, v, bias3, out, lse, g, scale: float, with_db: bool):
     """(dq, dk, dv, dbias3 or None) of the dense-bias attention: the three
     backward kernels on the card (dBias only ``with_db``), their plain

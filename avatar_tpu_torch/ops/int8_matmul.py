@@ -51,6 +51,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from avatar_tpu_torch.ops.kernel_build import load
+from avatar_tpu_torch.utils.profiling import annotated
 
 W8A8_PALLAS_MIN_TOKENS = 4096
 ACTIVATIONS = {"gelu-approximate": 0, "gelu": 1, "geglu": 2}
@@ -257,6 +258,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLOATS = (torch.bfloat16, torch.float32)
 
 
+@annotated("int8.H")
 def w8a8_matmul(
     x_q: torch.Tensor,  # [M, K] int8
     x_s: torch.Tensor,  # [M, 1] f32 per-row activation scale
@@ -299,6 +301,7 @@ def w8a8_matmul(
     return out
 
 
+@annotated("int8.I")
 def quantize_rows_pallas(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-pass per-row quantization: x [M, K] (bf16 or f32) ->
     (q int8 [M, K], s f32 [M, 1]), multiplying by the reciprocal scale."""
@@ -316,6 +319,7 @@ def quantize_rows_pallas(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
+@annotated("int8.J")
 def fused_rms_mod_quant(
     x: torch.Tensor,  # [B, N, C]
     cvec: torch.Tensor,  # [B, 1, C] folded norm scale * (1 + ada scale)
@@ -351,6 +355,7 @@ def fused_rms_mod_quant(
     return PrequantRows(q, s, tuple(x.shape), x.dtype)
 
 
+@annotated("int8.K")
 def fused_act_quant(h: torch.Tensor, act: str = "gelu-approximate") -> PrequantRows:
     """h [B, N, C2] FF projection -> activation in f32 -> int8 rows:
     "gelu-approximate" (tanh), "gelu" (erf) or "geglu"

@@ -30,6 +30,7 @@ decoder's own noise injection, where a VAE has it, draws per rank).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -61,6 +62,7 @@ from avatar_tpu_torch.ops.rope import (
 )
 from avatar_tpu_torch.parallel.collectives import all_gather_plain, chunk_of
 from avatar_tpu_torch.parallel.mesh import map_with_path
+from avatar_tpu_torch.utils.profiling import annotate, recording
 from avatar_tpu_torch.utils.quantize import quantize_dit_params, quantize_vae_params
 
 OUTPUT_TYPES = ("latent", "np", "uint8", "yuv420")
@@ -559,22 +561,23 @@ class LTXVideoPipeline:
         g_dev = torch.as_tensor(guidance, device=self.device).to(dtype)
         sg_dev = torch.as_tensor(stg, device=self.device).to(dtype)
 
-        freqs = precompute_freqs_cis(
-            fractional_coords, dim=cfg.inner_dim,
-            theta=cfg.positional_embedding_theta,
-            max_pos=cfg.positional_embedding_max_pos, out_dtype=dtype,
-        )
-        if self.rope_split:
-            freqs = split_freqs(freqs)
-        cross_kv, _ = precompute_cross_attention_kv(params, cfg, prompt_embeds,
-                                                    dtype=dtype)
-        sigmas_ext = torch.cat([sigmas, sigmas.new_zeros(1)])
-        if cond_mask is None:
-            ada_table, emb_table = precompute_timestep_tables(
-                params, cfg, sigmas_ext, prompt_embeds.shape[0], dtype=dtype)
-        else:
-            cond_mask = cond_mask.to(self.device, torch.float32)
-            free_t = 1.0 - cond_mask
+        with annotate("dit.precompute"):
+            freqs = precompute_freqs_cis(
+                fractional_coords, dim=cfg.inner_dim,
+                theta=cfg.positional_embedding_theta,
+                max_pos=cfg.positional_embedding_max_pos, out_dtype=dtype,
+            )
+            if self.rope_split:
+                freqs = split_freqs(freqs)
+            cross_kv, _ = precompute_cross_attention_kv(params, cfg, prompt_embeds,
+                                                        dtype=dtype)
+            sigmas_ext = torch.cat([sigmas, sigmas.new_zeros(1)])
+            if cond_mask is None:
+                ada_table, emb_table = precompute_timestep_tables(
+                    params, cfg, sigmas_ext, prompt_embeds.shape[0], dtype=dtype)
+            else:
+                cond_mask = cond_mask.to(self.device, torch.float32)
+                free_t = 1.0 - cond_mask
         mask = prompt_mask.to(torch.float32).contiguous()
         ref_b, pose_b = _tile(ref_lat, num_conds), _tile(pose_lat, num_conds)
 
@@ -626,29 +629,32 @@ class LTXVideoPipeline:
                     f"{tuple(tokens.shape)} per step for image_cond_noise_scale > 0")
         latents = tokens
         for i in range(steps):
-            t = sigmas[i]
-            if noisy_cond:
-                if image_cond_noise is None:
+            with annotate("pipe.step"):
+                t = sigmas[i]
+                if noisy_cond:
+                    if image_cond_noise is None:
+                        noise = self._randn(latents.shape, generator)
+                    else:
+                        noise = image_cond_noise[i]
+                    noise_scale = (image_cond_noise_scale * t**2).to(dtype)
+                    latents = torch.where(pinned, tokens + noise_scale * noise.to(dtype),
+                                          latents)
+                pred = guided_velocity(latents, i, i)
+                t_tok = token_t(i)
+                if solver == "heun" and i + 1 < steps:
+                    # Euler predictor to the next level, then the trapezoidal
+                    # corrector; rf_step is linear in the velocity, so the Heun
+                    # update is rf_step on the averaged velocity
+                    with annotate("pipe.rf_step"):
+                        predicted = pin(rf_step(sigmas, pred, t_tok, latents), latents, t)
+                    pred = 0.5 * (pred + guided_velocity(predicted, i, i + 1))
+                noise = None if step_noise is None else step_noise[i]
+                if noise is None and stochastic and self._dp is not None:
                     noise = self._randn(latents.shape, generator)
-                else:
-                    noise = image_cond_noise[i]
-                noise_scale = (image_cond_noise_scale * t**2).to(dtype)
-                latents = torch.where(pinned, tokens + noise_scale * noise.to(dtype),
-                                      latents)
-            pred = guided_velocity(latents, i, i)
-            t_tok = token_t(i)
-            if solver == "heun" and i + 1 < steps:
-                # Euler predictor to the next level, then the trapezoidal
-                # corrector; rf_step is linear in the velocity, so the Heun
-                # update is rf_step on the averaged velocity
-                predicted = pin(rf_step(sigmas, pred, t_tok, latents), latents, t)
-                pred = 0.5 * (pred + guided_velocity(predicted, i, i + 1))
-            noise = None if step_noise is None else step_noise[i]
-            if noise is None and stochastic and self._dp is not None:
-                noise = self._randn(latents.shape, generator)
-            latents = pin(rf_step(
-                sigmas, pred, t_tok, latents, stochastic_sampling=stochastic,
-                generator=generator, noise=noise), latents, t)
+                with annotate("pipe.rf_step"):
+                    latents = pin(rf_step(
+                        sigmas, pred, t_tok, latents, stochastic_sampling=stochastic,
+                        generator=generator, noise=noise), latents, t)
         return latents
 
     def _velocity(self, params, latent_in, **kw) -> torch.Tensor:
@@ -676,33 +682,35 @@ class LTXVideoPipeline:
                        output_type: str = "np") -> torch.Tensor:
         """Decode-time noise and timestep conditioning, tone map, VAE decode
         and the output quantization."""
-        b = latents.shape[0]
-        dt = p.decode_timestep
-        dt = list(dt) if isinstance(dt, (list, tuple)) else [dt] * b
-        dns = p.decode_noise_scale
-        if dns is None:
-            dns = dt
-        elif not isinstance(dns, (list, tuple)):
-            dns = [dns] * b
-        timestep = None
-        if self.vae_cfg.timestep_conditioning:
-            if noise is None:
-                noise = self._randn(latents.shape, generator)
-            noise = noise.to(self.device, latents.dtype)
-            scale = torch.tensor(dns, dtype=torch.float32, device=self.device)
-            scale = scale.reshape(-1, 1, 1, 1, 1).to(latents.dtype)
-            latents = latents * (1 - scale) + noise * scale
-            timestep = torch.tensor(dt, dtype=torch.float32, device=self.device)
-        latents = tone_map_latents(latents, float(p.tone_map_compression_ratio))
-        images = vae_decode(self.vae_params, self.vae_cfg, latents,
-                            timestep=timestep,
-                            per_channel_normalize=p.vae_per_channel_normalize)
-        images = torch.clamp(images * 0.5 + 0.5, 0.0, 1.0)
-        if output_type == "uint8":
-            return (images * 255.0 + 0.5).to(torch.uint8)
-        if output_type == "yuv420":
-            return rgb_to_yuv420(images)
-        return images
+        with annotate("pipe.decode"):
+            b = latents.shape[0]
+            dt = p.decode_timestep
+            dt = list(dt) if isinstance(dt, (list, tuple)) else [dt] * b
+            dns = p.decode_noise_scale
+            if dns is None:
+                dns = dt
+            elif not isinstance(dns, (list, tuple)):
+                dns = [dns] * b
+            timestep = None
+            if self.vae_cfg.timestep_conditioning:
+                if noise is None:
+                    noise = self._randn(latents.shape, generator)
+                noise = noise.to(self.device, latents.dtype)
+                scale = torch.tensor(dns, dtype=torch.float32, device=self.device)
+                scale = scale.reshape(-1, 1, 1, 1, 1).to(latents.dtype)
+                latents = latents * (1 - scale) + noise * scale
+                timestep = torch.tensor(dt, dtype=torch.float32, device=self.device)
+            latents = tone_map_latents(latents, float(p.tone_map_compression_ratio))
+            images = vae_decode(self.vae_params, self.vae_cfg, latents,
+                                timestep=timestep,
+                                per_channel_normalize=p.vae_per_channel_normalize)
+        with annotate("pipe.output"):
+            images = torch.clamp(images * 0.5 + 0.5, 0.0, 1.0)
+            if output_type == "uint8":
+                return (images * 255.0 + 0.5).to(torch.uint8)
+            if output_type == "yuv420":
+                return rgb_to_yuv420(images)
+            return images
 
     # -- main entry ---------------------------------------------------------
 
@@ -743,9 +751,13 @@ class LTXVideoPipeline:
         start the walk from those latents noised to its first timestep,
         which ``skip_initial_inference_steps`` moves later; neither may come
         with the other. ``stage_times``, if given, receives the seconds of
-        the encode, denoise and decode stages (each ends in a device
-        synchronize). ``sample_seeds`` ([B] ints) seed each sample's
-        initial noise (see :meth:`prepare_latents`). Under ``dp_mesh`` each
+        the encode, denoise and decode stages (``encode_s``, ``denoise_s``,
+        ``decode_s``; each ends in a device synchronize), and the call runs
+        under ``utils/profiling.py:recording``, whose :meth:`Recording.flat`
+        keys it also receives: each span's host seconds, self seconds and
+        calls, and the kernel launches (the recording adds no synchronize;
+        it cannot open inside another). ``sample_seeds`` ([B] ints) seed
+        each sample's initial noise (see :meth:`prepare_latents`). Under ``dp_mesh`` each
         rank generates its rows of the batch (a multiple of the axis) and
         every rank returns the whole batch."""
         kw = dict(locals())
@@ -878,67 +890,76 @@ class LTXVideoPipeline:
         ref_lat = None if ref_latents is None else ref_latents.to(dev, dtype)
         pose_lat = None if pose_latents is None else pose_latents.to(dev, dtype)
         pcn = p.vae_per_channel_normalize
-        if ref_image is not None:
-            ref_lat = self._encode_rows(ref_image.to(dtype), generator, ref_noise, pcn)
-        if pose_frames is not None:
-            pose_lat = self._encode_rows(pose_frames.to(dtype), generator,
-                                         pose_noise, pcn)
-        if ref_lat is None or pose_lat is None:
-            # the avatar lerp needs both; with one, the JAX package encodes
-            # it and runs without the lerp, and so does the port
-            ref_lat = pose_lat = None
-        t0 = mark("encode_s", t0)
+        # with stage_times, the call's spans and launches go there too
+        spans = contextlib.nullcontext() if stage_times is None else recording()
+        with spans as rec:
+            with annotate("pipe.encode"):
+                if ref_image is not None:
+                    ref_lat = self._encode_rows(ref_image.to(dtype), generator, ref_noise, pcn)
+                if pose_frames is not None:
+                    pose_lat = self._encode_rows(pose_frames.to(dtype), generator,
+                                                 pose_noise, pcn)
+            if ref_lat is None or pose_lat is None:
+                # the avatar lerp needs both; with one, the JAX package encodes
+                # it and runs without the lerp, and so does the port
+                ref_lat = pose_lat = None
+            t0 = mark("encode_s", t0)
 
-        init = self.prepare_latents(
-            generator, latent_shape, dtype, init_noise, latents=latents,
-            media_items=media_items, timestep=float(timesteps[0]),
-            per_channel_normalize=pcn, media_noise=media_noise, sample_seeds=sample_seeds)
-        tokens, pixel_coords, cond_mask, num_cond_latents = self.prepare_conditioning(
-            conditioning_items, init, generator, pcn, item_noise, prefix_noise)
-        fractional = pixel_coords.float()
-        fractional[:, 0] *= 1.0 / p.frame_rate
+            with annotate("pipe.prepare"):
+                init = self.prepare_latents(
+                    generator, latent_shape, dtype, init_noise, latents=latents,
+                    media_items=media_items, timestep=float(timesteps[0]),
+                    per_channel_normalize=pcn, media_noise=media_noise,
+                    sample_seeds=sample_seeds)
+                tokens, pixel_coords, cond_mask, num_cond_latents = self.prepare_conditioning(
+                    conditioning_items, init, generator, pcn, item_noise, prefix_noise)
+                fractional = pixel_coords.float()
+                fractional[:, 0] *= 1.0 / p.frame_rate
 
-        skip_layer_mask = None
-        if do_stg and p.skip_block_list:
-            def skip_mask(block_list):
-                return create_skip_layer_mask(
-                    self.dit_cfg.num_layers, b, num_conds, num_conds - 1,
-                    block_list, device=dev)
+                skip_layer_mask = None
+                if do_stg and p.skip_block_list:
+                    def skip_mask(block_list):
+                        return create_skip_layer_mask(
+                            self.dit_cfg.num_layers, b, num_conds, num_conds - 1,
+                            block_list, device=dev)
 
-            sbl = p.skip_block_list
-            if isinstance(sbl[0], (list, tuple)):
-                # per-timestep block lists, mapped like the guidance scales
-                if not p.guidance_timesteps:
-                    raise ValueError(
-                        "per-timestep skip_block_list requires guidance_timesteps")
-                ident = torch.ones((self.dit_cfg.num_layers, b * num_conds),
-                                   dtype=torch.float32, device=dev)
-                masks = [skip_mask(sbl[m])
-                         for m in _guidance_mapping(timesteps, p.guidance_timesteps)]
-                skip_layer_mask = torch.stack(
-                    [ident if m is None else m for m in masks])
+                    sbl = p.skip_block_list
+                    if isinstance(sbl[0], (list, tuple)):
+                        # per-timestep block lists, mapped like the guidance scales
+                        if not p.guidance_timesteps:
+                            raise ValueError(
+                                "per-timestep skip_block_list requires guidance_timesteps")
+                        ident = torch.ones((self.dit_cfg.num_layers, b * num_conds),
+                                           dtype=torch.float32, device=dev)
+                        masks = [skip_mask(sbl[m])
+                                 for m in _guidance_mapping(timesteps, p.guidance_timesteps)]
+                        skip_layer_mask = torch.stack(
+                            [ident if m is None else m for m in masks])
+                    else:
+                        skip_layer_mask = skip_mask(sbl)
+
+                if step_noise is not None:
+                    step_noise = step_noise.to(dev, dtype)
+                if image_cond_noise is not None:
+                    image_cond_noise = image_cond_noise.to(dev, dtype)
+            final_tokens = self.denoise(
+                tokens, _tile(fractional, num_conds), prompt_embeds_b, prompt_mask_b,
+                sigmas, ref_lat, pose_lat, guidance=guidance, stg=stg, rescale=rescale,
+                cfg_star=p.cfg_star_rescale, skip_layer_mask=skip_layer_mask,
+                skip_layer_strategy=p.skip_layer_strategy, solver=p.solver,
+                stochastic=p.stochastic_sampling, generator=generator,
+                step_noise=step_noise, cond_mask=cond_mask,
+                image_cond_noise_scale=p.image_cond_noise_scale,
+                image_cond_noise=image_cond_noise)
+            # the sequence items' prefix tokens go first; they are not output
+            final_tokens = final_tokens[:, num_cond_latents:]
+            latents = unpatchify(final_tokens, lat_f, lat_h, lat_w, self.patch_size)
+            t0 = mark("denoise_s", t0)
+            if output_type == "latent":
+                out = latents
             else:
-                skip_layer_mask = skip_mask(sbl)
-
-        if step_noise is not None:
-            step_noise = step_noise.to(dev, dtype)
-        if image_cond_noise is not None:
-            image_cond_noise = image_cond_noise.to(dev, dtype)
-        final_tokens = self.denoise(
-            tokens, _tile(fractional, num_conds), prompt_embeds_b, prompt_mask_b,
-            sigmas, ref_lat, pose_lat, guidance=guidance, stg=stg, rescale=rescale,
-            cfg_star=p.cfg_star_rescale, skip_layer_mask=skip_layer_mask,
-            skip_layer_strategy=p.skip_layer_strategy, solver=p.solver,
-            stochastic=p.stochastic_sampling, generator=generator,
-            step_noise=step_noise, cond_mask=cond_mask,
-            image_cond_noise_scale=p.image_cond_noise_scale,
-            image_cond_noise=image_cond_noise)
-        # the sequence items' prefix tokens go first; they are not output
-        final_tokens = final_tokens[:, num_cond_latents:]
-        latents = unpatchify(final_tokens, lat_f, lat_h, lat_w, self.patch_size)
-        t0 = mark("denoise_s", t0)
-        if output_type == "latent":
-            return latents
-        out = self.decode_latents(latents, p, generator, decode_noise, output_type)
-        mark("decode_s", t0)
+                out = self.decode_latents(latents, p, generator, decode_noise, output_type)
+                mark("decode_s", t0)
+        if rec is not None:
+            stage_times.update(rec.flat())
         return out

@@ -1233,3 +1233,58 @@ def test_int8_conv3d_levels_match_plain_with_nonfinite_rows(gen, dtype, fhw):
                   int(dtype == torch.float32), torch.cuda.current_stream().cuda_stream) == 0
         torch.cuda.synchronize()
         assert torch.equal(levels, old)
+
+
+# the kernel launch counters of each op span of the render path
+SPAN_LAUNCHES = {"attn.A": ("rope_fused_attention",), "attn.B": ("fused_token_attention",),
+                 "attn.C": ("flash_bounded",), "attn.D": ("flash_online",),
+                 "attn.E": ("flash_single",), "int8.H": ("w8a8_matmul",),
+                 "int8.I": ("quantize_rows",), "int8.J": ("rms_mod_quant",),
+                 "int8.K": ("act_quant",), "conv.L1": ("int8_conv3d_quant",),
+                 "conv.L2": ("int8_conv3d", "int8_conv3d_sm90")}
+
+
+@pytest.mark.parametrize("w8a8", [False, True])
+def test_op_spans_count_the_kernel_launches(gen, monkeypatch, w8a8):
+    """A tiny render with ``stage_times``: each op span's calls equal the
+    launches of its kernels, and the output equals the untraced one's."""
+    from avatar_tpu_torch.models import dit as tdit
+    from avatar_tpu_torch.models import vae as tvae
+    from avatar_tpu_torch.pipelines.pipeline import GenerationParams, LTXVideoPipeline
+
+    dcfg = tdit.DiTConfig.from_dict({
+        "num_attention_heads": 2, "attention_head_dim": 64, "in_channels": 16,
+        "out_channels": 16, "num_layers": 2, "cross_attention_dim": 128, "caption_channels": 32,
+        "activation_fn": "gelu-approximate", "qk_norm": "rms_norm",
+        "standardization_norm": "rms_norm", "adaptive_norm": "single_scale_shift"})
+    vcfg = tvae.VAEConfig.from_dict({
+        "latent_channels": 16, "encoder_base_channels": 16,
+        "blocks": [["res_x", 1], ["compress_all", 1], ["res_x_y", 1], ["compress_all", 1],
+                   ["res_x", 1]],
+        "norm_layer": "pixel_norm", "patch_size": 2, "latent_log_var": "uniform",
+        "causal_decoder": False, "timestep_conditioning": True})
+    if w8a8:
+        monkeypatch.setattr(i8, "W8A8_PALLAS_MIN_TOKENS", 16)
+    q = "w8a8" if w8a8 else False
+    pipe = LTXVideoPipeline(dcfg, tdit.init_dit(dcfg, 1, dtype=torch.bfloat16), vcfg,
+                            tvae.init_vae(vcfg, 2, dtype=torch.bfloat16),
+                            quantize_weights=q, quantize_vae=q)
+    inputs = dict(prompt_embeds=torch.randn(1, 8, 32, generator=gen, device="cuda"),
+                  prompt_attention_mask=torch.ones(1, 8, device="cuda"),
+                  ref_image=torch.rand(1, 1, 32, 32, 3, generator=gen, device="cuda") * 2 - 1,
+                  pose_frames=torch.rand(1, 9, 32, 32, 3, generator=gen, device="cuda") * 2 - 1)
+    params = GenerationParams(height=32, width=32, num_frames=8, num_inference_steps=2,
+                              guidance_scale=1.0, stg_scale=0.0, decode_timestep=0.05,
+                              decode_noise_scale=0.025)
+
+    def call(**kw):
+        return pipe(params, torch.Generator(device="cuda").manual_seed(3),
+                    output_type="uint8", **inputs, **kw)
+
+    stages = {}
+    assert torch.equal(call(stage_times=stages), call())
+    for span, counters in SPAN_LAUNCHES.items():
+        launched = sum(stages.get(f"launches.{c}", 0) for c in counters)
+        assert stages.get(f"{span}.n", 0) == launched, span
+    assert stages["attn.A.n"] > 0 and (stages.get("int8.H.n", 0) > 0) == w8a8
+    assert (stages.get("conv.L2.n", 0) > 0) == w8a8
