@@ -12,9 +12,11 @@ The port runs the inference paths:
   interleaved layout;
 - :func:`_attention` routes as the JAX package does: self-attention
   through ``rope_fused_attention`` where that path takes the length, else
-  RoPE in plain code and then ``fused_token_attention`` or, for long or
-  unaligned lengths, head-major ``scaled_dot_product_attention`` (the
-  flash kernels); cross-attention likewise without RoPE;
+  RoPE in plain code (or, before the head-major kernels without a
+  gradient, kernel M: ``qk_norm_rope``) and then ``fused_token_attention``
+  or, for long or unaligned lengths, head-major
+  ``scaled_dot_product_attention`` (the flash kernels); cross-attention
+  likewise without RoPE;
 - STG through ``skip_layer_mask`` and a :class:`SkipLayerStrategy`;
 - blocks as a list or stacked on a leading layer axis
   (:func:`stack_block_params`, at home in ``parallel/pipeline.py``);
@@ -54,8 +56,11 @@ from avatar_tpu_torch.models.layers import (
 from avatar_tpu_torch.ops import int8_matmul
 from avatar_tpu_torch.ops.attention import scaled_dot_product_attention
 from avatar_tpu_torch.ops.flash_attention import (
+    _needs_grad,
     fused_supports,
     fused_token_attention,
+    qk_norm_rope,
+    qk_norm_rope_supports,
     rope_fused_attention,
     rope_fused_supports,
     split_to_head_major,
@@ -407,9 +412,13 @@ def _attention(
     plain code, then the token-major kernel where ``fused_supports`` holds
     (mask absent or [B, Lk]), else ``scaled_dot_product_attention`` over
     head-major tensors. ``attention_impl="xla"`` takes neither token-major
-    kernel. The JAX package additionally asks for a TPU backend before it
-    takes a kernel under "auto"; the port takes the same path on any
-    device. ``lora`` holds this attention's deltas ({"to_q": {"a", "b"},
+    kernel. Where split-half RoPE would run in plain code before the
+    head-major kernels under "auto" or "flash", with the RMS q/k norm,
+    without sequence or tensor parallelism and without a gradient, the q/k
+    norm, RoPE, the per-head layout and the power-of-two scale run as one
+    kernel (M, :func:`qk_norm_rope`) with the same bits. The JAX package
+    additionally asks for a TPU backend before it takes a kernel under
+    "auto"; the port takes the same path on any device. ``lora`` holds this attention's deltas ({"to_q": {"a", "b"},
     ...}); with ``cross_kv`` its to_k/to_v ones are already in k and v.
     ``keep``: remat "dots" (:class:`_KeptProducts`).
 
@@ -450,23 +459,37 @@ def _attention(
             return _row_parallel(params["to_out"], out, tp_axis)
         return proj(params["to_out"], out, name="to_out")
 
-    q = _qk_norm(params.get("q_norm"), proj(params["to_q"], x, name="to_q", perm=qk_perm),
-                 cfg, tp_axis)
+    q = proj(params["to_q"], x, name="to_q", perm=qk_perm)
     if is_cross:
+        q = _qk_norm(params.get("q_norm"), q, cfg, tp_axis)
         k, v = cross_kv
     else:
-        k = _qk_norm(params.get("k_norm"),
-                     proj(params["to_k"], x, name="to_k", perm=qk_perm), cfg, tp_axis)
+        k = proj(params["to_k"], x, name="to_k", perm=qk_perm)
         v = proj(params["to_v"], x, name="to_v")
-        if (use_split_rope and kv_mask is None and kernels and sp_axis is None
-                and rope_fused_supports(q.shape[1], heads, hd, q.dtype)):
-            return mixed(rope_fused_attention(
-                q, k, v, freqs_cis[0], freqs_cis[1], heads, scale, bounded))
-        if freqs_cis is not None:
-            rope = apply_rotary_emb_split if use_split_rope else apply_rotary_emb
-            q, k = rope(q, freqs_cis), rope(k, freqs_cis)
-    if use_split_rope:
-        q, k = split_to_head_major(q, heads), split_to_head_major(k, heads)
+        # kernel M where the chain below would run RoPE before a head-major
+        # kernel, with the bounded RMS q/k norm and no gradient
+        m_route = (use_split_rope and kernels and sp_axis is None and tp_axis is None
+                   and cfg.qk_norm == "rms_norm" and bounded
+                   and not rope_fused_supports(q.shape[1], heads, hd, q.dtype)
+                   and qk_norm_rope_supports(heads * hd, heads, q.dtype)
+                   and not _needs_grad(q, k, params["q_norm"]["scale"],
+                                       params["k_norm"]["scale"]))
+        if m_route:
+            q, k, scale = qk_norm_rope(q, k, params["q_norm"]["scale"],
+                                       params["k_norm"]["scale"], freqs_cis[0],
+                                       freqs_cis[1], heads, scale)
+        else:
+            q = _qk_norm(params.get("q_norm"), q, cfg, tp_axis)
+            k = _qk_norm(params.get("k_norm"), k, cfg, tp_axis)
+            if (use_split_rope and kv_mask is None and kernels and sp_axis is None
+                    and rope_fused_supports(q.shape[1], heads, hd, q.dtype)):
+                return mixed(rope_fused_attention(
+                    q, k, v, freqs_cis[0], freqs_cis[1], heads, scale, bounded))
+            if freqs_cis is not None:
+                rope = apply_rotary_emb_split if use_split_rope else apply_rotary_emb
+                q, k = rope(q, freqs_cis), rope(k, freqs_cis)
+            if use_split_rope:
+                q, k = split_to_head_major(q, heads), split_to_head_major(k, heads)
 
     def split(t):
         return t.reshape(b, -1, heads, hd).transpose(1, 2)
@@ -497,7 +520,7 @@ def _attention(
         return mixed(fused_token_attention(q, k, v, kv_mask, heads, scale, bounded))
 
     out = scaled_dot_product_attention(
-        split(q), split(k), split(v), mask=kv_mask, impl=attention_impl,
+        split(q), split(k), split(v), mask=kv_mask, scale=scale, impl=attention_impl,
         bounded_logits=bounded)
     return mixed(merged(out))
 

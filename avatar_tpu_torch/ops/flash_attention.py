@@ -10,6 +10,11 @@ Token-major, [B, L, heads*head_dim]:
   keep-mask (``csrc/token_attention_sm90.cu`` and
   ``csrc/token_attention.cu``, replacing ``_token_major_kernel``).
 
+- :func:`qk_norm_rope`: the q/k prologue of self-attention where RoPE runs
+  before a head-major kernel: q/k RMS norm, split-half RoPE, the per-head
+  layout and the power-of-two softmax scale folded into q, in one pass
+  (kernel M, ``csrc/qk_norm_rope.cu``; it replaces no TPU kernel).
+
 Head-major, [B, H, L, head_dim]:
 
 - :func:`flash_attention`: the three kernels of ``_flash_forward``
@@ -79,6 +84,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from avatar_tpu_torch.ops.kernel_build import load
+from avatar_tpu_torch.ops.normalization import rms_norm
 from avatar_tpu_torch.ops.rope import apply_rotary_emb_split
 from avatar_tpu_torch.utils.profiling import annotate, annotated
 
@@ -93,6 +99,10 @@ DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # the reference's largest single block: up to this length (after rounding
 # up to 128) for both q and kv, _flash_forward takes the whole-row kernel
 SINGLE_BLOCK_MAX = 1024
+# the DiT's q/k norm eps (its block norms take cfg.norm_eps)
+QK_NORM_EPS = 1e-5
+# groups of 16 bytes of a half row that a lane of kernel M holds at most
+QK_NORM_ROPE_MAX_GROUPS = 8
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # rope_fused_attention (A), fused_token_attention (B), flash_bounded /
@@ -115,7 +125,7 @@ launch_counts: Dict[str, int] = {
     "flash_dense_fwd_sm90": 0, "flash_dense_bwd_dkv_sm90": 0, "flash_dense_bwd_dq_sm90": 0,
     "flash_dense_bwd_db_sm90": 0,
     "flash_dense_fwd_wmma": 0, "flash_dense_bwd_dkv_wmma": 0, "flash_dense_bwd_dq_wmma": 0,
-    "flash_dense_bwd_db_wmma": 0,
+    "flash_dense_bwd_db_wmma": 0, "qk_norm_rope": 0,
 }
 
 
@@ -197,6 +207,18 @@ def rope_fused_supports(lq: int, heads: int, head_dim: int, dtype) -> bool:
     )
 
 
+def qk_norm_rope_supports(c: int, heads: int, dtype) -> bool:
+    """Whether kernel M (:func:`qk_norm_rope`) takes a width ``c`` over
+    ``heads``: bf16 or f32, a head dim that holds whole 16-byte groups in
+    each half (a multiple of 16 in bf16, of 8 in f32) and a half row of at
+    most ``QK_NORM_ROPE_MAX_GROUPS`` groups a lane of a warp (bf16 up to
+    4096 wide, f32 up to 2048)."""
+    if dtype not in DTYPE_NAMES or c % heads:
+        return False
+    vec = 16 // dtype.itemsize  # values in 16 bytes
+    return (c // heads) % (2 * vec) == 0 and c // 2 <= 32 * QK_NORM_ROPE_MAX_GROUPS * vec
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -238,6 +260,20 @@ def _rope_attention_plain(q, k, v, cos_s, sin_s, heads, scale, bounded):
     qr = split_to_head_major(apply_rotary_emb_split(q, (cos_s, sin_s)), heads)
     kr = split_to_head_major(apply_rotary_emb_split(k, (cos_s, sin_s)), heads)
     return _token_attention_plain(qr, kr, v, None, heads, scale, bounded)
+
+
+def _qk_norm_rope_plain(q, k, q_weight, k_weight, cos_s, sin_s, heads, q_scale):
+    """Plain version of kernel M: the chain it replaces, op for op, for q
+    and k: ``rms_norm`` (eps 1e-5, the DiT's q/k norm), the split-half
+    RoPE in f32 rounded once, the per-head [x1_h | x2_h] order, and for q
+    the multiply by ``q_scale`` (a power of two, exact; 1 leaves q)."""
+
+    def prologue(t, w):
+        t = rms_norm(t, w, eps=QK_NORM_EPS)
+        return split_to_head_major(apply_rotary_emb_split(t, (cos_s, sin_s)), heads)
+
+    q = prologue(q, q_weight)
+    return (q * q_scale if q_scale != 1.0 else q), prologue(k, k_weight)
 
 
 def _flash_plain(q, k, v, kv_mask, scale, mode):
@@ -553,6 +589,59 @@ def _token_forward(q, k, v, kv_mask, heads, scale, bounded):
     return out
 
 
+@annotated("attn.M")
+def qk_norm_rope(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    q_weight: torch.Tensor,
+    k_weight: torch.Tensor,
+    cos_s: torch.Tensor,
+    sin_s: torch.Tensor,
+    heads: int,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """Self-attention's q/k prologue where RoPE runs before a head-major
+    kernel (kernel M, ``csrc/qk_norm_rope.cu``): q and k [B, L, C] in the
+    global split-half order, their RMS norms' scales [C], the split tables
+    cos_s / sin_s [B or 1, L, C/2]. Returns (q', k', the scale left for the
+    attention): q' and k' [B, L, C] normed, rotated and in the per-head
+    [x1_h | x2_h] order of :func:`split_to_head_major`, whose head-major
+    views the Hopper C reads in place; a power-of-two ``scale`` is folded
+    into q' as :func:`fold_scale` folds it (then 1.0 is left), any other
+    stays. The same bits as that chain, up to the order of the sums of
+    squares. No gradient: the caller takes the chain where one is needed."""
+    folded = _folds(scale)
+    q_scale, left = (scale, 1.0) if folded else (1.0, scale)
+    if _wrapper_device(q) == "cpu":
+        return (*_qk_norm_rope_plain(q, k, q_weight, k_weight, cos_s, sin_s, heads, q_scale),
+                left)
+    b, l, c = q.shape
+    if not qk_norm_rope_supports(c, heads, q.dtype):
+        raise ValueError(f"qk_norm_rope: width {c} over {heads} heads in {q.dtype} "
+                         "is not one kernel M takes")
+    q_weight, k_weight = q_weight.to(q.dtype), k_weight.to(q.dtype)
+    for name, t in (("q", q), ("k", k)):
+        _check_cuda(name, t, (b, l, c), q.dtype)
+    for name, t in (("q_weight", q_weight), ("k_weight", k_weight)):
+        _check_cuda(name, t, (c,), q.dtype)
+    for name, t in (("cos", cos_s), ("sin", sin_s)):
+        _check_cuda(name, t, (cos_s.shape[0] if cos_s.shape[0] == 1 else b, l, c // 2),
+                    q.dtype)
+    q_out, k_out = torch.empty_like(q), torch.empty_like(k)
+    fn = getattr(load("qk_norm_rope"), "qk_norm_rope")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), q_weight.data_ptr(), k_weight.data_ptr(),
+             cos_s.data_ptr(), sin_s.data_ptr(), q_out.data_ptr(), k_out.data_ptr(),
+             b * l, cos_s.shape[0] * l, c, heads, QK_NORM_EPS, q_scale,
+             int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "qk_norm_rope")
+    launch_counts["qk_norm_rope"] += 1
+    return q_out, k_out, left
+
+
 def _fused_recompute_fn(q_shape, heads, kv_mask, scale, k_len=None):
     """The function of (q, k, v) token-major that the token-major entries'
     backward differentiates (``_fused_recompute_fn`` of the JAX package):
@@ -690,9 +779,15 @@ def fold_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
     exponent shift; head_dim 64 gives 0.125), so the logits and the saved
     lse are the same bits either way. Any other scale stays, to multiply
     the f32 logits (folding it would round q)."""
-    if scale > 0.0 and math.frexp(scale)[0] == 0.5 and scale != 1.0:
+    if _folds(scale):
         return q * scale, 1.0
     return q, scale
+
+
+def _folds(scale: float) -> bool:
+    """Whether :func:`fold_scale` folds ``scale`` into q: a power of two
+    other than 1."""
+    return scale > 0.0 and math.frexp(scale)[0] == 0.5 and scale != 1.0
 
 
 def _tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:

@@ -30,7 +30,7 @@ KERNEL_SOURCES = (
     "rope_attention", "rope_attention_sm90", "token_attention", "token_attention_sm90",
     "flash_forward", "flash_forward_sm90", "flash_backward", "flash_backward_sm90",
     "flash_dense", "flash_dense_sm90", "int8_matmul", "int8_matmul_sm90", "row_quant",
-    "int8_conv3d", "int8_conv3d_sm90",
+    "int8_conv3d", "int8_conv3d_sm90", "qk_norm_rope",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -56,7 +56,10 @@ Phases, each printing one JSON line as soon as it has its numbers:
    shape with a per-head position-and-padding bias and at 5376 tokens with
    one shared bias, a band of masked keys and a fully masked row, beside
    the WMMA kernels on the same inputs, and at Lk = 254 on the WMMA route;
-   then each one's time, the plain version's, one PyTorch library call's
+   kernel M (``kernel_m``: the q/k norm, RoPE, per-head layout and scale
+   of ``_attention`` at 5376 and 2 x 1536 tokens, bf16 and f32, within one
+   bf16 ulp of its plain version, timed beside the plain chain it
+   replaces and its byte bound); then each one's time, the plain version's, one PyTorch library call's
    where there is one (a yardstick the port never calls) and the card's
    lower bound for the same work; then autograd through the three
    attention entries on the card against their plain versions in f32
@@ -2011,6 +2014,130 @@ def check_row_quant_kernels(peaks):
     return rows
 
 
+QK_NORM_ROPE_SOURCE = "avatar_tpu_torch/csrc/qk_norm_rope.cu"
+# Kernel M against its plain version: the sums of squares are taken in
+# another order, which moves a row's f32 rsqrt by an ulp now and then; in
+# bf16 that reaches an output only where the normed value m crosses a
+# rounding boundary, and then moves m by one bf16 ulp. The rotation carries
+# that to both outputs of m's pair whatever their own size (m1 cos - m2 sin
+# may cancel), so each element is held to its pair's norm |(o1, o2)| =
+# |(m1, m2)|: within QK_PAIR_ULPS bf16 ulps of it (one of m, times |cos| or
+# |sin| <= 1, and the outputs' own roundings, half an ulp each), and in bf16
+# at least QK_EQUAL_SHARE of the elements equal. In f32 every element of
+# such a row moves in its last bits, so there the share is reported, not
+# held.
+QK_PAIR_ULPS = 2.0
+QK_EQUAL_SHARE = 0.999
+
+
+def pair_ulps(out, ref, heads):
+    """|out - ref| of kernel M's outputs [B, L, C] (per-head [x1_h | x2_h])
+    in bf16 ulps of each element's rotated pair's norm (2^(e - 8) for a
+    norm m 2^e, m in [0.5, 1)), elementwise, f32."""
+    import torch
+
+    b, length, c = ref.shape
+    r = ref.float().reshape(b, length, heads, 2, c // heads // 2)
+    norm = r.norm(dim=3, keepdim=True).expand_as(r).reshape(b, length, c)
+    ulp = torch.ldexp(torch.ones_like(norm), torch.frexp(norm).exponent - 8)
+    return (out.float() - ref.float()).abs() / ulp.clamp_min(2.0**-133)
+
+
+def check_qk_norm_rope_kernel(peaks):
+    """Kernel M against its plain version (the chain of ``_attention``) at
+    the long path's [1, 5376, 2048] (32 heads of 64) and the multi-scale
+    second pass's batch 2 x 1536 at 16 heads of 128 (tables of batch 2 in
+    bf16, of batch 1 in f32), bf16 and f32, with the long path's softmax
+    scale folded into q: every element within QK_PAIR_ULPS of its pair's
+    norm, in bf16 at least QK_EQUAL_SHARE equal; one launch a call; a width
+    M does not take raises. Then at [1, 5376, 2048] bf16: M's device time against its byte
+    bound (q, k and the two tables read once, q' and k' written once), and
+    the plain chain's device time, events time and kernels on the same
+    inputs as the yardstick (no single library call computes it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def case(b, length, heads, dtype, table_batch):
+        def randn(*shape, scale=1.0, offset=0.0):
+            return (torch.randn(shape, generator=g, device="cuda") * scale
+                    + offset).to(dtype)
+
+        ang = torch.rand(table_batch, length, WIDTH // 2, generator=g, device="cuda") * 6.3
+        return (randn(b, length, WIDTH, scale=3.0), randn(b, length, WIDTH, scale=3.0),
+                randn(WIDTH, scale=0.2, offset=1.0), randn(WIDTH, scale=0.2, offset=1.0),
+                ang.cos().to(dtype), ang.sin().to(dtype), heads)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {f"1x{LONG_TOKENS}x{WIDTH} 32x64 bf16": case(1, LONG_TOKENS, 32, bf16, 1),
+             f"1x{LONG_TOKENS}x{WIDTH} 32x64 f32": case(1, LONG_TOKENS, 32, f32, 1),
+             f"2x1536x{WIDTH} 16x128 bf16": case(2, 1536, 16, bf16, 2),
+             f"2x1536x{WIDTH} 16x128 f32": case(2, 1536, 16, f32, 1)}
+    results = {}
+    for label, args in cases.items():
+        scale = (WIDTH // args[-1]) ** -0.5
+        before = fa.launch_counts["qk_norm_rope"]
+        q_out, k_out, left = fa.qk_norm_rope(*args, scale)
+        torch.cuda.synchronize()
+        if fa.launch_counts["qk_norm_rope"] != before + 1:
+            fail(f"qk_norm_rope {label}: not one launch")
+        folded = scale if left == 1.0 else 1.0
+        ref_q, ref_k = fa._qk_norm_rope_plain(*args, folded)
+        res = {}
+        for name, out, ref in (("q", q_out, ref_q), ("k", k_out, ref_k)):
+            ulps = pair_ulps(out, ref, args[-1])
+            res[name] = {"max_pair_ulps": ulps.max().item(),
+                         "equal_share": (out == ref).float().mean().item()}
+            if not res[name]["max_pair_ulps"] <= QK_PAIR_ULPS:
+                fail(f"qk_norm_rope {label} {name}: {res[name]}")
+            if args[0].dtype == bf16 and res[name]["equal_share"] < QK_EQUAL_SHARE:
+                fail(f"qk_norm_rope {label} {name}: {res[name]}")
+        results[label] = res
+        del q_out, k_out, ref_q, ref_k
+    bad = case(1, 16, 3, bf16, 1)  # 2048 over 3 heads: not a width M takes
+    try:
+        fa.qk_norm_rope(*bad[:-1], 3, 1.0)
+        fail("qk_norm_rope: a width it does not take did not raise")
+    except ValueError:
+        pass
+    args = cases[f"1x{LONG_TOKENS}x{WIDTH} 32x64 bf16"]
+    scale = HEAD_DIM**-0.5
+
+    def kernel():
+        return fa.qk_norm_rope(*args, scale)
+
+    def chain():
+        return fa._qk_norm_rope_plain(*args, scale)
+
+    nbytes = (4 * LONG_TOKENS * WIDTH + 2 * LONG_TOKENS * WIDTH // 2 + 2 * WIDTH) * 2
+    bound_ms, bound_by = bound(0.0, nbytes, peaks)
+    ms = device_ms(kernel, "qk_norm_rope_kernel")
+    chain_ms = device_ms(chain)
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chain()
+        torch.cuda.synchronize()
+    chain_kernels = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA)
+    row = {"name": "qk_norm_rope", "route": "cuda", "source": QK_NORM_ROPE_SOURCE,
+           "replaces": "none: models/dit.py:_attention's eager q/k norm, RoPE, "
+                       "head-major copy and fold_scale",
+           "max_abs_err": max(r[n]["max_pair_ulps"] for r in results.values() for n in "qk"),
+           "err_unit": "bf16 ulps of the pair's norm",
+           "tol": f"{QK_PAIR_ULPS} ulps, bf16 >= {QK_EQUAL_SHARE} equal",
+           "ms": ms, "plain_ms": chain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    emit({"phase": "kernel_m", "cases": results, "ms": ms, "events_ms": time_ms(kernel),
+          "bound_us": bound_ms * 1e3, "bound_by": bound_by, "bytes": nbytes,
+          "fraction_of_bound": bound_ms / ms, "chain_ms": chain_ms,
+          "chain_events_ms": time_ms(chain, reps=5, batches=3),
+          "chain_kernels_per_call": chain_kernels, "shape": [1, LONG_TOKENS, WIDTH]})
+    return row
+
+
 def _tree_to(tree, device, dtype):
     import torch
 
@@ -2335,6 +2462,7 @@ def check_reference_w8a8():
             "rms_mod_quant": 2 * per_video, "rms_mod_quant_sm90": 2 * per_video,
             "act_quant": per_video, "act_quant_sm90": per_video,
             "flash_bounded": per_video, "flash_bounded_sm90": per_video,
+            "qk_norm_rope": per_video,
             "fused_token_attention": per_video, "fused_token_attention_sm90": per_video}),
         "short_route": (_tiny_models(), 64, 25, "w8a8", True, token_major),
         "w8": (_tiny_models(heads=8), 64, 25, "w8", True, token_major),
@@ -4587,7 +4715,21 @@ def dit_route_counts(tokens: int, caption: int, calls: int) -> dict:
     for name, impl in dit_routes(tokens, caption):
         for key in (name, f"{name}_{impl}"):
             counts[key] = counts.get(key, 0) + calls
+    if dit_takes_m(tokens):
+        counts["qk_norm_rope"] = calls
     return counts
+
+
+def dit_takes_m(tokens: int) -> bool:
+    """Whether the 2B DiT's self-attention at ``tokens`` runs its q/k
+    prologue on kernel M: where A's predicate refuses (``_attention``'s
+    route, bf16 with the RMS q/k norm and no gradient)."""
+    import torch
+
+    from avatar_tpu_torch.ops import flash_attention as fa
+
+    return (not fa.rope_fused_supports(tokens, HEADS, HEAD_DIM, torch.bfloat16)
+            and fa.qk_norm_rope_supports(WIDTH, HEADS, torch.bfloat16))
 
 
 def _merge_counts(*counts) -> dict:
@@ -6312,6 +6454,7 @@ def main() -> int:
         check_flash_kernel(mode, peaks) for mode in FLASH_KERNELS] + check_flash_backward(
         peaks) + [check_w8a8_kernel(peaks)]
     rows += check_row_quant_kernels(peaks) + check_flash_dense(peaks)
+    rows.append(check_qk_norm_rope_kernel(peaks))
     conv_rows, conv_launches, decode_launches = check_int8_conv3d(peaks)
     rows += conv_rows
     check_attention_gradients()
@@ -6352,7 +6495,8 @@ def main() -> int:
     # the long path's self-attention: every launch on the Hopper kernel,
     # none on the WMMA one (run_pipeline holds every other counter to 0)
     long_attention = {"flash_bounded": every, "flash_bounded_sm90": every,
-                      "fused_token_attention": every, "fused_token_attention_sm90": every}
+                      "fused_token_attention": every, "fused_token_attention_sm90": every,
+                      "qk_norm_rope": every}
     by_path["pipeline_long"], long_s, long_latents = run_pipeline(
         pipe, "pipeline_long", 512, 161, plain, long_attention, 3)
     by_path["pipeline_guided"], guided_s, _ = run_pipeline(

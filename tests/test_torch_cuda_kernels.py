@@ -1235,10 +1235,109 @@ def test_int8_conv3d_levels_match_plain_with_nonfinite_rows(gen, dtype, fhw):
         assert torch.equal(levels, old)
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp at each |x| (2^(e - 8) for x = m 2^e, m in [0.5, 1))."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8).clamp_min(2.0**-133)
+
+
+def _pair_ulps(out, ref, heads):
+    """|out - ref| of kernel M's outputs in bf16 ulps of each element's
+    rotated pair's norm (``chip_smoke.pair_ulps``)."""
+    b, length, c = ref.shape
+    r = ref.float().reshape(b, length, heads, 2, c // heads // 2)
+    norm = r.norm(dim=3, keepdim=True).expand_as(r).reshape(b, length, c)
+    return (out.float() - ref.float()).abs() / _bf16_ulp(norm)
+
+
+def _qk_case(gen, b, length, heads, dtype, table_batch, width=2048):
+    def randn(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + offset).to(dtype)
+
+    ang = torch.rand(table_batch, length, width // 2, generator=gen, device="cuda") * 6.3
+    return (randn(b, length, width, scale=3.0), randn(b, length, width, scale=3.0),
+            randn(width, scale=0.2, offset=1.0), randn(width, scale=0.2, offset=1.0),
+            ang.cos().to(dtype), ang.sin().to(dtype), heads)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,length,heads,table_batch", [(1, 5376, 32, 1), (2, 1536, 16, 2)])
+def test_qk_norm_rope_kernel_matches_plain(gen, dtype, b, length, heads, table_batch):
+    """Kernel M against its plain version (the chain of ``_attention``), at
+    the long path's 32 x 64 heads and at 16 x 128 heads, the softmax scale
+    folded where it is a power of two: every element within two bf16 ulps
+    of its rotated pair's norm, in bf16 at least 99.9% equal. The sums of
+    squares run in another order and move a row's f32 rsqrt by an ulp now
+    and then; in bf16 that moves a normed value by one ulp where it crosses
+    a rounding boundary, which the rotation carries to both outputs of its
+    pair, however small (``chip_smoke.QK_PAIR_ULPS``); in f32 it moves
+    every element of the row, so there the share is only reported."""
+    args = _qk_case(gen, b, length, heads, dtype, table_batch)
+    scale = (2048 // heads) ** -0.5
+    before = fa.launch_counts["qk_norm_rope"]
+    q, k, left = fa.qk_norm_rope(*args, scale)
+    assert fa.launch_counts["qk_norm_rope"] == before + 1
+    assert left == (1.0 if heads == 32 else scale)
+    refs = fa._qk_norm_rope_plain(*args, scale if left == 1.0 else 1.0)
+    for name, out, ref in (("q", q, refs[0]), ("k", k, refs[1])):
+        share = (out == ref).float().mean().item()
+        print(f"qk_norm_rope {dtype} {b}x{length} {name}: {share:.6f} equal")
+        assert _pair_ulps(out, ref, heads).max().item() <= 2.0, name
+        if dtype == torch.bfloat16:
+            assert share >= 0.999, (name, share)
+
+
+def test_qk_norm_rope_refuses_what_it_cannot_run(gen):
+    """A width over heads that M does not take, and tables of another
+    length, raise."""
+    args = _qk_case(gen, 1, 16, 3, torch.bfloat16, 1)
+    with pytest.raises(ValueError):
+        fa.qk_norm_rope(*args, 1.0)
+    q, k, wq, wk, cos, sin, _ = _qk_case(gen, 1, 16, 32, torch.bfloat16, 1)
+    with pytest.raises(ValueError):
+        fa.qk_norm_rope(q, k, wq, wk, cos[:, :8], sin[:, :8], 32, 1.0)
+
+
+def test_attention_through_m_matches_the_chain_through_c(gen, monkeypatch):
+    """``_attention``'s self-attention at 1536 tokens of the 2B DiT's 32 x 64
+    heads (to_out the identity, so the output is C's) through kernel M
+    against the same call on the chain (q/k norm, RoPE, head-major copies,
+    ``fold_scale``), both through C: within one bf16 ulp of the largest
+    output. Where M's k lands one ulp off the chain's, every query of that
+    head moves a little, so the share of equal outputs is reported, not
+    held."""
+    from avatar_tpu_torch.models import dit as tdit
+    from avatar_tpu_torch.ops import rope as trope
+
+    cfg = tdit.DiTConfig(num_attention_heads=32, attention_head_dim=64, num_layers=1)
+    p = tdit.permute_dit_params_for_split_rope(
+        tdit.init_dit(cfg, 5, device="cuda", dtype=torch.bfloat16), cfg)
+    attn1 = dict(p["blocks"][0]["attn1"])
+    attn1["to_out"] = {"weight": torch.eye(2048, device="cuda", dtype=torch.bfloat16)}
+    for norm in ("q_norm", "k_norm"):
+        attn1[norm] = {"scale": (1.0 + 0.2 * torch.randn(2048, generator=gen, device="cuda")
+                                 ).bfloat16()}
+    coords = trope.get_latent_coords(6, 16, 16, batch_size=1, device="cuda")
+    freqs = trope.split_freqs(trope.precompute_freqs_cis(coords, dim=2048,
+                                                        out_dtype=torch.bfloat16))
+    x = torch.randn(1, 1536, 2048, generator=gen, device="cuda").bfloat16()
+    counts = dict(fa.launch_counts)
+    out = tdit._attention(attn1, x, cfg, freqs_cis=freqs, rope_split=True)
+    assert fa.launch_counts["qk_norm_rope"] == counts["qk_norm_rope"] + 1
+    assert fa.launch_counts["flash_bounded_sm90"] == counts["flash_bounded_sm90"] + 1
+    monkeypatch.setattr(tdit, "qk_norm_rope_supports", lambda *a: False)
+    ref = tdit._attention(attn1, x, cfg, freqs_cis=freqs, rope_split=True)
+    assert fa.launch_counts["qk_norm_rope"] == counts["qk_norm_rope"] + 1
+    share = (out == ref).float().mean().item()
+    print(f"attention through M against the chain: {share:.6f} equal")
+    top = ref.float().abs().max()
+    assert (out.float() - ref.float()).abs().max() <= _bf16_ulp(top)
+
+
 # the kernel launch counters of each op span of the render path
 SPAN_LAUNCHES = {"attn.A": ("rope_fused_attention",), "attn.B": ("fused_token_attention",),
                  "attn.C": ("flash_bounded",), "attn.D": ("flash_online",),
-                 "attn.E": ("flash_single",), "int8.H": ("w8a8_matmul",),
+                 "attn.E": ("flash_single",), "attn.M": ("qk_norm_rope",),
+                 "int8.H": ("w8a8_matmul",),
                  "int8.I": ("quantize_rows",), "int8.J": ("rms_mod_quant",),
                  "int8.K": ("act_quant",), "conv.L1": ("int8_conv3d_quant",),
                  "conv.L2": ("int8_conv3d", "int8_conv3d_sm90")}
@@ -1246,7 +1345,8 @@ SPAN_LAUNCHES = {"attn.A": ("rope_fused_attention",), "attn.B": ("fused_token_at
 
 @pytest.mark.parametrize("w8a8", [False, True])
 def test_op_spans_count_the_kernel_launches(gen, monkeypatch, w8a8):
-    """A tiny render with ``stage_times``: each op span's calls equal the
+    """A tiny render with ``stage_times``, self-attention on A and then on
+    M (A's predicate patched to refuse): each op span's calls equal the
     launches of its kernels, and the output equals the untraced one's."""
     from avatar_tpu_torch.models import dit as tdit
     from avatar_tpu_torch.models import vae as tvae
@@ -1281,10 +1381,13 @@ def test_op_spans_count_the_kernel_launches(gen, monkeypatch, w8a8):
         return pipe(params, torch.Generator(device="cuda").manual_seed(3),
                     output_type="uint8", **inputs, **kw)
 
-    stages = {}
-    assert torch.equal(call(stage_times=stages), call())
-    for span, counters in SPAN_LAUNCHES.items():
-        launched = sum(stages.get(f"launches.{c}", 0) for c in counters)
-        assert stages.get(f"{span}.n", 0) == launched, span
-    assert stages["attn.A.n"] > 0 and (stages.get("int8.H.n", 0) > 0) == w8a8
-    assert (stages.get("conv.L2.n", 0) > 0) == w8a8
+    for route in ("A", "M"):
+        if route == "M":  # A's predicate refusing, as at 5376 tokens
+            monkeypatch.setattr(tdit, "rope_fused_supports", lambda *a: False)
+        stages = {}
+        assert torch.equal(call(stage_times=stages), call())
+        for span, counters in SPAN_LAUNCHES.items():
+            launched = sum(stages.get(f"launches.{c}", 0) for c in counters)
+            assert stages.get(f"{span}.n", 0) == launched, span
+        assert stages[f"attn.{route}.n"] > 0 and (stages.get("int8.H.n", 0) > 0) == w8a8
+        assert (stages.get("conv.L2.n", 0) > 0) == w8a8

@@ -115,6 +115,9 @@ def test_launch_counts_untouched_on_cpu():
     heads = [_t(a).reshape(1, 8, 2, 64).transpose(1, 2).requires_grad_() for a in (q, k, v)]
     out = tfa.flash_attention(*heads, bounded_logits=True)
     torch.autograd.grad(out.sum(), heads)  # the flash backward's plain version
+    ang = torch.from_numpy(rng.uniform(0, 6.3, (1, 8, 64)).astype(np.float32))
+    tfa.qk_norm_rope(_t(q), _t(k), torch.ones(128), torch.ones(128), ang.cos(), ang.sin(),
+                     2, 0.125)  # kernel M's plain version
     assert set(tfa.launch_counts) == {
         "rope_fused_attention", "fused_token_attention", "rope_fused_attention_sm90",
         "rope_fused_attention_wmma", "fused_token_attention_sm90",
@@ -126,7 +129,8 @@ def test_launch_counts_untouched_on_cpu():
         "flash_dense_forward", "flash_dense_bwd_dkv", "flash_dense_bwd_dq",
         "flash_dense_bwd_db", "flash_dense_fwd_sm90", "flash_dense_bwd_dkv_sm90",
         "flash_dense_bwd_dq_sm90", "flash_dense_bwd_db_sm90", "flash_dense_fwd_wmma",
-        "flash_dense_bwd_dkv_wmma", "flash_dense_bwd_dq_wmma", "flash_dense_bwd_db_wmma"}
+        "flash_dense_bwd_dkv_wmma", "flash_dense_bwd_dq_wmma", "flash_dense_bwd_db_wmma",
+        "qk_norm_rope"}
     assert not any(tfa.launch_counts.values())
 
 
