@@ -13,7 +13,11 @@ or a transformer-only export with ``vae_checkpoint_path``), and, with
 an already parsed config and returns the cropped uint8 frames;
 :func:`write_outputs` writes them (PIL / cv2); :func:`infer` does both.
 ``quantization_vae`` (any true value, e.g. "w8a8") builds the pipeline
-with the W8A8 VAE. ``--text`` with a reference image renders the pose
+with the W8A8 VAE. ``pipeline_type: wan-i2v`` runs Wan2.1 image-to-video
+instead (:func:`load_wan_pipeline`, ``pipelines/wan_i2v.py``): the
+reference image is the first conditioning media path, and the
+``prompt_embeds_path`` safetensors holds the umT5-XXL caption embeddings
+and the image's CLIP tokens (``clip_embeds``). ``--text`` with a reference image renders the pose
 frames itself (``pipelines/pose_frames.py``: face detection, Coqui TTS,
 FaceFormer on the card, landmark frames; ``--faceformer_checkpoint`` and
 ``--flame_template`` name its files).
@@ -131,10 +135,57 @@ def create_ltx_video_pipeline(
         quantize_vae=quantize_vae or False, scan_blocks=scan_blocks, device=device)
 
 
+def _load_state(path: str) -> dict:
+    """A state dict from a safetensors file, a directory of safetensors
+    shards, or a PyTorch pickle (``.pth``, tensors only)."""
+    from avatar_tpu_torch.utils.safetensors_io import load_safetensors
+
+    path = Path(path)
+    if path.is_dir():
+        state = {}
+        for shard in sorted(path.glob("*.safetensors")):
+            state.update(load_safetensors(shard)[0])
+        return state
+    if path.suffix == ".safetensors":
+        return load_safetensors(path)[0]
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_wan_pipeline(pipeline_config: dict, device="cuda"):
+    """The Wan2.1 I2V pipeline of a ``pipeline_type: wan-i2v`` yaml: the DiT's
+    published state dict at ``checkpoint_path`` (a file or a directory of
+    shards) with its ``config.json`` at ``config_path`` (the published 480P
+    model's without one), the VAE's at ``vae_checkpoint_path``, with the
+    latent statistics of the yaml's ``vae`` group (``latents_mean``,
+    ``latents_std``) or else the published VAE's (a ``vae`` group of other
+    than 16 latent channels without its own raises)."""
+    import json
+
+    from avatar_tpu_torch.models.wan import WanConfig
+    from avatar_tpu_torch.models.wan_vae import WanVAEConfig
+    from avatar_tpu_torch.pipelines.wan_i2v import WanI2VPipeline
+    from avatar_tpu_torch.utils.weight_import import wan_params_from_state_dict
+
+    dtype = torch.float32 if pipeline_config.get("precision") == "float32" else torch.bfloat16
+    cfg = WanConfig()
+    if pipeline_config.get("config_path"):
+        cfg = WanConfig.from_dict(json.loads(Path(pipeline_config["config_path"]).read_text()))
+    vcfg = (WanVAEConfig.from_dict(pipeline_config["vae"]) if pipeline_config.get("vae")
+            else WanVAEConfig()).published_stats()
+    dit = wan_params_from_state_dict(_load_state(pipeline_config["checkpoint_path"]),
+                                     device=device, dtype=dtype)
+    vae = wan_params_from_state_dict(_load_state(pipeline_config["vae_checkpoint_path"]),
+                                     device=device, dtype=dtype)
+    return WanI2VPipeline(cfg, dit, vcfg, vae, device=device, dtype=dtype)
+
+
 def load_pipeline(pipeline_config: dict, device="cuda"):
     """The pipeline the yaml describes: :func:`create_ltx_video_pipeline`,
     wrapped in the two-pass multi-scale pipeline with its latent upsampler
-    for ``pipeline_type: multi-scale``."""
+    for ``pipeline_type: multi-scale``; :func:`load_wan_pipeline` for
+    ``pipeline_type: wan-i2v``."""
+    if pipeline_config.get("pipeline_type") == "wan-i2v":
+        return load_wan_pipeline(pipeline_config, device=device)
     pipeline = create_ltx_video_pipeline(
         pipeline_config["checkpoint_path"],
         precision=pipeline_config.get("precision", "bfloat16"),
@@ -196,6 +247,64 @@ _STG_MODES = {
 }
 
 
+def generate_wan(config: InferenceConfig, pipeline_config: dict, pipeline=None,
+                 conditioning: Optional[Sequence] = None) -> np.ndarray:
+    """:func:`generate` for ``pipeline_type: wan-i2v``: the yaml's frames,
+    height and width (the published 81 x 480 x 832 by default; they set
+    ``config``'s), its steps, guidance and shift; the reference image from
+    ``conditioning[0]`` ([1, 1, H, W, 3] in [-1, 1]) or the first
+    conditioning media path; from ``prompt_embeds_path``: ``prompt_embeds``
+    [1, L, 4096] (rows where ``prompt_attention_mask`` is 0 zeroed, padded
+    with zero rows to the model's text length), optionally the negative
+    ones, and ``clip_embeds`` [1, 257, 1280]. Returns uint8 frames [B, F,
+    H, W, 3] on the host."""
+    from avatar_tpu_torch.data.media import load_media_file
+    from avatar_tpu_torch.pipelines.wan_i2v import WanGenerationParams
+    from avatar_tpu_torch.utils.safetensors_io import load_safetensors
+
+    seed_everything(config.seed)
+    config.num_frames = pipeline_config.get("num_frames", 81)
+    config.height = pipeline_config.get("height", 480)
+    config.width = pipeline_config.get("width", 832)
+    if pipeline is None:
+        pipeline = load_pipeline(pipeline_config, device=config.device)
+    device = pipeline.device
+    if conditioning is None:
+        if not config.conditioning_media_paths:
+            raise ValueError("wan-i2v needs the reference image as the first "
+                             "conditioning_media_paths entry")
+        image = load_media_file(config.conditioning_media_paths[0], config.height,
+                                config.width, (0, 0, 0, 0))[:, :1]
+    else:
+        image = conditioning[0]
+    if not config.prompt_embeds_path:
+        raise ValueError("wan-i2v takes its umT5 and CLIP embeddings from prompt_embeds_path "
+                         "(prompt_embeds, clip_embeds): the port has no umT5 or CLIP encoder")
+    t, _ = load_safetensors(config.prompt_embeds_path)
+    text_len = pipeline.dit_cfg.text_len
+
+    def padded(name):
+        if name not in t:
+            return None
+        e = t[name].float()
+        mask = t.get(name.replace("embeds", "attention_mask"))
+        if mask is not None:
+            e = e * mask.float()[..., None]
+        return torch.nn.functional.pad(e, (0, 0, 0, text_len - e.shape[1])).to(device)
+
+    params = WanGenerationParams(
+        height=config.height, width=config.width, num_frames=config.num_frames,
+        num_inference_steps=pipeline_config.get("num_inference_steps", 40),
+        guidance_scale=pipeline_config.get("guidance_scale", 5.0),
+        shift=pipeline_config.get("shift", 3.0))
+    generator = torch.Generator(device=device).manual_seed(config.seed)
+    frames = pipeline(params, generator, torch.as_tensor(image).to(device),
+                      padded("prompt_embeds"), t["clip_embeds"].to(device),
+                      negative_text_embeds=padded("negative_prompt_embeds"),
+                      output_type="uint8")
+    return frames.cpu().numpy()
+
+
 def generate(config: InferenceConfig, pipeline_config: dict, pipeline=None,
              conditioning: Optional[Sequence] = None) -> np.ndarray:
     """One run of the CLI's pipeline from a parsed yaml: the cropped uint8
@@ -207,6 +316,8 @@ def generate(config: InferenceConfig, pipeline_config: dict, pipeline=None,
     H, W, 3]; padded, in [-1, 1]); the frames then follow the pose frames'
     count, as they follow the folder's. The noise comes from a generator on
     the pipeline's device seeded with ``config.seed``."""
+    if pipeline_config.get("pipeline_type") == "wan-i2v":
+        return generate_wan(config, pipeline_config, pipeline, conditioning)
     from avatar_tpu_torch.data.media import calculate_padding, load_media_file, unpad_media
     from avatar_tpu_torch.models.dit import SkipLayerStrategy
     from avatar_tpu_torch.pipelines.pipeline import GenerationParams

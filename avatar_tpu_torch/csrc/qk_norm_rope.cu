@@ -19,13 +19,20 @@
 // where T() rounds to the element type (bf16: to nearest even; f32: none).
 // Every product and sum is rounded on its own (no fused multiply-add), as
 // the eager passes round them, and rsqrtf is the function torch.rsqrt
-// calls on the card. Only the order of the sum of squares differs from
+// calls on the card; the mean is the sum times the f32 reciprocal of the
+// width, as torch's mean reduction computes it. Only the order of the sum of squares differs from
 // torch's reduction, which can move r by an f32 ulp; in bf16 that reaches
 // an output only where it crosses a rounding boundary (one bf16 ulp on a
 // few elements in 10^5).
 // Pair i of the row (x1[i], x2[i], cos[i], sin[i]) lands in head
 // h = i / (d/2) at out[h d + i mod (d/2)] and out[h d + d/2 + i mod (d/2)]:
 // the per-head [x1_h | x2_h] order whose head-major view C reads in place.
+//
+// Tables: either one pair [table_rows, width / 2] in the global split-half
+// order (LTX-Video's RoPE over the whole width), or, with head_tables, one
+// pair [table_rows, d / 2] that every head shares (Wan2.1's per-head RoPE:
+// pair i of the row reads table column i mod (d/2)). The head tables are
+// read inside the pair loop, from the cache: a row of them is d bytes.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes. At the DiT's long shape, q and
 // k [5376, 2048] bf16 (44 MB) and the tables [5376, 1024] twice (22 MB)
@@ -102,10 +109,10 @@ __device__ __forceinline__ void norm_rotate(float x1, float x2, float r, float w
 }
 
 // q, k, q_out, k_out [rows, width]; wq, wk [width]; cos_t, sin_t
-// [table_rows, width / 2], token r reading table row r % table_rows. Warp
-// pair p of a CTA takes token blockIdx.x * kPairs + p: its even warp q,
-// its odd warp k.
-template <typename T, int kGroups>
+// [table_rows, width / 2] (kHeadTable: [table_rows, half_head]), token r
+// reading table row r % table_rows. Warp pair p of a CTA takes token
+// blockIdx.x * kPairs + p: its even warp q, its odd warp k.
+template <typename T, int kGroups, bool kHeadTable>
 __global__ void __launch_bounds__(kThreads)
 qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ wq, const T* __restrict__ wk,
@@ -122,7 +129,7 @@ qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = width / 2;
   const int n = half / V;  // 16-byte groups of a half row
   const int64_t base = r * width;
-  const int64_t tbase = (r % table_rows) * half;
+  const int64_t tbase = (r % table_rows) * (kHeadTable ? half_head : half);
   const uint4* src = reinterpret_cast<const uint4*>((is_k ? k : q) + base);
   const uint4* w4 = reinterpret_cast<const uint4*>(is_k ? wk : wq);
   const uint4* ct = reinterpret_cast<const uint4*>(cos_t + tbase);
@@ -138,8 +145,10 @@ qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (g >= n) continue;
     x[0][c] = __ldg(src + g);
     x[1][c] = __ldg(src + n + g);
-    cs[c] = __ldg(ct + g);
-    sn[c] = __ldg(st + g);
+    if (!kHeadTable) {
+      cs[c] = __ldg(ct + g);
+      sn[c] = __ldg(st + g);
+    }
   }
 
   float ss = 0.0f;
@@ -154,8 +163,7 @@ qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ss = __fadd_rn(ss, __fmul_rn(v, v));
       }
   }
-  // torch's mean multiplies the sum by 1 / width (exact for the DiT's
-  // power-of-two widths), then adds eps
+  // torch's mean multiplies the sum by the f32 1 / width, then adds eps
   const float inv_width = 1.0f / static_cast<float>(width);
   const float rr = rsqrtf(__fadd_rn(__fmul_rn(warp_sum(ss), inv_width), eps));
 
@@ -167,6 +175,11 @@ qk_norm_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int head = i / half_head;
     const int o = head * 2 * half_head + (i - head * half_head);
     const uint4 w1 = __ldg(w4 + g), w2 = __ldg(w4 + n + g);
+    if (kHeadTable) {
+      const int tg = (i - head * half_head) / V;  // the group's column group of a head
+      cs[c] = __ldg(ct + tg);
+      sn[c] = __ldg(st + tg);
+    }
     uint4 out1, out2;
 #pragma unroll
     for (int e = 0; e < V; ++e) {
@@ -185,9 +198,11 @@ template <typename T, int kGroups>
 static cudaError_t launch(const void* q, const void* k, const void* wq, const void* wk,
                           const void* cos_t, const void* sin_t, void* q_out, void* k_out,
                           int64_t rows, int64_t table_rows, int width, int half_head,
-                          float eps, float q_scale, cudaStream_t stream) {
+                          float eps, float q_scale, bool head_tables, cudaStream_t stream) {
   const int64_t blocks = (rows + kPairs - 1) / kPairs;
-  qk_norm_rope_kernel<T, kGroups><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  auto kernel = head_tables ? qk_norm_rope_kernel<T, kGroups, true>
+                            : qk_norm_rope_kernel<T, kGroups, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(wq),
       static_cast<const T*>(wk), static_cast<const T*>(cos_t), static_cast<const T*>(sin_t),
       static_cast<T*>(q_out), static_cast<T*>(k_out), rows, table_rows, width, half_head, eps,
@@ -195,12 +210,13 @@ static cudaError_t launch(const void* q, const void* k, const void* wq, const vo
   return cudaGetLastError();
 }
 
-// Groups a lane holds: the least of 1, 2, 4, 8 that covers a half row.
+// Groups a lane holds: the least of 1, 2, 4, 8, 10 that covers a half row
+// (10: Wan2.1's 5120 wide rows in bf16).
 template <typename T>
 static cudaError_t dispatch(const void* q, const void* k, const void* wq, const void* wk,
                             const void* cos_t, const void* sin_t, void* q_out, void* k_out,
                             int64_t rows, int64_t table_rows, int width, int heads, float eps,
-                            float q_scale, cudaStream_t st) {
+                            float q_scale, bool ht, cudaStream_t st) {
   constexpr int V = Elem<T>::kVec;
   if (rows <= 0 || table_rows <= 0 || heads <= 0 || width <= 0 || width % heads)
     return cudaErrorInvalidValue;
@@ -209,34 +225,40 @@ static cudaError_t dispatch(const void* q, const void* k, const void* wq, const 
   const int per_lane = (width / 2 / V + 31) / 32;
   if (per_lane <= 1)
     return launch<T, 1>(q, k, wq, wk, cos_t, sin_t, q_out, k_out, rows, table_rows, width,
-                        half_head, eps, q_scale, st);
+                        half_head, eps, q_scale, ht, st);
   if (per_lane <= 2)
     return launch<T, 2>(q, k, wq, wk, cos_t, sin_t, q_out, k_out, rows, table_rows, width,
-                        half_head, eps, q_scale, st);
+                        half_head, eps, q_scale, ht, st);
   if (per_lane <= 4)
     return launch<T, 4>(q, k, wq, wk, cos_t, sin_t, q_out, k_out, rows, table_rows, width,
-                        half_head, eps, q_scale, st);
+                        half_head, eps, q_scale, ht, st);
   if (per_lane <= 8)
     return launch<T, 8>(q, k, wq, wk, cos_t, sin_t, q_out, k_out, rows, table_rows, width,
-                        half_head, eps, q_scale, st);
+                        half_head, eps, q_scale, ht, st);
+  if (per_lane <= 10)
+    return launch<T, 10>(q, k, wq, wk, cos_t, sin_t, q_out, k_out, rows, table_rows, width,
+                         half_head, eps, q_scale, ht, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace avatar_qknr
 
 // C entry for ctypes: q, k, q_out, k_out [rows, width], wq, wk [width],
-// cos_t, sin_t [table_rows, width / 2], all contiguous, 16-byte aligned,
-// bf16 (in_f32 = 0) or f32; rows a multiple of table_rows. Returns the
-// cudaError_t of the launch.
+// cos_t, sin_t [table_rows, width / 2] (head_tables = 0) or [table_rows,
+// width / heads / 2] shared by every head (head_tables = 1), all
+// contiguous, 16-byte aligned, bf16 (in_f32 = 0) or f32; rows a multiple
+// of table_rows. Returns the cudaError_t of the launch.
 extern "C" int qk_norm_rope(const void* q, const void* k, const void* wq, const void* wk,
                             const void* cos_t, const void* sin_t, void* q_out, void* k_out,
                             long long rows, long long table_rows, int width, int heads,
-                            float eps, float q_scale, int in_f32, void* stream) {
+                            float eps, float q_scale, int in_f32, int head_tables,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool ht = head_tables != 0;
   return static_cast<int>(
       in_f32 ? avatar_qknr::dispatch<float>(q, k, wq, wk, cos_t, sin_t, q_out, k_out, rows,
-                                            table_rows, width, heads, eps, q_scale, st)
+                                            table_rows, width, heads, eps, q_scale, ht, st)
              : avatar_qknr::dispatch<__nv_bfloat16>(q, k, wq, wk, cos_t, sin_t, q_out, k_out,
                                                     rows, table_rows, width, heads, eps,
-                                                    q_scale, st));
+                                                    q_scale, ht, st));
 }

@@ -102,7 +102,7 @@ SINGLE_BLOCK_MAX = 1024
 # the DiT's q/k norm eps (its block norms take cfg.norm_eps)
 QK_NORM_EPS = 1e-5
 # groups of 16 bytes of a half row that a lane of kernel M holds at most
-QK_NORM_ROPE_MAX_GROUPS = 8
+QK_NORM_ROPE_MAX_GROUPS = 10
 
 # Launches of each CUDA kernel; a wrapper adds one where it launches.
 # rope_fused_attention (A), fused_token_attention (B), flash_bounded /
@@ -212,7 +212,7 @@ def qk_norm_rope_supports(c: int, heads: int, dtype) -> bool:
     ``heads``: bf16 or f32, a head dim that holds whole 16-byte groups in
     each half (a multiple of 16 in bf16, of 8 in f32) and a half row of at
     most ``QK_NORM_ROPE_MAX_GROUPS`` groups a lane of a warp (bf16 up to
-    4096 wide, f32 up to 2048)."""
+    5120 wide, f32 up to 2560)."""
     if dtype not in DTYPE_NAMES or c % heads:
         return False
     vec = 16 // dtype.itemsize  # values in 16 bytes
@@ -262,14 +262,26 @@ def _rope_attention_plain(q, k, v, cos_s, sin_s, heads, scale, bounded):
     return _token_attention_plain(qr, kr, v, None, heads, scale, bounded)
 
 
-def _qk_norm_rope_plain(q, k, q_weight, k_weight, cos_s, sin_s, heads, q_scale):
+def head_tables(cos_s: torch.Tensor, c: int, heads: int) -> bool:
+    """Whether RoPE tables [.., L, w] are per-head ones that every head
+    shares (w = the head dim's half, Wan2.1's RoPE) rather than the global
+    split-half ones (w = c / 2); with one head the two are the same."""
+    return heads > 1 and cos_s.shape[-1] == c // heads // 2
+
+
+def _qk_norm_rope_plain(q, k, q_weight, k_weight, cos_s, sin_s, heads, q_scale,
+                        eps=QK_NORM_EPS):
     """Plain version of kernel M: the chain it replaces, op for op, for q
-    and k: ``rms_norm`` (eps 1e-5, the DiT's q/k norm), the split-half
-    RoPE in f32 rounded once, the per-head [x1_h | x2_h] order, and for q
-    the multiply by ``q_scale`` (a power of two, exact; 1 leaves q)."""
+    and k: ``rms_norm`` (eps 1e-5, the LTX DiT's q/k norm, unless ``eps``
+    says otherwise), the split-half RoPE in f32 rounded once, the per-head
+    [x1_h | x2_h] order, and for q the multiply by ``q_scale`` (a power of
+    two, exact; 1 leaves q). Per-head tables (:func:`head_tables`) are
+    repeated over the heads first."""
+    if head_tables(cos_s, q.shape[-1], heads):
+        cos_s, sin_s = cos_s.repeat(1, 1, heads), sin_s.repeat(1, 1, heads)
 
     def prologue(t, w):
-        t = rms_norm(t, w, eps=QK_NORM_EPS)
+        t = rms_norm(t, w, eps=eps)
         return split_to_head_major(apply_rotary_emb_split(t, (cos_s, sin_s)), heads)
 
     q = prologue(q, q_weight)
@@ -599,11 +611,14 @@ def qk_norm_rope(
     sin_s: torch.Tensor,
     heads: int,
     scale: float,
+    eps: float = QK_NORM_EPS,
 ) -> Tuple[torch.Tensor, torch.Tensor, float]:
     """Self-attention's q/k prologue where RoPE runs before a head-major
     kernel (kernel M, ``csrc/qk_norm_rope.cu``): q and k [B, L, C] in the
-    global split-half order, their RMS norms' scales [C], the split tables
-    cos_s / sin_s [B or 1, L, C/2]. Returns (q', k', the scale left for the
+    global split-half order, their RMS norms' scales [C] (and ``eps``), the
+    split tables cos_s / sin_s [B or 1, L, C/2], or per-head ones [B or 1,
+    L, C/heads/2] that every head shares (:func:`head_tables`; Wan2.1's
+    RoPE). Returns (q', k', the scale left for the
     attention): q' and k' [B, L, C] normed, rotated and in the per-head
     [x1_h | x2_h] order of :func:`split_to_head_major`, whose head-major
     views the Hopper C reads in place; a power-of-two ``scale`` is folded
@@ -613,9 +628,10 @@ def qk_norm_rope(
     folded = _folds(scale)
     q_scale, left = (scale, 1.0) if folded else (1.0, scale)
     if _wrapper_device(q) == "cpu":
-        return (*_qk_norm_rope_plain(q, k, q_weight, k_weight, cos_s, sin_s, heads, q_scale),
-                left)
+        return (*_qk_norm_rope_plain(q, k, q_weight, k_weight, cos_s, sin_s, heads, q_scale,
+                                     eps), left)
     b, l, c = q.shape
+    per_head = head_tables(cos_s, c, heads)
     if not qk_norm_rope_supports(c, heads, q.dtype):
         raise ValueError(f"qk_norm_rope: width {c} over {heads} heads in {q.dtype} "
                          "is not one kernel M takes")
@@ -625,18 +641,19 @@ def qk_norm_rope(
     for name, t in (("q_weight", q_weight), ("k_weight", k_weight)):
         _check_cuda(name, t, (c,), q.dtype)
     for name, t in (("cos", cos_s), ("sin", sin_s)):
-        _check_cuda(name, t, (cos_s.shape[0] if cos_s.shape[0] == 1 else b, l, c // 2),
-                    q.dtype)
+        _check_cuda(name, t, (cos_s.shape[0] if cos_s.shape[0] == 1 else b, l,
+                              c // heads // 2 if per_head else c // 2), q.dtype)
     q_out, k_out = torch.empty_like(q), torch.empty_like(k)
     fn = getattr(load("qk_norm_rope"), "qk_norm_rope")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), q_weight.data_ptr(), k_weight.data_ptr(),
              cos_s.data_ptr(), sin_s.data_ptr(), q_out.data_ptr(), k_out.data_ptr(),
-             b * l, cos_s.shape[0] * l, c, heads, QK_NORM_EPS, q_scale,
-             int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
+             b * l, cos_s.shape[0] * l, c, heads, eps, q_scale,
+             int(q.dtype == torch.float32), int(per_head),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "qk_norm_rope")
     launch_counts["qk_norm_rope"] += 1
     return q_out, k_out, left

@@ -633,3 +633,43 @@ def save_single_file_checkpoint(
     if scheduler_config is not None:
         configs["scheduler"] = scheduler_config
     save_safetensors(tensors, path, metadata={"config": json.dumps(configs)})
+
+
+# ---------------------------------------------------------------------------
+# Wan2.1 (models/wan.py, models/wan_vae.py): the published state dicts
+# ---------------------------------------------------------------------------
+
+# the Sequential / ModuleList names whose children are numbered 0 .. n - 1
+WAN_LISTS = frozenset({"blocks", "downsamples", "upsamples", "middle"})
+
+
+def wan_params_from_state_dict(state: Dict[str, Any], device=None,
+                               dtype: Optional[torch.dtype] = None) -> dict:
+    """The nested tree of a published Wan2.1 state dict (the DiT's
+    ``diffusion_pytorch_model*.safetensors`` or the VAE's ``Wan2.1_VAE.pth``
+    keys): ``blocks.3.self_attn.q.weight`` -> ``tree["blocks"][3]["self_attn"]
+    ["q"]["weight"]``, every tensor in its published shape (moved to
+    ``device`` / ``dtype`` where given). The tree stays unpermuted:
+    ``pipelines/wan_i2v.py`` makes the split-RoPE layout of self-attention
+    itself, once (``models/wan.py:permute_wan_params_for_split_rope``: the
+    per-head interleaved RoPE pairs to split halves)."""
+    tree: dict = {}
+    for key, value in state.items():
+        t = torch.as_tensor(value)
+        if device is not None or dtype is not None:
+            t = t.to(device=device, dtype=dtype)
+        node, parts = tree, key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t
+
+    def lists(node, name=""):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v, k) for k, v in node.items()}
+        if name in WAN_LISTS:
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
+

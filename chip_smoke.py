@@ -71,6 +71,12 @@ Phases, each printing one JSON line as soon as it has its numbers:
    small ragged shapes, bf16 at head dims 32, 80, 128, 256 (and 512 for
    C-G) and f32 at 64 and 128, against the plain versions, with the
    variants' build seconds and C's and D's times at 5376 tokens;
+   wan_kernels: the Wan2.1 I2V path's kernels at its 480p cell's shapes
+   against their plain versions (M's per-head table mode at [1, 32760,
+   5120]; C through the router at [1, 40, 32760, 128] for self-attention
+   and to 512 and 257 keys; the WMMA D at the VAE's [1, 1, 6240, 384]),
+   each timed beside its bound, and the launches of a one-block Wan
+   pipeline at that size;
 4. reference: a tiny pipeline at guidance 1 in bf16 on the card against the
    same pipeline in f32 on the CPU (plain kernel versions), once as it is
    and once with the timestep rounded as a bf16 run rounds it, and in bf16
@@ -2136,6 +2142,201 @@ def check_qk_norm_rope_kernel(peaks):
           "chain_events_ms": time_ms(chain, reps=5, batches=3),
           "chain_kernels_per_call": chain_kernels, "shape": [1, LONG_TOKENS, WIDTH]})
     return row
+
+
+# Wan2.1-I2V's 480p cell: 81 frames at 480 x 832, a 21 x 60 x 104 latent
+# patched to 21 x 30 x 52 tokens, 40 heads of 128 over 5120 channels, 512
+# text and 257 image keys; the VAE's middle attention is one head of 384
+# over a latent frame's 60 x 104 positions
+WAN_GRID = (21, 30, 52)
+WAN_TOKENS = 21 * 30 * 52
+WAN_WIDTH, WAN_HEADS = 5120, 40
+WAN_CROSS = (512, 257)
+WAN_VAE_TOKENS, WAN_VAE_DIM = 60 * 104, 384
+# the launches of one Wan block (M once, C three times: self, text, image)
+# and of the VAE's attention a video (once a latent frame to encode and
+# once to decode)
+WAN_BLOCK_LAUNCHES = {"qk_norm_rope": 1, "flash_bounded": 3, "flash_bounded_sm90": 3}
+WAN_VAE_LAUNCHES = {"flash_online": 2 * WAN_GRID[0], "flash_online_wmma": 2 * WAN_GRID[0]}
+# M at Wan's width, in ulps of each element's rotated pair's norm: as
+# QK_PAIR_ULPS, except that a 5120-wide row's rsqrt, moved by an ulp, can
+# move both normed values of a pair (|cos| + |sin| <= sqrt 2), and the
+# normed pair's norm can sit above a power of two that its rounded outputs'
+# norm sits below, which halves the ulp the outputs are measured in:
+# 2 sqrt 2 + the two half-ulp roundings. The share of equal elements stays
+# QK_EQUAL_SHARE; the card read 2.5 ulps on one element of k in 1.7e8,
+# 99.998% equal.
+WAN_M_PAIR_ULPS = 2 * 2**0.5 + 1
+
+
+def _chunked_plain(q, k, v, scale, mode, heads=4, rows=4096):
+    """``plain_forward`` over chunks of heads and query rows (each row's
+    softmax is its own, so the chunks give the whole answer): (out, lse)."""
+    import torch
+
+    b, h, lq, d = q.shape
+    out = torch.empty(b, h, lq, d, device=q.device, dtype=q.dtype)
+    lse = torch.empty(b, h, lq, device=q.device)
+    for h0 in range(0, h, heads):
+        for r0 in range(0, lq, rows):
+            o, s = plain_forward(q[:, h0:h0 + heads, r0:r0 + rows], k[:, h0:h0 + heads],
+                                 v[:, h0:h0 + heads], None, scale, mode)
+            out[:, h0:h0 + heads, r0:r0 + rows] = o
+            lse[:, h0:h0 + heads, r0:r0 + rows] = s
+    return out, lse
+
+
+def check_wan_kernels(peaks) -> dict:
+    """The kernels of the Wan2.1 I2V path at the shapes its 480p cell gives
+    them, against their plain versions (phase ``wan_kernels``): M's per-head
+    table mode at [1, 32760, 5120] (40 heads of 128, the model's own 3-band
+    RoPE tables, eps 1e-6, the scale 1/sqrt(128) left to the attention),
+    within ``WAN_M_PAIR_ULPS`` and at least ``QK_EQUAL_SHARE`` equal; the router (``scaled_dot_product_attention``,
+    "auto", bounded logits, as ``models/wan.py`` calls it) on head-major
+    views of token-major q, k, v at [1, 40, 32760, 128] for self-attention
+    and to 512 and 257 keys for the two cross-attentions, each on C's
+    Hopper kernel, its output within ``KERNEL_ULPS`` and its lse within
+    ``LSE_TOL`` of the plain version's (a key tile of 128 dropped from
+    32,760 moves lse by 3.9e-3); the VAE's single-head attention at [1, 1,
+    6240, 384] on the WMMA D, the same way. One launch each on the named
+    kernel; time beside the bound (M's device time, the attentions' by
+    CUDA events). Then a one-block Wan pipeline at
+    the cell's size, 1 step: the launches of each kernel, which the cell's
+    8 blocks x 4 steps multiply. Returns those launches."""
+    import torch
+
+    from avatar_tpu_torch.models import wan, wan_vae
+    from avatar_tpu_torch.ops import flash_attention as fa
+    from avatar_tpu_torch.ops.attention import scaled_dot_product_attention
+    from avatar_tpu_torch.pipelines.wan_i2v import WanGenerationParams, WanI2VPipeline
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale + offset).to(bf16)
+
+    def launched(fn):
+        before = dict(fa.launch_counts)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: c - before[n] for n, c in fa.launch_counts.items() if c > before[n]}
+
+    res = {}
+    # M: q, k, their norm weights, the model's tables
+    hd = WAN_WIDTH // WAN_HEADS
+    cos, sin = wan.rope_tables(*WAN_GRID, hd, device="cuda", dtype=bf16)
+    args = (randn(1, WAN_TOKENS, WAN_WIDTH, scale=3.0), randn(1, WAN_TOKENS, WAN_WIDTH, scale=3.0),
+            randn(WAN_WIDTH, scale=0.2, offset=1.0), randn(WAN_WIDTH, scale=0.2, offset=1.0),
+            cos, sin, WAN_HEADS)
+    if not fa.head_tables(cos, WAN_WIDTH, WAN_HEADS):
+        fail("wan_kernels: M does not take the model's tables as per-head tables")
+    (q_out, k_out, left), counts = launched(
+        lambda: fa.qk_norm_rope(*args, hd**-0.5, eps=1e-6))
+    if counts != {"qk_norm_rope": 1} or left != hd**-0.5:
+        fail(f"wan_kernels: M launched {counts}, scale left {left}")
+    refs = fa._qk_norm_rope_plain(*args, 1.0, eps=1e-6)
+    m = {}
+    for name, out, ref in (("q", q_out, refs[0]), ("k", k_out, refs[1])):
+        ulps = pair_ulps(out, ref, WAN_HEADS)
+        m[name] = {"max_pair_ulps": ulps.max().item(),
+                   "over_2_ulps": int((ulps > 2.0).sum().item()),
+                   "equal_share": (out == ref).float().mean().item()}
+        del ulps
+        if not (m[name]["max_pair_ulps"] <= WAN_M_PAIR_ULPS
+                and m[name]["equal_share"] >= QK_EQUAL_SHARE):
+            fail(f"wan_kernels: M's {name} against its plain version: {m[name]}")
+    del q_out, k_out, refs
+    nbytes = (4 * WAN_TOKENS * WAN_WIDTH + 2 * WAN_TOKENS * hd // 2 + 2 * WAN_WIDTH) * 2
+    m["ms"] = device_ms(lambda: fa.qk_norm_rope(*args, hd**-0.5, eps=1e-6),
+                        "qk_norm_rope_kernel")
+    m["bound_ms"] = bound(0.0, nbytes, peaks)[0]
+    m["fraction_of_bound"] = m["bound_ms"] / m["ms"]
+    res["M 1x32760x5120 40x128 per-head tables"] = m
+    del args, cos, sin
+
+    # the attention calls: token-major tensors seen head-major, q and k
+    # normed over the full width as the model's q/k norms leave them
+    def heads_of(t, heads):
+        b, n, c = t.shape
+        return t.view(b, n, heads, c // heads).transpose(1, 2)
+
+    q = heads_of(rms_rows(randn(1, WAN_TOKENS, WAN_WIDTH)), WAN_HEADS)
+    cases = {"C self 1x40x32760x128": (q, heads_of(rms_rows(randn(1, WAN_TOKENS, WAN_WIDTH)),
+                                                   WAN_HEADS),
+                                       heads_of(randn(1, WAN_TOKENS, WAN_WIDTH), WAN_HEADS))}
+    for lk in WAN_CROSS:
+        cases[f"C cross 1x40x32760x128 to {lk}"] = (
+            q, heads_of(rms_rows(randn(1, lk, WAN_WIDTH)), WAN_HEADS),
+            heads_of(randn(1, lk, WAN_WIDTH), WAN_HEADS))
+    vae_qkv = [randn(1, 1, WAN_VAE_TOKENS, WAN_VAE_DIM, scale=0.5) for _ in range(3)]
+    cases["D VAE 1x1x6240x384"] = tuple(vae_qkv)
+    expect = {"C": {"flash_bounded": 1, "flash_bounded_sm90": 1},
+              "D": {"flash_online": 1, "flash_online_wmma": 1}}
+    errors = KernelErrors("wan attention")
+    for label, (q_, k_, v_) in cases.items():
+        kind = label[0]
+        bounded = kind == "C"
+        d = q_.shape[-1]
+        scale = d**-0.5
+        kw = dict(scale=scale, impl="auto", bounded_logits=True) if bounded else dict(impl="auto")
+        out, counts = launched(lambda: scaled_dot_product_attention(q_, k_, v_, **kw))
+        if counts != expect[kind]:
+            fail(f"wan_kernels: {label} launched {counts}, expected {expect[kind]}")
+        out2, lse = fa.flash_attention(q_, k_, v_, scale=scale, bounded_logits=bounded,
+                                       with_lse=True)
+        if not torch.equal(out, out2):
+            fail(f"wan_kernels: {label}: the router's output is not the kernel's")
+        mode = "bounded" if bounded else "online"
+        ref, ref_lse = _chunked_plain(q_, k_, v_, scale, mode)
+        errors.add(label, out, ref)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not (math.isfinite(lse_err) and lse_err <= LSE_TOL):
+            fail(f"wan_kernels: {label}: lse off its plain version's by {lse_err}")
+        b, h, lq, _ = q_.shape
+
+        def call():
+            return fa.flash_attention(q_, k_, v_, scale=scale, bounded_logits=bounded)
+
+        # milliseconds a call: CUDA events, whose host overhead is nothing
+        # beside these kernels (a profile of five 40 ms calls read half
+        # their time: it lost launches)
+        ms = time_ms(call, reps=5, batches=3)
+        bound_ms, bound_by = bound(*_attention_work(b, h, lq, k_.shape[2], d), peaks)
+        res[label] = {"launched": counts, "max_abs_err": errors.errs[label],
+                      "limit": errors.tols[label], "lse_max_abs_err": lse_err,
+                      "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "fraction_of_bound": bound_ms / ms}
+        del out, out2, lse, ref, ref_lse
+    errors.check()
+    del cases, q, vae_qkv
+    torch.cuda.empty_cache()
+
+    # one block of the published width through the whole pipeline, 1 step
+    cfg = wan.WanConfig(num_layers=1)
+    vcfg = wan_vae.WanVAEConfig()
+    pipe = WanI2VPipeline(cfg, wan.init_wan(cfg, 22, device="cuda"), vcfg,
+                          wan_vae.init_wan_vae(vcfg, 22, device="cuda"), device="cuda")
+    params = WanGenerationParams(num_inference_steps=1, guidance_scale=1.0)
+    inputs = dict(image=randn(1, 1, 480, 832, 3, scale=0.5),
+                  text_embeds=randn(1, 512, 4096), clip_embeds=randn(1, 257, 1280))
+    pipe(params, g, **inputs)
+    reset_counts()
+    t0 = time.perf_counter()
+    video = pipe(params, g, **inputs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {n: c for n, c in read_counts().items() if c}
+    want = {**WAN_BLOCK_LAUNCHES, **WAN_VAE_LAUNCHES}
+    if counts != want:
+        fail(f"wan_kernels: the one-block pipeline launched {counts}, expected {want}")
+    if tuple(video.shape) != (1, 81, 720, 832) or video.dtype != torch.uint8:
+        fail(f"wan_kernels: video {video.dtype} {tuple(video.shape)}")
+    emit({"phase": "wan_kernels", "cases": res, "pipeline_one_block": {
+        "launches": counts, "seconds": seconds, "video": list(video.shape)}})
+    del pipe, video
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _tree_to(tree, device, dtype):
@@ -6465,10 +6666,13 @@ def main() -> int:
     emit({"phase": "build_variants", "ptxas": {
         n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         for n, log in kernel_build.build_logs.items() if n not in ptxas}})
+    # the Wan2.1 I2V path's kernels at its cell's shapes (the d = 384
+    # variant D runs there came from the background build)
+    wan_launches = check_wan_kernels(peaks)
     # launches of each kernel on each driven path: the counts are set to 0
     # just before a path and read just after it
     by_path = {"attention_dense_bias": check_attention_dense_bias(),
-               "reference": check_reference()}
+               "reference": check_reference(), "wan_one_block": wan_launches}
     by_path["reference_guided"], by_path["reference_guided_f32"] = check_reference_guided()
     by_path.update({"reference_conditioned": check_reference_conditioned(),
                "reference_vae_variants": check_reference_vae_variants(),

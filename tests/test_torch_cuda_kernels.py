@@ -1297,6 +1297,57 @@ def test_qk_norm_rope_refuses_what_it_cannot_run(gen):
         fa.qk_norm_rope(q, k, wq, wk, cos[:, :8], sin[:, :8], 32, 1.0)
 
 
+def _qk_head_case(gen, length, width, heads):
+    """Kernel M's inputs with per-head tables [1, L, d/2] shared by the
+    heads (Wan2.1's RoPE)."""
+    def randn(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + offset).bfloat16()
+
+    ang = torch.rand(1, length, width // heads // 2, generator=gen, device="cuda") * 6.3
+    return (randn(1, length, width, scale=3.0), randn(1, length, width, scale=3.0),
+            randn(width, scale=0.2, offset=1.0), randn(width, scale=0.2, offset=1.0),
+            ang.cos().bfloat16(), ang.sin().bfloat16(), heads)
+
+
+def test_qk_norm_rope_head_tables_match_plain_at_the_wan_shape(gen):
+    """Kernel M's per-head table mode at Wan2.1's [1, 32760, 5120] (40 heads
+    of 128, the model's RoPE tables on its 21 x 30 x 52 grid, eps 1e-6, the
+    scale 1/sqrt(128) left for the attention) against its plain version:
+    every element within 2 sqrt 2 + 1 bf16 ulps of its rotated pair's norm
+    (``chip_smoke.WAN_M_PAIR_ULPS``: a 5120-wide row's rsqrt moved by an
+    ulp can move both values of a pair, and a pair's norm can cross a power
+    of two in rounding), at least 99.9% equal, one launch."""
+    from avatar_tpu_torch.models import wan
+
+    args = _qk_head_case(gen, 32760, 5120, 40)[:4] + wan.rope_tables(
+        21, 30, 52, 128, device="cuda") + (40,)
+    assert fa.head_tables(args[4], 5120, 40)
+    before = fa.launch_counts["qk_norm_rope"]
+    q, k, left = fa.qk_norm_rope(*args, 128**-0.5, eps=1e-6)
+    assert fa.launch_counts["qk_norm_rope"] == before + 1
+    assert left == 128**-0.5
+    refs = fa._qk_norm_rope_plain(*args, 1.0, eps=1e-6)
+    for name, out, ref in (("q", q, refs[0]), ("k", k, refs[1])):
+        share = (out == ref).float().mean().item()
+        print(f"qk_norm_rope head tables 1x32760x5120 {name}: {share:.6f} equal")
+        assert _pair_ulps(out, ref, 40).max().item() <= 2 * 2**0.5 + 1, name
+        assert share >= 0.999, (name, share)
+
+
+def test_qk_norm_rope_modes_agree_bit_for_bit_at_the_ltx_shape(gen):
+    """At the LTX long path's [1, 5376, 2048] (32 heads of 64), the
+    global-table mode that path runs and the per-head mode on the same
+    angles (tables that repeat every head) give the same bits: the new mode
+    changes nothing of the old one's arithmetic."""
+    q, k, wq, wk, cos, sin, heads = _qk_head_case(gen, 5376, 2048, 32)
+    full = (cos.repeat(1, 1, heads).contiguous(), sin.repeat(1, 1, heads).contiguous())
+    a = fa.qk_norm_rope(q, k, wq, wk, cos, sin, heads, 0.125)
+    b = fa.qk_norm_rope(q, k, wq, wk, *full, heads, 0.125)
+    assert a[2] == b[2] == 1.0
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_attention_through_m_matches_the_chain_through_c(gen, monkeypatch):
     """``_attention``'s self-attention at 1536 tokens of the 2B DiT's 32 x 64
     heads (to_out the identity, so the output is C's) through kernel M
